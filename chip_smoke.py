@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""GPU smoke run of the PyTorch port's main path: base-soft greedy captioning.
+"""GPU smoke run of the PyTorch port's main paths: base-soft and depth-soft
+greedy captioning.
 
 Run from the root of a checkout, on a machine with one CUDA card (written
 for an NVIDIA H100):
@@ -26,12 +27,27 @@ the script exits non-zero:
    launch counter must grow by one per chunk and the plain greedy version
    must not run; tokens are checked against the plain version on one
    request; per-request latency and captions/s are printed.
+6. ViT attention kernel vs its plain version at full width (Z=64*12=768,
+   N=577, d=64 bf16), unpadded and padded to N=584 with n_valid=577: max
+   and mean abs error <= one bf16 ulp of max|v| (p and the output are
+   rounded to bf16, and the f32 sums run in another order);
+7. depth-soft path: ``CaptionPipeline`` over a seeded random-weight
+   depth-soft captioner at full width (ResNet-152 bf16 at 224x224, the
+   DPT-hybrid bf16 at 384x384, ``DepthCNNEncoder`` bf16, V=9956, buckets
+   1/16/64) answers requests of 1, 16 and 64 images; the ViT attention
+   counter must grow by 12 per chunk (one per ViT block) and the greedy
+   counter by 1, and no plain version may run; the depth maps must be
+   finite and in [0, 1]; on the 16-image request the tokens are compared
+   with a run whose attention and decode take the plain versions (with the
+   errors of each stage between the two runs); the time split of one
+   64-image chunk is printed.
 
-The line before the last is a JSON object with the main path's kernel
-(the greedy decode; the step kernel of phase 3 is not launched by the main
-path, which runs the step inside the greedy kernel): its launches in phase
-5, its error and its time beside the plain version's. The last line is
-``{"ok": true, "device": {...}}``.
+The line before the last is a JSON object with the ported kernels: the
+step kernel (K1), the greedy decode (K2) and the ViT attention (K5), each
+with its launches on the two main paths of phases 5 and 7 (the step kernel
+has none: those paths run the step as a device function inside the greedy
+kernel), its error and its time beside the plain version's. The last line
+is ``{"ok": true, "device": {...}}``.
 """
 
 import json
@@ -50,6 +66,9 @@ STEP_SRC = "depth_image_captioning_pub_torch/csrc/decode_step.cu"
 SEQ_SRC = "depth_image_captioning_pub_torch/csrc/decode_seq.cu"
 STEP_TPU = "depth_image_captioning_pub_tpu/ops/pallas/decode_step.py:175"
 SEQ_TPU = "depth_image_captioning_pub_tpu/ops/pallas/decode_seq.py:287"
+VIT_SRC = "depth_image_captioning_pub_torch/csrc/vit_attention.cu"
+VIT_TPU = "depth_image_captioning_pub_tpu/ops/pallas/vit_attention.py:77"
+VIT_Z, VIT_N, VIT_D = 64 * 12, 577, 64
 
 
 def log(phase, msg):
@@ -140,6 +159,9 @@ def phase_step(smi):
         f"{err:.3e} (tol {STEP_ATOL}); kernel {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms [{smi}]; source {STEP_SRC}, replaces "
         f"{STEP_TPU}")
+    return {"name": "decode_step", "route": "cuda", "source": STEP_SRC,
+            "replaces": STEP_TPU, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms}
 
 
 def phase_seq(smi):
@@ -210,7 +232,7 @@ def phase_main_path(smi):
     from depth_image_captioning_pub_torch.ops.image_ops import (
         imagenet_normalize, to_unit_float)
     from depth_image_captioning_pub_torch.ops.kernels import (
-        decode_seq, decode_step)
+        decode_seq, decode_step, vit_attention)
     from depth_image_captioning_pub_torch.pipeline import CaptionPipeline
     dev = torch.device("cuda")
     w2i, i2w = placeholder_vocab(VOCAB)
@@ -238,6 +260,7 @@ def phase_main_path(smi):
     decode_seq.fused_greedy_decode_plain = counting_plain
     decode_seq.LAUNCHES = 0
     decode_step.LAUNCHES = 0
+    vit_attention.LAUNCHES = 0
     outputs, lines = [], []
     try:
         for req in requests:
@@ -251,7 +274,8 @@ def phase_main_path(smi):
     finally:
         decode_seq.fused_greedy_decode_plain = plain
     launches = {"decode_seq": decode_seq.LAUNCHES,
-                "decode_step": decode_step.LAUNCHES}
+                "decode_step": decode_step.LAUNCHES,
+                "vit_attention": vit_attention.LAUNCHES}
     chunks = sum(-(-len(r) // pipe.batch_size) for r in requests)
     if launches["decode_seq"] != chunks:
         raise RuntimeError(f"decode_seq launched {launches['decode_seq']} "
@@ -293,17 +317,283 @@ def phase_main_path(smi):
     return launches
 
 
+def bf16_ulp(x):
+    """One bf16 ulp at max|x| (8 significant bits)."""
+    import math
+    m = float(x.abs().max())
+    return 2.0 ** (math.floor(math.log2(m)) - 7) if m > 0 else 0.0
+
+
+def phase_vit(smi):
+    import torch
+    from depth_image_captioning_pub_torch.ops.kernels import vit_attention
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(6)
+    q, k, v = (torch.from_numpy(rng.standard_normal(
+        (VIT_Z, VIT_N + 7, VIT_D)).astype(np.float32)).to(dev, torch.bfloat16)
+        for _ in range(3))
+    scale = VIT_D ** -0.5
+    worst = 0.0
+    timed = {}
+    for n, n_valid in ((VIT_N, VIT_N), (VIT_N + 7, VIT_N)):
+        args = [t[:, :n].contiguous() for t in (q, k, v)]
+
+        def run(fn):
+            return fn(*args, scale=scale, n_valid=n_valid)
+
+        got = run(vit_attention.fused_attention)
+        torch.cuda.synchronize()
+        want = run(vit_attention.fused_attention_plain)
+        if not bool(torch.isfinite(got).all()):
+            raise RuntimeError("vit_attention kernel produced non-finite "
+                               "values")
+        diff = (got.float() - want.float()).abs()
+        tol = bf16_ulp(args[2])
+        err, mean = diff.max().item(), diff.mean().item()
+        if err > tol:
+            raise RuntimeError(f"vit_attention N={n} n_valid={n_valid}: max "
+                               f"abs err {err} > {tol}")
+        ms = cuda_ms(lambda: run(vit_attention.fused_attention), 10)
+        plain_ms = cuda_ms(lambda: run(vit_attention.fused_attention_plain),
+                           10)
+        timed[n] = (ms, plain_ms)
+        worst = max(worst, err)
+        log("vit_attention", f"Z={VIT_Z} N={n} n_valid={n_valid} d={VIT_D} "
+            f"bf16: max abs err {err:.3e}, mean {mean:.3e} (tol {tol:.3e}, "
+            f"one bf16 ulp of max|v|); kernel {ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms [{smi}]")
+    ms, plain_ms = timed[VIT_N]
+    return {"name": "vit_attention", "route": "cuda", "source": VIT_SRC,
+            "replaces": VIT_TPU, "max_abs_err": worst, "ms": ms,
+            "plain_ms": plain_ms}
+
+
+class Events:
+    """Device time of named stages, each timed on its own after a
+    warm-up: ``ms(name, fn)`` returns fn's result and records its mean
+    time over ``iters`` runs."""
+
+    def __init__(self, iters=3):
+        self.iters, self.times = iters, {}
+
+    def ms(self, name, fn):
+        import torch
+        out = fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(self.iters):
+            fn()
+        stop.record()
+        torch.cuda.synchronize()
+        self.times[name] = start.elapsed_time(stop) / self.iters
+        return out
+
+
+def phase_depth_path(smi):
+    import torch
+    from depth_image_captioning_pub_torch.cli import (
+        SPECIAL, placeholder_vocab)
+    from depth_image_captioning_pub_torch.models import decoder as dec_mod
+    from depth_image_captioning_pub_torch.models.captioner import (
+        build_captioner)
+    from depth_image_captioning_pub_torch.models.dpt import DPTDepthEstimator
+    from depth_image_captioning_pub_torch.ops.attention import (
+        project_features)
+    from depth_image_captioning_pub_torch.ops.image_ops import (
+        dpt_normalize, imagenet_normalize, resize_bilinear, to_unit_float)
+    from depth_image_captioning_pub_torch.ops.kernels import (
+        decode_seq, decode_step, vit_attention)
+    from depth_image_captioning_pub_torch.pipeline import CaptionPipeline
+    dev = torch.device("cuda")
+    w2i, i2w = placeholder_vocab(VOCAB)
+    start_id, end_id = w2i[SPECIAL.start], w2i[SPECIAL.end]
+    t0 = time.perf_counter()
+    cap = build_captioner("depth-soft", VOCAB, device=dev)
+    cap.init(torch.Generator().manual_seed(0))
+    est = DPTDepthEstimator(device=dev)
+    est.init(torch.Generator().manual_seed(1))
+    depth_fn = est.depth_fn()
+    pipe = CaptionPipeline(cap, w2i, i2w, depth_fn=depth_fn,
+                           max_length=MAX_LEN, batch_buckets=(1, 16, 64))
+    n_params = sum(p.numel() for p in cap.parameters())
+    n_dpt = sum(p.numel() for p in est.model.parameters())
+    log("depth", f"depth-soft: ResNet-152 bf16 + DepthCNNEncoder bf16 + "
+        f"decoder {n_params / 1e6:.1f}M params, DPT-hybrid bf16 at 384x384 "
+        f"{n_dpt / 1e6:.1f}M params, V={VOCAB}, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    images = np.random.default_rng(1).integers(
+        0, 256, (81, 224, 224, 3), dtype=np.uint8)
+    requests = [images[:1], images[1:17], images[17:81]]
+    for size in (1, 16, 64):          # warm-up: one call per bucket
+        pipe.caption_tokens(images[:size])
+
+    plain_calls = []
+    plains = {mod: mod.__dict__[name] for mod, name in (
+        (vit_attention, "fused_attention_plain"),
+        (decode_seq, "fused_greedy_decode_plain"))}
+
+    def counting(fn):
+        def wrapped(*args, **kwargs):
+            plain_calls.append(fn.__name__)
+            return fn(*args, **kwargs)
+        return wrapped
+
+    for mod, fn in plains.items():
+        setattr(mod, fn.__name__, counting(fn))
+    decode_seq.LAUNCHES = decode_step.LAUNCHES = vit_attention.LAUNCHES = 0
+    outputs, lines = [], []
+    try:
+        for req in requests:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            toks = pipe.caption_tokens(req)
+            dt = time.perf_counter() - t0
+            outputs.append(toks)
+            lines.append(f"{len(req)} images: {dt * 1e3:.1f} ms, "
+                         f"{len(req) / dt:.1f} caps/s")
+    finally:
+        for mod, fn in plains.items():
+            setattr(mod, fn.__name__, fn)
+    launches = {"decode_seq": decode_seq.LAUNCHES,
+                "decode_step": decode_step.LAUNCHES,
+                "vit_attention": vit_attention.LAUNCHES}
+    chunks = sum(-(-len(r) // pipe.batch_size) for r in requests)
+    want = {"decode_seq": chunks, "decode_step": 0,
+            "vit_attention": len(est.model.blocks) * chunks}
+    if launches != want:
+        raise RuntimeError(f"depth-soft launches {launches}, expected "
+                           f"{want} for {chunks} chunks")
+    if plain_calls:
+        raise RuntimeError(f"plain versions ran on the depth-soft path: "
+                           f"{sorted(set(plain_calls))}")
+    for req, toks in zip(requests, outputs):
+        if (toks.shape != (len(req), MAX_LEN) or toks.dtype != np.int32
+                or toks.min() < 0 or toks.max() >= VOCAB):
+            raise RuntimeError(f"bad tokens {toks.dtype} {toks.shape}")
+    for line in lines:
+        log("depth", f"{line} [{smi}]")
+    log("depth", f"launches {launches} for {chunks} chunks; plain calls 0")
+
+    # the 16-image request again, stage by stage, with the kernels and
+    # then with the plain versions of the attention and the decode
+    def stages(x):
+        x = to_unit_float(x)
+        feats = cap.encoder(imagenet_normalize(x))
+        depth = depth_fn(x)
+        dfeats = cap.depth_module(depth)
+        toks = cap.decoder.greedy_sample(feats, start_id, dfeats,
+                                         max_length=MAX_LEN, end_id=end_id)
+        return depth, dfeats, cap.decoder.fuse(feats, dfeats), toks
+
+    def attention_plain(q, k, v, *, scale, n_valid):
+        return plains[vit_attention](q, k, v, scale=scale, n_valid=n_valid)
+
+    x16 = torch.from_numpy(requests[1]).to(dev)
+    with torch.inference_mode():
+        got = stages(x16)
+        kernel_attention = vit_attention.fused_attention
+        vit_attention.fused_attention = attention_plain
+        dec_mod.fused_greedy_decode = plains[decode_seq]
+        try:
+            ref = stages(x16)
+        finally:
+            vit_attention.fused_attention = kernel_attention
+            dec_mod.fused_greedy_decode = decode_seq.fused_greedy_decode
+    depth = got[0]
+    if not bool(torch.isfinite(depth).all()):
+        raise RuntimeError("depth maps are not finite")
+    lo, hi = depth.min().item(), depth.max().item()
+    if lo < 0.0 or hi > 1.0:
+        raise RuntimeError(f"depth maps outside [0, 1]: [{lo}, {hi}]")
+    repeat = float((got[3].cpu().numpy() == outputs[1]).mean())
+    errs = {name: (a.float() - b.float()).abs().max().item()
+            for name, a, b in zip(("depth map", "depth features",
+                                   "fused features"), got[:3], ref[:3])}
+    agree = float((ref[3].cpu().numpy() == outputs[1]).mean())
+    log("depth", f"depth maps {tuple(depth.shape)} {depth.dtype} in "
+        f"[{lo:.4f}, {hi:.4f}], std {depth.float().std().item():.4f}")
+    log("depth", "kernels vs plain attention+decode on the 16-image "
+        "request: max abs err " + ", ".join(
+            f"{k} {v:.3e}" for k, v in errs.items())
+        + f"; token agreement {agree:.4f} (min {MIN_AGREEMENT}); the "
+        f"stage-by-stage kernel run repeats the pipeline's tokens on "
+        f"{repeat:.4f}")
+    for c in pipe(list(requests[1][:3])):
+        log("depth", f"caption: {c!r}")
+    if agree < MIN_AGREEMENT:
+        raise RuntimeError(f"depth-soft kernels vs plain agreement {agree}")
+
+    # time split of one 64-image chunk
+    ev = Events()
+    with torch.inference_mode():
+        x = to_unit_float(torch.from_numpy(requests[2]).to(dev))
+        feats = ev.ms("rgb encoder", lambda: cap.encoder(
+            imagenet_normalize(x)))
+        depth = ev.ms("dpt", lambda: depth_fn(x))
+        x_dpt = dpt_normalize(resize_bilinear(x, (est.image_size,) * 2))
+        ev.ms("dpt: resnet stages", lambda: est.model.resnet(
+            x_dpt.to(est.model.dtype)))
+        # the ViT blocks and their attention alone, on tokens of the DPT's
+        # shape: [64, 577, 768], Z = 64 * 12 heads of width 64
+        blocks = [getattr(est.model, name) for name in est.model.blocks]
+        dim, heads = blocks[0].qkv.in_features, blocks[0].heads
+        n_tok = 1 + (est.image_size // est.model.patch) ** 2
+        tokens = torch.zeros(x.shape[0], n_tok, dim, device=dev,
+                             dtype=torch.bfloat16).normal_()
+
+        def vit():
+            t = tokens
+            for blk in blocks:
+                t = blk(t)
+            return t
+
+        ev.ms("dpt: vit blocks", vit)
+        qkv = torch.zeros(3, x.shape[0] * heads, n_tok, dim // heads,
+                          device=dev, dtype=torch.bfloat16).normal_()
+        ev.ms("dpt: vit attention (K5)", lambda: [
+            vit_attention.fused_attention(
+                *qkv, scale=(dim // heads) ** -0.5, n_valid=n_tok)
+            for _ in blocks])
+        dfeats = ev.ms("depth encoder", lambda: cap.depth_module(depth))
+        dec = cap.decoder
+
+        def setup():
+            f = dec.fuse(feats, dfeats)
+            proj = project_features(dec.att_params(), f,
+                                    compute_dtype=torch.float32)
+            return f, proj, dec.init_state(f), dec.seq_weights()
+
+        f, proj, state, w = ev.ms("decoder set-up", setup)
+        ev.ms("greedy decode (K2)", lambda: decode_seq.fused_greedy_decode(
+            f.contiguous(), proj, state.h, state.c, w, max_length=MAX_LEN,
+            start_id=start_id, end_id=end_id))
+    total = sum(v for k, v in ev.times.items() if ":" not in k)
+    log("depth", "64-image chunk split (device ms, each stage timed alone): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in ev.times.items())
+        + f"; sum of stages {total:.2f} [{smi}]")
+    return launches
+
+
 def main():
     smi = phase_env()
     import torch
     phase_build()
     # the step kernel is checked and timed, but it is not a kernel of the
-    # main path: the path runs its device step inside the greedy kernel
-    phase_step(smi)
+    # main paths: they run its device step inside the greedy kernel
+    step = phase_step(smi)
     seq = phase_seq(smi)
-    seq["launches"] = phase_main_path(smi)["decode_seq"]
+    base = phase_main_path(smi)
+    vit = phase_vit(smi)
+    depth = phase_depth_path(smi)
+    for entry in (step, seq, vit):
+        counts = {"base-soft": base[entry["name"]],
+                  "depth-soft": depth[entry["name"]]}
+        entry["launches"] = sum(counts.values())
+        entry["launches_by_path"] = counts
     print(smi)
-    print(json.dumps({"kernels": [seq]}))
+    print(json.dumps({"kernels": [step, seq, vit]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

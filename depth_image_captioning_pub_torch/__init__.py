@@ -7,17 +7,19 @@ Framework-free modules (``config``, ``data.tokenizer``, ``data.vocab``,
 ``data.pipeline``, ``metrics``) are imported from the JAX package, not
 copied: they load neither JAX nor flax.
 
-This slice is base-soft greedy captioning:
+The ported paths are base-soft and depth-soft greedy captioning:
 
-``ops``       image ops, pooling, soft attention, LSTM cell, and the CUDA
-              kernels' Python wrappers (``ops.kernels``) with their plain
-              PyTorch versions.
+``ops``       image ops (incl. the DPT's resize/normalize/standardize),
+              pooling, soft attention, LSTM cell, and the CUDA kernels'
+              Python wrappers (``ops.kernels``) with their plain PyTorch
+              versions.
 ``csrc``      the hand-written CUDA C++ kernels for ``sm_90a``.
-``models``    ResNet-152 grid encoder, attention decoder, captioner.
+``models``    ResNet-152 grid encoder, DPT-hybrid depth estimator, depth
+              CNN encoder, attention decoder (add fusion), captioner.
 ``engine``    ``make_caption_fn`` / ``generate_captions``.
 ``pipeline``  ``CaptionPipeline``: uint8 arrays in, captions out.
-``utils``     ``jax_bridge.params_from_jax``: load the JAX package's
-              parameter trees.
+``utils``     ``jax_bridge.params_from_jax`` / ``dpt_params_from_jax``:
+              load the JAX package's parameter trees.
 ``cli``       ``python -m depth_image_captioning_pub_torch.cli caption``.
 """
 

@@ -1,13 +1,17 @@
 """Command-line captioning with the port's pipeline.
 
     python -m depth_image_captioning_pub_torch.cli caption \\
-        --images batch.npy [--weights params.npz] [--vocab word_to_id.pkl] \\
-        [--device cuda] [--batch-buckets 1,16,64]
+        --images batch.npy [--kind depth-soft] [--weights params.npz] \\
+        [--vocab word_to_id.pkl] [--device cuda] [--batch-buckets 1,16,64]
 
 ``--images`` is a uint8 ``.npy`` array [N, H, W, 3] (or [H, W, 3]);
-``--random N`` captions N seeded random images instead. Weights come from
-an ``.npz`` that ``utils/jax_bridge.load_npz`` reads (the JAX package's
-parameter trees) or, without ``--weights``, are drawn from ``--seed``.
+``--random N`` captions N seeded random images instead. ``--kind`` is
+``base-soft`` (default) or ``depth-soft``. Weights come from an ``.npz``
+that ``utils/jax_bridge.load_npz`` reads (the JAX package's parameter
+trees; for depth-soft also the depth encoder, its BN statistics and,
+under ``frozen/dpt``, the DPT) or, without ``--weights``, are drawn from
+``--seed``; a depth-soft run without DPT weights warns, as the JAX CLI
+does. ``--tiny-dpt`` shrinks the DPT to the tests' size (64x64 input).
 Without ``--vocab`` a placeholder vocabulary of ``--vocab-size`` words is
 used, which is only good for seeded weights. Prints one caption per line.
 """
@@ -38,6 +42,29 @@ def _ints(text: str) -> Tuple[int, ...]:
     return tuple(int(x) for x in text.split(",") if x)
 
 
+def make_depth_fn(dpt_variables=None, *, tiny: bool = False, device=None,
+                  seed: int = 0):
+    """The bf16 DPT's standardized-depth function (counterpart of the JAX
+    ``cli.make_depth_fn``). ``dpt_variables`` is the flax DPT tree
+    ({"params": ...}); without it the weights are drawn from ``seed``, with
+    the JAX CLI's warning. ``tiny`` builds the tests' DPT (``dpt.TINY_DPT``
+    at 64x64)."""
+    from depth_image_captioning_pub_torch.models.dpt import (
+        TINY_DPT, DPTDepthEstimator)
+    from depth_image_captioning_pub_torch.utils.jax_bridge import (
+        dpt_params_from_jax)
+    kw = dict(TINY_DPT, image_size=64) if tiny else {}
+    est = DPTDepthEstimator(device=device, **kw)
+    if dpt_variables is not None:
+        dpt_params_from_jax(est, dpt_variables)
+    else:
+        print("WARNING: no DPT weights found (pass DPT weights under "
+              "frozen/dpt of --weights); using random init — depth maps "
+              "will be noise", file=sys.stderr)
+        est.init(torch.Generator().manual_seed(seed))
+    return est.depth_fn()
+
+
 def build_pipeline(args: argparse.Namespace):
     from depth_image_captioning_pub_tpu.data.vocab import load_vocab
     from depth_image_captioning_pub_torch.models.captioner import (
@@ -51,14 +78,20 @@ def build_pipeline(args: argparse.Namespace):
     else:
         word_to_id, id_to_word = placeholder_vocab(args.vocab_size)
     cfg = ConfigEval()
-    cap = build_captioner("base-soft", len(word_to_id), cfg,
+    cap = build_captioner(args.kind, len(word_to_id), cfg,
                           resnet_layers=args.resnet_layers or None,
                           device=args.device)
+    frozen = {}
     if args.weights:
-        params_from_jax(cap, *load_npz(args.weights))
+        trainable, frozen, batch_stats = load_npz(args.weights)
+        params_from_jax(cap, trainable, frozen, batch_stats)
     else:
         cap.init(torch.Generator().manual_seed(args.seed))
-    return CaptionPipeline(cap, word_to_id, id_to_word,
+    depth_fn = None
+    if cap.spec.uses_depth:
+        depth_fn = make_depth_fn(frozen.get("dpt"), tiny=args.tiny_dpt,
+                                 device=args.device, seed=args.seed)
+    return CaptionPipeline(cap, word_to_id, id_to_word, depth_fn=depth_fn,
                            max_length=args.max_length,
                            batch_buckets=args.batch_buckets,
                            image_hw=(args.image_size, args.image_size))
@@ -84,6 +117,8 @@ def main(argv: Optional[List[str]] = None) -> None:
     src = c.add_mutually_exclusive_group(required=True)
     src.add_argument("--images", help="uint8 .npy [N,H,W,3] or [H,W,3]")
     src.add_argument("--random", type=int, help="caption N seeded images")
+    c.add_argument("--kind", default="base-soft",
+                   choices=("base-soft", "depth-soft"))
     c.add_argument("--weights", help=".npz of the JAX parameter trees")
     c.add_argument("--vocab", help="word_to_id.pkl")
     c.add_argument("--vocab-size", type=int, default=9956)
@@ -92,6 +127,8 @@ def main(argv: Optional[List[str]] = None) -> None:
                    else "cpu")
     c.add_argument("--resnet-layers", type=_ints, default=None,
                    help="e.g. 3,8,36,3 (ResNet-152, the default)")
+    c.add_argument("--tiny-dpt", action="store_true",
+                   help="the tests' small DPT (64x64 input)")
     c.add_argument("--image-size", type=int, default=224)
     c.add_argument("--max-length", type=int, default=30)
     c.add_argument("--batch-buckets", type=_ints, default=(1, 16, 64))

@@ -1,8 +1,11 @@
 """Batched caption generation (counterpart of the JAX
-``engine/evaluate.py``): base-soft greedy decode on one device, no caches.
+``engine/evaluate.py``): base-soft and depth-soft greedy decode on one
+device, no caches.
 
-The hot path is ``make_caption_fn``: uint8 NHWC images -> /255 and ImageNet
-normalization on the device -> frozen encoder -> whole-sequence greedy
+The hot path is ``make_caption_fn``: uint8 NHWC images -> /255 on the
+device, then (a) ImageNet normalization -> frozen RGB encoder and, for a
+depth kind, (b) ``depth_fn`` (the DPT: standardized depth maps) -> depth
+encoder; the decoder adds (b) to (a) and runs the whole-sequence greedy
 decode kernel -> token IDs.
 """
 
@@ -22,18 +25,29 @@ from depth_image_captioning_pub_torch.ops.image_ops import (
 
 
 def make_caption_fn(cap: Captioner, start_id: int, max_length: int = 30,
+                    depth_fn: Optional[Callable] = None,
                     end_id: Optional[int] = None
                     ) -> Callable[[torch.Tensor], torch.Tensor]:
     """fn(images [B,H,W,3] uint8 on the captioner's device) -> tokens
-    [B, max_length] int32 on that device. ``end_id`` (when known) turns on
+    [B, max_length] int32 on that device. ``depth_fn`` (required by depth
+    kinds, e.g. ``DPTDepthEstimator.depth_fn()``) maps the [0,1] images to
+    standardized [B,224,224,1] depth maps. ``end_id`` (when known) turns on
     <end>-padding and the early exit of the decode kernel."""
     encoder = cap.encoder_apply()
+    depth_encoder = cap.depth_encoder_apply()
     sample = cap.sample_apply()
+    if depth_encoder is not None and depth_fn is None:
+        raise ValueError(f"{cap.spec.kind} needs depth_fn")
 
     @torch.inference_mode()
     def caption_fn(images: torch.Tensor) -> torch.Tensor:
-        feats = encoder(imagenet_normalize(to_unit_float(images)))
-        return sample(feats, start_id, max_length=max_length, end_id=end_id)
+        images = to_unit_float(images)
+        feats = encoder(imagenet_normalize(images))
+        dep = None
+        if depth_encoder is not None:
+            dep = depth_encoder(depth_fn(images))
+        return sample(feats, start_id, dep, max_length=max_length,
+                      end_id=end_id)
 
     return caption_fn
 

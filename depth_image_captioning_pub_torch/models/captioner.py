@@ -1,7 +1,11 @@
 """Model assembly per configuration kind (counterpart of the JAX
-``models/captioner.py``). This slice builds ``base-soft`` only: a frozen
-ResNet-152 grid encoder and a soft-attention decoder. Every other kind
-raises ``NotImplementedError`` until its slice is ported (ROADMAP.md).
+``models/captioner.py``). This package builds ``base-soft`` (a frozen
+ResNet-152 grid encoder and a soft-attention decoder) and ``depth-soft``
+(the same, plus a ``DepthCNNEncoder`` whose features are added to the RGB
+features). The DPT that makes the depth maps is not part of the
+``Captioner``: ``make_caption_fn`` takes it as ``depth_fn``, as in the JAX
+package. Every other kind raises ``NotImplementedError`` until its slice is
+ported (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -14,10 +18,12 @@ import torch.nn as nn
 
 from depth_image_captioning_pub_tpu.config import ConfigTrain
 from depth_image_captioning_pub_torch.models.decoder import AttentionDecoder
+from depth_image_captioning_pub_torch.models.depth_encoders import (
+    DepthCNNEncoder)
 from depth_image_captioning_pub_torch.models.resnet import (
     RESNET152_LAYERS, AttentionGridEncoder)
 
-PORTED_KINDS = ("base-soft",)
+PORTED_KINDS = ("base-soft", "depth-soft")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,11 +57,12 @@ class CaptionerSpec:
 
 
 class Captioner(nn.Module):
-    """Encoder + decoder of one configuration on one device.
+    """Encoder(s) + decoder of one configuration on one device.
 
-    ``encoder_dtype`` is the conv compute/storage dtype (bf16 by default);
-    the decoder is float32, as the greedy kernel requires. ``resnet_layers``
-    shrinks the backbone for tests (default ResNet-152).
+    ``encoder_dtype`` is the conv compute/storage dtype of the RGB and depth
+    encoders (bf16 by default); the decoder is float32, as the greedy kernel
+    requires. ``resnet_layers`` shrinks the backbone for tests (default
+    ResNet-152).
     """
 
     def __init__(self, spec: CaptionerSpec, cfg: ConfigTrain,
@@ -76,20 +83,36 @@ class Captioner(nn.Module):
         self.decoder = AttentionDecoder(
             vocab_size, dim_attention=cfg.dim_attention,
             dim_embedding=cfg.dim_embedding, dim_encoder=cfg.dim_encoder,
-            dim_decoder=cfg.dim_hidden, device=self.device)
+            dim_decoder=cfg.dim_hidden, fusion=spec.fusion,
+            device=self.device)
+        self.depth_module = None
+        if spec.depth_encoder == "cnn":
+            self.depth_module = DepthCNNEncoder(
+                cfg.enc_img_size, dtype=encoder_dtype, device=self.device)
 
     def init(self, generator: torch.Generator) -> None:
         """Draw every parameter from ``generator`` with the JAX package's
-        distributions (torch defaults; U(-0.1, 0.1) embedding and head)."""
+        distributions (torch defaults; U(-0.1, 0.1) embedding and head;
+        the depth encoder's BN at scale 1, bias 0, mean 0, var 1)."""
         self.encoder.reset_parameters(generator)
         self.decoder.reset_parameters(generator)
+        if self.depth_module is not None:
+            self.depth_module.reset_parameters(generator)
 
     def encoder_apply(self) -> Callable[[torch.Tensor], torch.Tensor]:
         """normalized NHWC images -> features [B, K, 2048] (encoder dtype)."""
         return self.encoder
 
+    def depth_encoder_apply(
+            self) -> Optional[Callable[[torch.Tensor], torch.Tensor]]:
+        """standardized depth maps [B, 224, 224, 1] -> depth features
+        [B, K, 2048] (encoder dtype), on the BN running statistics; None
+        for kinds without depth."""
+        return self.depth_module
+
     def sample_apply(self) -> Callable[..., torch.Tensor]:
-        """(features, start_id, *, max_length, end_id) -> tokens [B, L]."""
+        """(features, start_id, depth_features=None, *, max_length, end_id)
+        -> tokens [B, L]."""
         return self.decoder.greedy_sample
 
 

@@ -1,5 +1,6 @@
 """Attention LSTM caption decoder (counterpart of the JAX
-``models/decoder.py``), soft attention without depth fusion.
+``models/decoder.py``), soft attention with ``"none"`` or ``"add"`` depth
+fusion (concat fusion waits for the ``mdepth-*`` slice).
 
 Parameters keep the JAX names and [in, out] layout as plain
 ``nn.Parameter``s (``att_w_enc``, ``lstm_w_ih``, ``out_w``, ...), so the
@@ -35,15 +36,23 @@ class DecoderState(NamedTuple):
     c: torch.Tensor  # [B, H]
 
 
+FUSIONS = ("none", "add")
+
+
 class AttentionDecoder(nn.Module):
-    """Soft-attention LSTM decoder without depth fusion, float32
-    parameters (hard attention and fusion wait for their slices)."""
+    """Soft-attention LSTM decoder, float32 parameters, with ``"none"`` or
+    ``"add"`` fusion of depth annotation vectors (hard attention and concat
+    fusion wait for their slices)."""
 
     def __init__(self, vocab_size: int, dim_attention: int = 128,
                  dim_embedding: int = 128, dim_encoder: int = 2048,
-                 dim_decoder: int = 128, device=None):
+                 dim_decoder: int = 128, fusion: str = "none", device=None):
         super().__init__()
+        if fusion not in FUSIONS:
+            raise NotImplementedError(f"fusion {fusion!r} is not ported yet; "
+                                      f"this package has {FUSIONS}")
         self.vocab_size = vocab_size
+        self.fusion = fusion
         self.dim_embedding = dim_embedding
         d_enc, d_att, d_dec, d_emb = (dim_encoder, dim_attention, dim_decoder,
                                       dim_embedding)
@@ -86,6 +95,15 @@ class AttentionDecoder(nn.Module):
                                self.att_w_dec, self.att_b_dec,
                                self.att_w_full[:, 0], self.att_b_full[0])
 
+    def fuse(self, features: torch.Tensor,
+             depth_features: Optional[torch.Tensor]) -> torch.Tensor:
+        """Join RGB and depth annotation vectors. ``"add"`` sums them in
+        their storage dtype (bf16 + bf16 rounds to bf16, as in the JAX
+        package), and the sum stays in that dtype for the decoder."""
+        if self.fusion == "none" or depth_features is None:
+            return features
+        return features + depth_features
+
     def init_state(self, features: torch.Tensor) -> DecoderState:
         """h0, c0 from Linear(mean(features)) chunked in two; the mean
         accumulates in f32 whatever the feature storage dtype."""
@@ -102,18 +120,21 @@ class AttentionDecoder(nn.Module):
         return DecodeSeqWeights(step, self.out_w, self.out_b[None, :],
                                 self.embed)
 
-    def greedy_sample(self, features: torch.Tensor, start_id: int, *,
+    def greedy_sample(self, features: torch.Tensor, start_id: int,
+                      depth_features: Optional[torch.Tensor] = None, *,
                       max_length: int = 30,
                       end_id: Optional[int] = None) -> torch.Tensor:
         """Batched greedy decode: tokens [B, max_length] int32.
 
-        Runs the whole-sequence kernel (ops/kernels/decode_seq.py,
+        Fuses ``depth_features`` into ``features`` (``fuse``), then runs
+        the whole-sequence kernel (ops/kernels/decode_seq.py,
         csrc/decode_seq.cu; its plain version for CPU tensors) in one call.
         ``end_id`` gives finished captions <end>-padding and stops the loop
         once every row is done; the detokenizer stops at the first <end>
         either way. Attention weights are not produced: the visualization
         path waits for a later slice.
         """
+        features = self.fuse(features, depth_features)
         proj = project_features(self.att_params(), features,
                                 compute_dtype=torch.float32)
         state = self.init_state(features)

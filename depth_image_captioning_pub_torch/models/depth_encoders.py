@@ -1,0 +1,61 @@
+"""Depth-map encoders (counterpart of the JAX ``models/depth_encoders.py``).
+
+This slice ports ``DepthCNNEncoder`` at inference: BatchNorm on its running
+statistics (eps 1e-5, f32 math), convs in the compute dtype on
+channels_last tensors. The MLP encoder and ``img_to_patch`` (the
+``mdepth-*`` kinds) wait for their slice.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from depth_image_captioning_pub_torch.models.initializers import (
+    torch_conv_kernel)
+from depth_image_captioning_pub_torch.models.resnet import FrozenBatchNorm2d
+from depth_image_captioning_pub_torch.ops.pooling import (
+    adaptive_avg_pool2d, nchw, nhwc)
+
+
+class DepthCNNEncoder(nn.Module):
+    """3-conv depth encoder: a standardized [B, 224, 224, 1] depth map ->
+    [B, 196, 2048] annotation vectors, aligned with the RGB grid.
+
+    224 -(7x7 s3 valid)-> 73 -(max3)-> 24 -(3x3)-> 22 -(max3)-> 7 -(1x1)-> 7
+    -(adaptive avg)-> 14x14. Submodule names are the flax names
+    (``conv{1,2,3}``, ``bn{1,2,3}``).
+    """
+
+    def __init__(self, enc_img_size: int = 14, *, dtype=torch.bfloat16,
+                 device=None):
+        super().__init__()
+        self.enc_img_size, self.dtype = enc_img_size, dtype
+        kw = dict(dtype=dtype, device=device)
+        self.conv1 = nn.Conv2d(1, 128, 7, stride=3, **kw)
+        self.bn1 = FrozenBatchNorm2d(128, device=device)
+        self.conv2 = nn.Conv2d(128, 512, 3, **kw)
+        self.bn2 = FrozenBatchNorm2d(512, device=device)
+        self.conv3 = nn.Conv2d(512, 2048, 1, **kw)
+        self.bn3 = FrozenBatchNorm2d(2048, device=device)
+        self.to(memory_format=torch.channels_last)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """The JAX module's init: torch-default conv kernels, zero conv
+        biases, BN scale 1, bias 0, mean 0, var 1."""
+        with torch.no_grad():
+            for conv in (self.conv1, self.conv2, self.conv3):
+                conv.weight.copy_(torch_conv_kernel(conv.weight.shape,
+                                                    generator))
+                conv.bias.zero_()
+        for bn in (self.bn1, self.bn2, self.bn3):
+            bn.reset_parameters(generator)
+
+    def forward(self, depth: torch.Tensor) -> torch.Tensor:
+        x = nchw(depth.to(self.dtype))
+        x = F.max_pool2d(F.relu(self.bn1(self.conv1(x))), 3)
+        x = F.max_pool2d(F.relu(self.bn2(self.conv2(x))), 3)
+        x = F.relu(self.bn3(self.conv3(x)))
+        x = adaptive_avg_pool2d(nhwc(x), self.enc_img_size)
+        return x.reshape(x.shape[0], self.enc_img_size ** 2, x.shape[-1])

@@ -1,11 +1,12 @@
 """Build the package's CUDA kernels with nvcc and bind them through ctypes.
 
-The sources under ``csrc/`` have a plain C interface, so one ``nvcc`` call
-compiles them into a shared library in seconds (no PyTorch headers). The
-library lands in ``build/dcap_torch_kernels/<hash of sources and flags>/``
-at the root of the checkout, at first use, and is reused while the sources
-are unchanged. Nothing is fetched; a missing ``nvcc`` or a failed build
-raises (the CUDA path never falls back to the plain PyTorch versions).
+The sources under ``csrc/`` have a plain C interface (no PyTorch headers),
+so each compiles in seconds: one ``nvcc -c`` per source, all started
+together, then one link into a shared library. The library lands in
+``build/dcap_torch_kernels/<hash of sources and flags>/`` at the root of
+the checkout, at first use, and is reused while the sources are unchanged.
+Nothing is fetched; a missing ``nvcc`` or a failed build raises (the CUDA
+path never falls back to the plain PyTorch versions).
 """
 
 from __future__ import annotations
@@ -23,11 +24,11 @@ from typing import Optional
 
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC = PKG_DIR / "csrc"
-SOURCES = ("decode_step.cu", "decode_seq.cu")
+SOURCES = ("decode_step.cu", "decode_seq.cu", "vit_attention.cu")
 HEADERS = ("decode_step.cuh",)
 BUILD_ROOT = PKG_DIR.parent / "build" / "dcap_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -36,6 +37,7 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "dcap_decode_step": [_P, _I] + [_P] * 17 + [_I] * 6 + [_P],
     "dcap_greedy_decode": [_P, _I] + [_P] * 17 + [_I] * 10 + [_P],
+    "dcap_vit_attention": [_P] * 4 + [_I] * 5 + [ctypes.c_float, _P],
 }
 
 _lock = threading.Lock()
@@ -79,23 +81,32 @@ def build() -> Path:
     if out.is_file():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
-           *[str(CSRC / s) for s in SOURCES]]
+    nvcc = nvcc_path()
     t0 = time.perf_counter()
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        objs = [os.path.join(tmp, s + ".o") for s in SOURCES]
+        logs = _nvcc([[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(CSRC / s)]
+                      for s, o in zip(SOURCES, objs)])
+        lib = os.path.join(tmp, "lib.so")
+        logs += _nvcc([[nvcc, *NVCC_FLAGS[:2], "-shared", "-o", lib, *objs]])
         BUILD_SECONDS = time.perf_counter() - t0
-        BUILD_LOG = proc.stdout + proc.stderr
+        BUILD_LOG = "".join(logs)
+        os.replace(lib, out)  # atomic: a concurrent build sees all or none
+    return out
+
+
+def _nvcc(cmds):
+    """Run the commands at the same time, wait for all; their outputs, or
+    raise with the first failure's."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    logs = [proc.communicate()[0] for proc in procs]
+    for cmd, proc, log in zip(cmds, procs, logs):
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{BUILD_LOG}")
-        os.replace(tmp, out)  # atomic: a concurrent build sees all or none
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return out
+                               f"{' '.join(cmd)}\n{log}")
+    return logs
 
 
 def load() -> ctypes.CDLL:

@@ -1,0 +1,94 @@
+"""Fused ViT attention: CUDA kernel wrapper and plain version.
+
+Counterpart of the JAX ``ops/pallas/vit_attention.py``. Over q/k/v
+[Z, N, d] (Z = batch * heads):
+
+  s   = q @ k^T * scale            f32, keys >= n_valid set to -inf
+  p   = softmax(s)                 f32, then rounded to v's dtype
+  out = p @ v                      f32 accumulation, stored in v's dtype
+
+``fused_attention`` launches ``csrc/vit_attention.cu`` (one CTA per z and
+tile of 32 query rows, the tile's score rows in shared memory) for CUDA
+tensors and ``fused_attention_plain`` for CPU tensors. The kernel takes
+d in (32, 64, 128) and any N >= 1 whose score rows fit the 227 KB of shared
+memory a block may use (n_valid up to about 1,490 at d=64); the wrapper
+raises outside that envelope, as the Pallas kernel asserts its VMEM budget.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from depth_image_captioning_pub_torch.ops.kernels import _build
+from depth_image_captioning_pub_torch.ops.kernels.decode_step import (
+    FEATURE_DTYPES, check_same_device, cuda_pointers)
+
+LAUNCHES = 0   # kernel launches of dcap_vit_attention in this process
+
+HEAD_DIMS = (32, 64, 128)
+ROWS, TILE = 32, 128             # kRows, kTile of csrc/vit_attention.cu
+SMEM_LIMIT = 232448              # bytes of shared memory a block may use
+
+
+def smem_bytes(d: int, n_valid: int) -> int:
+    """The kernel's dynamic shared memory (csrc/vit_attention.cu
+    ``smem_bytes``): Q tile, one K/V tile, the score rows."""
+    ld = (n_valid + 3) // 4 * 4
+    return 4 * (ROWS * d + d * (TILE + 1) + ROWS * ld)
+
+
+def fused_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, scale: float, n_valid: int) -> torch.Tensor:
+    """Plain PyTorch version of the kernel, the same rounding points."""
+    f32 = torch.float32
+    s = torch.matmul(q.to(f32), k.to(f32).transpose(1, 2)) * scale
+    if n_valid < s.shape[-1]:
+        s[..., n_valid:] = float("-inf")
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = p / p.sum(dim=-1, keepdim=True)
+    return torch.matmul(p.to(v.dtype).to(f32), v.to(f32)).to(v.dtype)
+
+
+def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    scale: float, n_valid: int) -> torch.Tensor:
+    """softmax(q @ k^T * scale, keys < n_valid) @ v over [Z, N, d]; returns
+    [Z, N, d] in v's dtype. CPU tensors run the plain version; CUDA tensors
+    launch the kernel or raise."""
+    global LAUNCHES
+    if q.dim() != 3 or q.shape[0] < 1 or q.shape[1] < 1:
+        raise ValueError(f"q must be [Z>=1, N>=1, d], got {tuple(q.shape)}")
+    z, n, d = q.shape
+    for name, t in (("k", k), ("v", v)):
+        if tuple(t.shape) != (z, n, d):
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                             f"{(z, n, d)}")
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name} is {t.dtype}, q is {q.dtype}")
+    if q.dtype not in FEATURE_DTYPES:
+        raise TypeError(f"q/k/v must be float32 or bfloat16, got {q.dtype}")
+    if not 1 <= n_valid <= n:
+        raise ValueError(f"n_valid must be in [1, {n}], got {n_valid}")
+    named = [("q", q), ("k", k), ("v", v)]
+    check_same_device(named, q.device)
+    if q.device.type == "cpu":
+        return fused_attention_plain(q, k, v, scale=scale, n_valid=n_valid)
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
+    if smem_bytes(d, n_valid) > SMEM_LIMIT:
+        raise ValueError(f"n_valid={n_valid} at d={d} needs "
+                         f"{smem_bytes(d, n_valid)} bytes of shared memory "
+                         f"per block, more than {SMEM_LIMIT}")
+    ptrs = cuda_pointers(named)
+    lib = _build.load()
+    out = torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.dcap_vit_attention(
+            *ptrs, out.data_ptr(), int(q.dtype == torch.bfloat16), z, n, d,
+            n_valid, float(scale), stream)
+    _build.check_launch(err, "dcap_vit_attention")
+    LAUNCHES += 1
+    return out

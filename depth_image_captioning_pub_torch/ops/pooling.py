@@ -14,23 +14,25 @@ import torch
 import torch.nn.functional as F
 
 
-def _nchw(x: torch.Tensor) -> torch.Tensor:
-    return x.permute(0, 3, 1, 2)   # a channels_last view, no copy
+def nchw(x: torch.Tensor) -> torch.Tensor:
+    """NHWC -> an NCHW view (channels_last when x is contiguous), no copy."""
+    return x.permute(0, 3, 1, 2)
 
 
-def _nhwc(x: torch.Tensor) -> torch.Tensor:
+def nhwc(x: torch.Tensor) -> torch.Tensor:
+    """NCHW -> an NHWC view, no copy."""
     return x.permute(0, 2, 3, 1)
 
 
 def adaptive_avg_pool2d(x: torch.Tensor, output_size: int) -> torch.Tensor:
     """[B, H, W, C] -> [B, out, out, C], exact nn.AdaptiveAvgPool2d math."""
-    return _nhwc(F.adaptive_avg_pool2d(_nchw(x), output_size))
+    return nhwc(F.adaptive_avg_pool2d(nchw(x), output_size))
 
 
 def max_pool2d(x: torch.Tensor, window: int, stride: Optional[int] = None,
                padding: int = 0) -> torch.Tensor:
     """[B, H, W, C] max pool; torch default stride = window, -inf padding."""
-    return _nhwc(F.max_pool2d(_nchw(x), window, stride or window, padding))
+    return nhwc(F.max_pool2d(nchw(x), window, stride or window, padding))
 
 
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:

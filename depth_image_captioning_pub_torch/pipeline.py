@@ -11,6 +11,14 @@
                            batch_buckets=(1, 16, 64))
     pipe(images_uint8)                              # -> list of captions
 
+A depth kind also needs the DPT that makes its depth maps:
+
+    est = DPTDepthEstimator(device="cuda")          # models/dpt.py
+    est.init(torch.Generator().manual_seed(0))      # or dpt_params_from_jax
+    cap = build_captioner("depth-soft", len(word_to_id), device="cuda")
+    pipe = CaptionPipeline(cap, word_to_id, id_to_word,
+                           depth_fn=est.depth_fn())
+
 A request is cut into chunks of the largest bucket, and each chunk is
 padded (with repeats of its rows) to the smallest bucket that fits; padding
 rows are dropped before detokenization, so captions do not depend on the
@@ -35,11 +43,13 @@ from depth_image_captioning_pub_torch.engine.evaluate import make_caption_fn
 
 
 class CaptionPipeline:
-    """Batched greedy captioning over one base-soft captioner."""
+    """Batched greedy captioning over one captioner (base-soft, or
+    depth-soft with its ``depth_fn``)."""
 
     def __init__(self, cap, word_to_id: Dict[str, int],
-                 id_to_word: Dict[int, str], *, max_length: int = 30,
-                 batch_buckets=(64,), image_hw=(224, 224)):
+                 id_to_word: Dict[int, str], *, depth_fn=None,
+                 max_length: int = 30, batch_buckets=(64,),
+                 image_hw=(224, 224)):
         self.cap = cap
         self.device = cap.device
         self.max_length = int(max_length)
@@ -51,7 +61,8 @@ class CaptionPipeline:
         self.image_hw = tuple(image_hw)
         self._fn = make_caption_fn(
             cap, start_id=word_to_id[SPECIAL.start],
-            max_length=self.max_length, end_id=word_to_id.get(SPECIAL.end))
+            max_length=self.max_length, depth_fn=depth_fn,
+            end_id=word_to_id.get(SPECIAL.end))
 
     def caption_tokens(self, arrays: np.ndarray) -> np.ndarray:
         """[N,H,W,3] uint8 -> [N, max_length] int32 token IDs."""

@@ -1,61 +1,80 @@
 """Load the JAX package's parameter trees into the port.
 
 The inverse direction of the JAX package's ``utils/torch_bridge.py``. The
-input is the ``(trainable, frozen)`` pair that the JAX ``Captioner.init``
-returns (or a checkpoint holds), with every leaf a numpy array:
+input is what the JAX ``Captioner.init`` returns (or a checkpoint holds),
+``(trainable, frozen, batch_stats)``, with every leaf a numpy array:
 
   trainable["decoder"][name]                    decoder params, [in, out]
+  trainable["depth_encoder"]                    depth CNN convs and BN
+                                                scale/bias (depth kinds)
+  batch_stats                                   depth CNN BN mean/var
   frozen["encoder"]["params"]["backbone"]       conv kernels HWIO, BN
                                                 scale/bias
   frozen["encoder"]["batch_stats"]["backbone"]  BN mean/var
+  frozen["dpt"]["params"]                       the DPT (JAX
+                                                ``make_caption_fn``'s frozen
+                                                tree), loaded separately by
+                                                ``dpt_params_from_jax``
 
-Layout rules: conv kernels go HWIO -> OIHW; BN ``scale``/``bias`` and
-``mean``/``var`` become ``weight``/``bias``/``running_mean``/
-``running_var``; decoder params keep their names and layout. The flax
-module names (``conv1``, ``bn1``, ``layer{s}_{b}/conv{1,2,3}``,
-``bn{1,2,3}``, ``ds_conv``, ``ds_bn``) are the port's module names, and
-loading is strict: a missing or extra tensor raises.
+Layout rules (``flax_state_dict``): conv kernels go HWIO -> OIHW, Dense
+kernels [in, out] -> ``nn.Linear``'s [out, in]; ``scale`` (BatchNorm,
+GroupNorm, LayerNorm) becomes ``weight``, ``mean``/``var`` become
+``running_mean``/``running_var``; other leaves (the DPT's ``cls_token`` and
+``pos_embed``) keep their names. Decoder params keep their names and
+layout. The flax module names are the port's module names, and loading is
+strict: a missing or extra tensor raises.
 
-``save_npz``/``load_npz`` keep the pair in one ``.npz`` file, keys being
-the tree paths joined with ``/`` under ``trainable/`` and ``frozen/``.
+``save_npz``/``load_npz`` keep the three trees in one ``.npz`` file, keys
+being the tree paths joined with ``/`` under ``trainable/``, ``frozen/``
+and ``batch_stats/``.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from collections.abc import Mapping
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 Tree = Dict[str, Any]
 
+_RENAME = {"scale": "weight", "mean": "running_mean", "var": "running_var"}
 
-def _conv_leaf(kernel) -> np.ndarray:
-    return np.ascontiguousarray(np.asarray(kernel).transpose(3, 2, 0, 1))
+
+def _kernel_leaf(kernel) -> np.ndarray:
+    """flax conv (HWIO) or Dense ([in, out]) kernel -> torch layout."""
+    k = np.asarray(kernel)
+    k = k.transpose(3, 2, 0, 1) if k.ndim == 4 else k.T
+    return np.ascontiguousarray(k)
+
+
+def flax_state_dict(params: Tree, stats: Optional[Tree] = None,
+                    prefix: str = "") -> Dict[str, np.ndarray]:
+    """A flax params tree (and its batch_stats twin) -> a torch state dict
+    of the module with the same submodule names."""
+    def join(name: str) -> str:
+        return f"{prefix}.{name}" if prefix else name
+
+    stats = stats or {}
+    out: Dict[str, np.ndarray] = {}
+    for tree in (params, stats):
+        for key, val in tree.items():
+            if isinstance(val, Mapping):
+                if tree is params:
+                    out.update(flax_state_dict(val, stats.get(key),
+                                               join(key)))
+            elif key == "kernel":
+                out[join("weight")] = _kernel_leaf(val)
+            else:
+                out[join(_RENAME.get(key, key))] = np.asarray(val)
+    return out
 
 
 def encoder_state_dict(enc_vars: Tree) -> Dict[str, np.ndarray]:
     """flax AttentionGridEncoder variables -> the port's encoder state."""
-    params = enc_vars["params"]["backbone"]
-    stats = enc_vars["batch_stats"]["backbone"]
-    out: Dict[str, np.ndarray] = {}
-
-    def leaf(prefix: str, p: Tree, s: Tree) -> None:
-        if "kernel" in p:
-            out[f"{prefix}.weight"] = _conv_leaf(p["kernel"])
-            return
-        out[f"{prefix}.weight"] = np.asarray(p["scale"])
-        out[f"{prefix}.bias"] = np.asarray(p["bias"])
-        out[f"{prefix}.running_mean"] = np.asarray(s["mean"])
-        out[f"{prefix}.running_var"] = np.asarray(s["var"])
-
-    for name, mod in params.items():
-        if name.startswith("layer"):
-            for sub, p in mod.items():
-                leaf(f"backbone.{name}.{sub}", p, stats[name].get(sub, {}))
-        else:
-            leaf(f"backbone.{name}", mod, stats.get(name, {}))
-    return out
+    return flax_state_dict(enc_vars["params"]["backbone"],
+                           enc_vars["batch_stats"]["backbone"], "backbone")
 
 
 def _load(module: torch.nn.Module, arrays: Dict[str, np.ndarray]) -> None:
@@ -64,11 +83,37 @@ def _load(module: torch.nn.Module, arrays: Dict[str, np.ndarray]) -> None:
          for k, v in arrays.items()}, strict=True)
 
 
-def params_from_jax(cap, trainable: Tree, frozen: Tree) -> None:
-    """Copy the JAX package's (trainable, frozen) trees into ``cap`` (a
-    port ``Captioner``), casting to each parameter's dtype and device."""
+def _check_keys(name: str, tree: Tree, allowed) -> None:
+    extra = set(tree) - set(allowed)
+    if extra:
+        raise KeyError(f"{name} has trees the port does not load: "
+                       f"{sorted(extra)}")
+
+
+def params_from_jax(cap, trainable: Tree, frozen: Tree,
+                    batch_stats: Optional[Tree] = None) -> None:
+    """Copy the JAX package's (trainable, frozen, batch_stats) trees into
+    ``cap`` (a port ``Captioner``), casting to each parameter's dtype and
+    device. ``frozen["dpt"]``, where present, is left to
+    ``dpt_params_from_jax``."""
+    depth = cap.depth_module
+    _check_keys("trainable", trainable,
+                ("decoder",) + (("depth_encoder",) if depth is not None
+                                else ()))
+    _check_keys("frozen", frozen, ("encoder", "dpt"))
     _load(cap.encoder, encoder_state_dict(frozen["encoder"]))
     _load(cap.decoder, dict(trainable["decoder"]))
+    if depth is not None:
+        _load(depth, flax_state_dict(trainable["depth_encoder"],
+                                     batch_stats))
+
+
+def dpt_params_from_jax(dpt, dpt_variables: Tree) -> None:
+    """Copy a flax DPT variables tree ({"params": ...}) into ``dpt`` (a
+    ``DPTDepthEstimator`` or its ``DPTDepthModel``)."""
+    _check_keys("DPT variables", dpt_variables, ("params",))
+    _load(getattr(dpt, "model", dpt),
+          flax_state_dict(dpt_variables["params"]))
 
 
 def flatten_tree(tree: Tree, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -93,12 +138,15 @@ def unflatten_tree(flat: Dict[str, np.ndarray]) -> Tree:
     return tree
 
 
-def save_npz(path: str, trainable: Tree, frozen: Tree) -> None:
-    np.savez(path, **flatten_tree({"trainable": trainable,
-                                   "frozen": frozen}))
+def save_npz(path: str, trainable: Tree, frozen: Tree,
+             batch_stats: Optional[Tree] = None) -> None:
+    np.savez(path, **flatten_tree({"trainable": trainable, "frozen": frozen,
+                                   "batch_stats": batch_stats or {}}))
 
 
-def load_npz(path: str) -> Tuple[Tree, Tree]:
+def load_npz(path: str) -> Tuple[Tree, Tree, Tree]:
+    """(trainable, frozen, batch_stats); batch_stats is {} when the file
+    has none."""
     with np.load(path) as data:
         tree = unflatten_tree({k: data[k] for k in data.files})
-    return tree["trainable"], tree["frozen"]
+    return tree["trainable"], tree["frozen"], tree.get("batch_stats", {})

@@ -11,7 +11,11 @@ JAX, so it also runs on a GPU machine without JAX:
 Tolerances: atol 1e-4 on h', c', alpha for the step (f32 sums in another
 order than cuBLAS's); greedy tokens agree on >= 99% of positions (a
 near-tie argmax may flip and the flip cascades along its row) and are
-equal when the <end> bias ends every row at step 0.
+equal when the <end> bias ends every row at step 0. ViT attention (K5):
+in f32, atol 1e-5 (sums in another order); in bf16, atol of one bf16 ulp
+of max|v| (2^-7 * max|v|; each output is a convex mix of v's rows, so
+|out| <= max|v|), because p and the output are rounded to bf16 and an f32
+sum in another order can round either way.
 """
 
 import numpy as np
@@ -21,7 +25,7 @@ import torch
 from depth_image_captioning_pub_torch.models.decoder import AttentionDecoder
 from depth_image_captioning_pub_torch.ops.attention import project_features
 from depth_image_captioning_pub_torch.ops.kernels import (
-    decode_seq, decode_step)
+    decode_seq, decode_step, vit_attention)
 
 pytestmark = pytest.mark.cuda
 
@@ -123,3 +127,49 @@ def test_kernel_wrappers_reject_strided_input(cuda):
         with pytest.raises(ValueError, match="expected"):
             decode_seq.fused_greedy_decode(feats, proj.cpu(), state.h,
                                            state.c, dec.seq_weights())
+
+
+@pytest.mark.parametrize("n,n_valid", [(1, 1), (17, 17), (577, 577),
+                                       (584, 577)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_vit_attention_matches_plain(cuda, n, n_valid, dtype):
+    rng = np.random.default_rng(n)
+    z, d = 6, 64
+    q, k, v = (torch.from_numpy(rng.standard_normal((z, n, d)).astype(
+        np.float32)).to(cuda, getattr(torch, dtype)) for _ in range(3))
+    before = vit_attention.LAUNCHES
+    got = vit_attention.fused_attention(q, k, v, scale=d ** -0.5,
+                                        n_valid=n_valid)
+    torch.cuda.synchronize()
+    assert vit_attention.LAUNCHES == before + 1
+    want = vit_attention.fused_attention_plain(q, k, v, scale=d ** -0.5,
+                                               n_valid=n_valid)
+    assert got.dtype == v.dtype and got.shape == v.shape
+    atol = 1e-5 if dtype == "float32" else 2 ** -7 * v.abs().max().item()
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+
+
+def test_vit_attention_masks_padded_keys(cuda):
+    """Keys >= n_valid get no weight: garbage there changes nothing."""
+    rng = np.random.default_rng(5)
+    q, k, v = (torch.from_numpy(rng.standard_normal((4, 40, 32)).astype(
+        np.float32)).to(cuda) for _ in range(3))
+    out = vit_attention.fused_attention(q, k, v, scale=0.2, n_valid=33)
+    k[:, 33:] = 1e4
+    v[:, 33:] = float("nan")
+    again = vit_attention.fused_attention(q, k, v, scale=0.2, n_valid=33)
+    assert torch.equal(out, again)
+
+
+def test_vit_attention_rejects_outside_envelope(cuda):
+    q = torch.zeros(2, 8, 48, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        vit_attention.fused_attention(q, q, q, scale=1.0, n_valid=8)
+    q = torch.zeros(1, 4096, 64, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        vit_attention.fused_attention(q, q, q, scale=1.0, n_valid=4096)
+    q = torch.zeros(2, 8, 64, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        vit_attention.fused_attention(q.transpose(0, 1).contiguous()
+                                      .transpose(0, 1), q, q, scale=1.0,
+                                      n_valid=8)

@@ -191,7 +191,7 @@ def test_cli_from_npz(vocab, models, images, tmp_path, capsys):
 
 def test_other_kinds_not_ported():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_captioner("depth-soft", 20, resnet_layers=LAYERS)
+        build_captioner("depth-hard", 20, resnet_layers=LAYERS)
 
 
 _NO_JAX = r"""
@@ -200,11 +200,16 @@ import depth_image_captioning_pub_torch as pkg
 for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(m.name)
 from depth_image_captioning_pub_torch import cli
-from depth_image_captioning_pub_torch.ops.kernels import decode_seq
+from depth_image_captioning_pub_torch.ops.kernels import (
+    decode_seq, vit_attention)
 cli.main(["caption", "--random", "3", "--device", "cpu", "--vocab-size",
           "30", "--resnet-layers", "1,1,1,1", "--image-size", "64",
           "--max-length", "5", "--batch-buckets", "2"])
-assert decode_seq.LAUNCHES == 0
+cli.main(["caption", "--kind", "depth-soft", "--tiny-dpt", "--random", "2",
+          "--device", "cpu", "--vocab-size", "30", "--resnet-layers",
+          "1,1,1,1", "--image-size", "64", "--max-length", "5",
+          "--batch-buckets", "2"])
+assert decode_seq.LAUNCHES == 0 and vit_attention.LAUNCHES == 0
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "PIL"))
 assert not bad, bad
@@ -219,4 +224,4 @@ def test_port_imports_no_jax():
                           timeout=300)
     assert proc.returncode == 0, proc.stderr
     lines = proc.stdout.splitlines()
-    assert lines[-1] == "NO_JAX_OK" and len(lines) == 4
+    assert lines[-1] == "NO_JAX_OK" and len(lines) == 3 + 2 + 1
