@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""GPU smoke run of the PyTorch port's main paths: base-soft and depth-soft
-greedy captioning.
+"""GPU smoke run of the PyTorch port's four main paths: base-soft,
+depth-soft and NIC greedy captioning, and base-soft beam-5 captioning.
 
 Run from the root of a checkout, on a machine with one CUDA card (written
 for an NVIDIA H100):
@@ -42,12 +42,38 @@ the script exits non-zero:
    errors of each stage between the two runs); the time split of one
    64-image chunk is printed.
 
-The line before the last is a JSON object with the ported kernels: the
-step kernel (K1), the greedy decode (K2) and the ViT attention (K5), each
-with its launches on the two main paths of phases 5 and 7 (the step kernel
-has none: those paths run the step as a device function inside the greedy
-kernel), its error and its time beside the plain version's. The last line
-is ``{"ok": true, "device": {...}}``.
+   Phase 6 also times ``F.scaled_dot_product_attention`` on the same q and
+   k/v sliced to n_valid, laid out [B, 12, N, 64]: a yardstick for K5's
+   table row, not a path of the port.
+8. NIC greedy kernel (K3) vs its plain version at full width (B=64,
+   E=300, H=128, 2 layers, V=9956, 30 steps): token agreement >= 0.99, and
+   exact equality with one token's bias raised by 100;
+9. NIC path: ``CaptionPipeline`` over a seeded random-weight ``nic``
+   captioner at full width (ResNet-152 bf16 at 224x224, V=9956, buckets
+   1/16/64) answers requests of 1, 16 and 100 images; K3's counter grows by
+   one per chunk, K2's does not, no plain version runs; one request's
+   tokens are checked against the plain version on the same features;
+10. beam kernel (K4) vs its plain version at full width (B=64, W=5,
+   V=9956, 30 steps, <end> set): best-token agreement and token and parent
+   record agreement >= 0.99, scores' max abs error <= 1e-3, and exact
+   tokens and parents (scores within 1e-3) with <end> forced and with every
+   token tied (zeroed vocab head); the kernel is also timed at W=2..5;
+11. beam path: ``CaptionPipeline(beam_size=5)`` over the base-soft
+   captioner at full width answers requests of 1, 16 and 64 images; K4's
+   counter grows by one per chunk, K2's does not, no plain version runs;
+   the 16-image request is compared with a run through the plain version.
+
+Each path (phases 5, 7, 9, 11) runs with every launch counter set to 0
+just before it and read just after. The line before the last is a JSON
+object with the five ported kernels (K1 step, K2 greedy, K3 NIC greedy, K4
+beam, K5 ViT attention): launches per path (K1 has none: the paths run the
+step as a device function inside K2 and K4), error, time beside the plain
+version's, the least time the card could take for the same work
+(``bound_ms``: the larger of the bytes moved over 3.35 TB/s and the
+operations over 67 TFLOP/s f32, or 989 TFLOP/s bf16 for K5, from this
+run's inputs) and the time of one PyTorch call computing the same function
+where there is one (``library_ms``: SDPA for K5). The last line is
+``{"ok": true, "device": {...}}``.
 """
 
 import json
@@ -62,6 +88,7 @@ VOCAB = 9956
 MAX_LEN = 30
 STEP_ATOL = 1e-4
 MIN_AGREEMENT = 0.99
+SCORE_ATOL = 1e-3   # beam scores: 30 f32 log-softmax terms summed
 STEP_SRC = "depth_image_captioning_pub_torch/csrc/decode_step.cu"
 SEQ_SRC = "depth_image_captioning_pub_torch/csrc/decode_seq.cu"
 STEP_TPU = "depth_image_captioning_pub_tpu/ops/pallas/decode_step.py:175"
@@ -69,6 +96,16 @@ SEQ_TPU = "depth_image_captioning_pub_tpu/ops/pallas/decode_seq.py:287"
 VIT_SRC = "depth_image_captioning_pub_torch/csrc/vit_attention.cu"
 VIT_TPU = "depth_image_captioning_pub_tpu/ops/pallas/vit_attention.py:77"
 VIT_Z, VIT_N, VIT_D = 64 * 12, 577, 64
+NIC_SRC = "depth_image_captioning_pub_torch/csrc/nic_seq.cu"
+NIC_TPU = "depth_image_captioning_pub_tpu/ops/pallas/nic_seq.py:178"
+BEAM_SRC = "depth_image_captioning_pub_torch/csrc/beam_seq.cu"
+BEAM_TPU = "depth_image_captioning_pub_tpu/ops/pallas/beam_seq.py:475"
+NIC_E, NIC_LAYERS = 300, 2
+BEAM = 5
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
+F32_FLOPS = 67e12              # H100 SXM f32, CUDA cores (TF32 off)
+BF16_FLOPS = 989e12            # H100 SXM bf16 tensor cores, dense
+PATHS = ("base-soft", "depth-soft", "nic", "base-soft-beam5")
 
 
 def log(phase, msg):
@@ -88,6 +125,100 @@ def cuda_ms(fn, iters):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def bound(nbytes, flops, peak):
+    """(ms, "bytes" or "operations"): the least time for the work, the
+    larger of the bytes over the memory rate and the operations over the
+    peak rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def step_flops(k, d, a, e, h):
+    """Multiply-adds x 2 of one attention-LSTM step for one row."""
+    return 2 * (h * a + k * a + k * d + h * d + (e + d + h) * 4 * h)
+
+
+def kernel_modules():
+    from depth_image_captioning_pub_torch.ops.kernels import (
+        beam_seq, decode_seq, decode_step, nic_seq, vit_attention)
+    return {"decode_step": decode_step, "decode_seq": decode_seq,
+            "nic_seq": nic_seq, "beam_seq": beam_seq,
+            "vit_attention": vit_attention}
+
+
+def reset_counts():
+    for mod in kernel_modules().values():
+        mod.LAUNCHES = 0
+
+
+def read_counts():
+    return {name: mod.LAUNCHES for name, mod in kernel_modules().items()}
+
+
+class PlainCalls:
+    """Within the block, every plain version of the kernels counts its
+    calls in ``calls`` (the wrappers look them up by module name)."""
+
+    NAMES = {"decode_seq": "fused_greedy_decode_plain",
+             "nic_seq": "fused_nic_greedy_decode_plain",
+             "beam_seq": "fused_beam_decode_plain",
+             "vit_attention": "fused_attention_plain"}
+
+    def __enter__(self):
+        self.calls = []
+        self.saved = []
+        for key, name in self.NAMES.items():
+            mod = kernel_modules()[key]
+            fn = getattr(mod, name)
+            self.saved.append((mod, name, fn))
+            setattr(mod, name, self._counting(fn))
+        return self
+
+    def _counting(self, fn):
+        def wrapped(*args, **kwargs):
+            self.calls.append(fn.__name__)
+            return fn(*args, **kwargs)
+        return wrapped
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+def run_requests(pipe, requests, smi, tag):
+    """Time each request (host clock, tokens on the host); counters reset
+    just before and read just after."""
+    import torch
+    outputs, lines = [], []
+    torch.cuda.synchronize()
+    reset_counts()
+    with PlainCalls() as plain:
+        for req in requests:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            toks = pipe.caption_tokens(req)
+            dt = time.perf_counter() - t0
+            outputs.append(toks)
+            lines.append(f"{len(req)} images: {dt * 1e3:.1f} ms, "
+                         f"{len(req) / dt:.1f} caps/s")
+    launches = read_counts()
+    if plain.calls:
+        raise RuntimeError(f"plain versions ran on the {tag} path: "
+                           f"{sorted(set(plain.calls))}")
+    for req, toks in zip(requests, outputs):
+        if (toks.shape != (len(req), MAX_LEN) or toks.dtype != np.int32
+                or toks.min() < 0 or toks.max() >= VOCAB):
+            raise RuntimeError(f"bad tokens {toks.dtype} {toks.shape}")
+    for line in lines:
+        log(tag, f"{line} [{smi}]")
+    return outputs, launches
 
 
 def phase_env():
@@ -155,13 +286,16 @@ def phase_step(smi):
     ms = cuda_ms(lambda: decode_step.fused_decode_core(*args), 50)
     plain_ms = cuda_ms(lambda: decode_step.fused_decode_core_plain(*args),
                        50)
+    bound_ms, bound_by = bound(nbytes(feats, proj, emb, h, c, *w, *got),
+                               B * step_flops(K, D, A, E, H), F32_FLOPS)
     log("decode_step", f"B={B} K={K} D={D} bf16 A=E=H={H}: max abs err "
         f"{err:.3e} (tol {STEP_ATOL}); kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms [{smi}]; source {STEP_SRC}, replaces "
-        f"{STEP_TPU}")
+        f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) [{smi}]; "
+        f"source {STEP_SRC}, replaces {STEP_TPU}")
     return {"name": "decode_step", "route": "cuda", "source": STEP_SRC,
             "replaces": STEP_TPU, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms}
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
 
 
 def phase_seq(smi):
@@ -212,13 +346,23 @@ def phase_seq(smi):
         if err != 0 or not bool((got_end == end_id).all()):
             raise RuntimeError("greedy kernel with <end> forced differs "
                                "from the plain version")
+    # the steps this run's rows took: up to and including their <end>
+    ended = (got == end_id).cpu().numpy()
+    steps = int(np.where(ended.any(1), ended.argmax(1) + 1, MAX_LEN).sum())
+    bound_ms, bound_by = bound(
+        nbytes(feats, proj, state.h, state.c, *w.step, w.w_out, w.b_out, got)
+        + steps * E * 4, steps * (step_flops(K, D, A, E, H) + 2 * H * VOCAB),
+        F32_FLOPS)
     log("decode_seq", f"B={B} V={VOCAB} L={MAX_LEN} end_id={end_id}: token "
         f"agreement {agree:.4f} (min {MIN_AGREEMENT}), {distinct} distinct "
-        f"rows; <end>-forced run exact; kernel {ms:.3f} ms, plain "
-        f"{plain_ms:.3f} ms [{smi}]")
+        f"rows, {steps} row-steps; <end>-forced run exact; kernel "
+        f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by}) [{smi}]")
     return {"name": "decode_seq", "route": "cuda", "source": SEQ_SRC,
             "replaces": SEQ_TPU, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "token_agreement": agree}
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None,
+            "token_agreement": agree}
 
 
 def phase_main_path(smi):
@@ -231,8 +375,7 @@ def phase_main_path(smi):
         project_features)
     from depth_image_captioning_pub_torch.ops.image_ops import (
         imagenet_normalize, to_unit_float)
-    from depth_image_captioning_pub_torch.ops.kernels import (
-        decode_seq, decode_step, vit_attention)
+    from depth_image_captioning_pub_torch.ops.kernels import decode_seq
     from depth_image_captioning_pub_torch.pipeline import CaptionPipeline
     dev = torch.device("cuda")
     w2i, i2w = placeholder_vocab(VOCAB)
@@ -250,44 +393,13 @@ def phase_main_path(smi):
     for size in (1, 16, 64):          # warm-up: one call per bucket
         pipe.caption_tokens(images[:size])
 
-    plain_calls = []
-    plain = decode_seq.fused_greedy_decode_plain
-
-    def counting_plain(*args, **kwargs):
-        plain_calls.append(1)
-        return plain(*args, **kwargs)
-
-    decode_seq.fused_greedy_decode_plain = counting_plain
-    decode_seq.LAUNCHES = 0
-    decode_step.LAUNCHES = 0
-    vit_attention.LAUNCHES = 0
-    outputs, lines = [], []
-    try:
-        for req in requests:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            toks = pipe.caption_tokens(req)
-            dt = time.perf_counter() - t0
-            outputs.append(toks)
-            lines.append(f"{len(req)} images: {dt * 1e3:.1f} ms, "
-                         f"{len(req) / dt:.1f} caps/s")
-    finally:
-        decode_seq.fused_greedy_decode_plain = plain
-    launches = {"decode_seq": decode_seq.LAUNCHES,
-                "decode_step": decode_step.LAUNCHES,
-                "vit_attention": vit_attention.LAUNCHES}
+    outputs, launches = run_requests(pipe, requests, smi, "main")
     chunks = sum(-(-len(r) // pipe.batch_size) for r in requests)
-    if launches["decode_seq"] != chunks:
-        raise RuntimeError(f"decode_seq launched {launches['decode_seq']} "
-                           f"times for {chunks} chunks")
-    if plain_calls:
-        raise RuntimeError("the plain greedy version ran on the main path")
-    for req, toks in zip(requests, outputs):
-        if (toks.shape != (len(req), MAX_LEN) or toks.dtype != np.int32
-                or toks.min() < 0 or toks.max() >= VOCAB):
-            raise RuntimeError(f"bad tokens {toks.dtype} {toks.shape}")
-    for line in lines:
-        log("main", f"{line} [{smi}]")
+    want = dict.fromkeys(launches, 0)
+    want["decode_seq"] = chunks
+    if launches != want:
+        raise RuntimeError(f"base-soft launches {launches}, expected {want} "
+                           f"for {chunks} chunks")
 
     # reference on one request: the plain decode on the same features
     with torch.inference_mode():
@@ -312,9 +424,8 @@ def phase_main_path(smi):
         f"{feats.dtype}, |feat| max {feats.abs().max().item():.3e}")
     for c in caps:
         log("main", f"caption: {c!r}")
-    log("main", f"launches {launches} for {chunks} chunks; plain greedy "
-        f"calls 0")
-    return launches
+    log("main", f"launches {launches} for {chunks} chunks; plain calls 0")
+    return launches, cap
 
 
 def bf16_ulp(x):
@@ -332,6 +443,7 @@ def phase_vit(smi):
     q, k, v = (torch.from_numpy(rng.standard_normal(
         (VIT_Z, VIT_N + 7, VIT_D)).astype(np.float32)).to(dev, torch.bfloat16)
         for _ in range(3))
+    import torch.nn.functional as F
     scale = VIT_D ** -0.5
     worst = 0.0
     timed = {}
@@ -363,9 +475,35 @@ def phase_vit(smi):
             f"one bf16 ulp of max|v|); kernel {ms:.3f} ms, plain "
             f"{plain_ms:.3f} ms [{smi}]")
     ms, plain_ms = timed[VIT_N]
+
+    # yardstick: one PyTorch call for the same function, keys < n_valid
+    n, n_valid = VIT_N + 7, VIT_N
+    bsz, heads = VIT_Z // 12, 12
+
+    q4, k4, v4 = (t[:, :rows].reshape(bsz, heads, rows, VIT_D).contiguous()
+                  for t, rows in ((q, n), (k, n_valid), (v, n_valid)))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q4, k4, v4, scale=scale)
+
+    args = [t[:, :n].contiguous() for t in (q, k, v)]
+    want = vit_attention.fused_attention_plain(*args, scale=scale,
+                                               n_valid=n_valid)
+    sdpa_err = (sdpa().reshape(VIT_Z, n, VIT_D).float()
+                - want.float()).abs().max().item()
+    sdpa_ms = cuda_ms(sdpa, 10)
+    z_rows = VIT_Z * VIT_N
+    bound_ms, bound_by = bound(4 * z_rows * VIT_D * 2,
+                               4 * z_rows * VIT_N * VIT_D, BF16_FLOPS)
+    log("vit_attention", f"F.scaled_dot_product_attention on q [B={bsz}, 12, "
+        f"{n}, {VIT_D}] and k/v sliced to n_valid={n_valid}: {sdpa_ms:.3f} "
+        f"ms, max abs err {sdpa_err:.3e} against the plain version; K5's "
+        f"bound at N={VIT_N} {bound_ms:.4f} ms ({bound_by}) [{smi}]")
     return {"name": "vit_attention", "route": "cuda", "source": VIT_SRC,
             "replaces": VIT_TPU, "max_abs_err": worst, "ms": ms,
-            "plain_ms": plain_ms}
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": sdpa_ms, "sdpa_ms": sdpa_ms,
+            "sdpa_max_abs_err": sdpa_err}
 
 
 class Events:
@@ -404,7 +542,7 @@ def phase_depth_path(smi):
     from depth_image_captioning_pub_torch.ops.image_ops import (
         dpt_normalize, imagenet_normalize, resize_bilinear, to_unit_float)
     from depth_image_captioning_pub_torch.ops.kernels import (
-        decode_seq, decode_step, vit_attention)
+        decode_seq, vit_attention)
     from depth_image_captioning_pub_torch.pipeline import CaptionPipeline
     dev = torch.device("cuda")
     w2i, i2w = placeholder_vocab(VOCAB)
@@ -429,51 +567,17 @@ def phase_depth_path(smi):
     for size in (1, 16, 64):          # warm-up: one call per bucket
         pipe.caption_tokens(images[:size])
 
-    plain_calls = []
     plains = {mod: mod.__dict__[name] for mod, name in (
         (vit_attention, "fused_attention_plain"),
         (decode_seq, "fused_greedy_decode_plain"))}
-
-    def counting(fn):
-        def wrapped(*args, **kwargs):
-            plain_calls.append(fn.__name__)
-            return fn(*args, **kwargs)
-        return wrapped
-
-    for mod, fn in plains.items():
-        setattr(mod, fn.__name__, counting(fn))
-    decode_seq.LAUNCHES = decode_step.LAUNCHES = vit_attention.LAUNCHES = 0
-    outputs, lines = [], []
-    try:
-        for req in requests:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            toks = pipe.caption_tokens(req)
-            dt = time.perf_counter() - t0
-            outputs.append(toks)
-            lines.append(f"{len(req)} images: {dt * 1e3:.1f} ms, "
-                         f"{len(req) / dt:.1f} caps/s")
-    finally:
-        for mod, fn in plains.items():
-            setattr(mod, fn.__name__, fn)
-    launches = {"decode_seq": decode_seq.LAUNCHES,
-                "decode_step": decode_step.LAUNCHES,
-                "vit_attention": vit_attention.LAUNCHES}
+    outputs, launches = run_requests(pipe, requests, smi, "depth")
     chunks = sum(-(-len(r) // pipe.batch_size) for r in requests)
-    want = {"decode_seq": chunks, "decode_step": 0,
-            "vit_attention": len(est.model.blocks) * chunks}
+    want = dict.fromkeys(launches, 0)
+    want.update(decode_seq=chunks,
+                vit_attention=len(est.model.blocks) * chunks)
     if launches != want:
         raise RuntimeError(f"depth-soft launches {launches}, expected "
                            f"{want} for {chunks} chunks")
-    if plain_calls:
-        raise RuntimeError(f"plain versions ran on the depth-soft path: "
-                           f"{sorted(set(plain_calls))}")
-    for req, toks in zip(requests, outputs):
-        if (toks.shape != (len(req), MAX_LEN) or toks.dtype != np.int32
-                or toks.min() < 0 or toks.max() >= VOCAB):
-            raise RuntimeError(f"bad tokens {toks.dtype} {toks.shape}")
-    for line in lines:
-        log("depth", f"{line} [{smi}]")
     log("depth", f"launches {launches} for {chunks} chunks; plain calls 0")
 
     # the 16-image request again, stage by stage, with the kernels and
@@ -576,24 +680,291 @@ def phase_depth_path(smi):
     return launches
 
 
+def phase_nic_kernel(smi):
+    import torch
+    from depth_image_captioning_pub_torch.models.nic import NICDecoder
+    from depth_image_captioning_pub_torch.ops.kernels import nic_seq
+    dev = torch.device("cuda")
+    dec = NICDecoder(VOCAB, dim_embedding=NIC_E, dim_hidden=H,
+                     num_layers=NIC_LAYERS, device=dev)
+    dec.reset_parameters(torch.Generator().manual_seed(8))
+    x0 = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        (B, NIC_E)).astype(np.float32)).to(dev)
+    with torch.inference_mode():
+        w = dec.seq_weights()
+
+        def run(fn, weights):
+            return fn(x0, weights, max_length=MAX_LEN)
+
+        got = run(nic_seq.fused_nic_greedy_decode, w)
+        torch.cuda.synchronize()
+        want = run(nic_seq.fused_nic_greedy_decode_plain, w)
+        agree = (got == want).float().mean().item()
+        distinct = len({tuple(r) for r in got.tolist()})
+        if agree < MIN_AGREEMENT:
+            raise RuntimeError(f"NIC token agreement {agree} < "
+                               f"{MIN_AGREEMENT}")
+        ms = cuda_ms(lambda: run(nic_seq.fused_nic_greedy_decode, w), 10)
+        plain_ms = cuda_ms(
+            lambda: run(nic_seq.fused_nic_greedy_decode_plain, w), 10)
+        b_out = w.b_out.clone()
+        b_out[0, 7] += 100.0
+        w_tok = w._replace(b_out=b_out)
+        got_tok = run(nic_seq.fused_nic_greedy_decode, w_tok)
+        torch.cuda.synchronize()
+        want_tok = run(nic_seq.fused_nic_greedy_decode_plain, w_tok)
+        err = (got_tok - want_tok).abs().max().item()
+        if err != 0 or not bool((got_tok == 7).all()):
+            raise RuntimeError("NIC kernel with one token forced differs "
+                               "from the plain version")
+    layer_macs = sum((NIC_E if li == 0 else H) * 4 * H + H * 4 * H
+                     for li in range(NIC_LAYERS))
+    rows = B * MAX_LEN
+    bound_ms, bound_by = bound(
+        nbytes(x0, *w.layer_mats, w.w_out, w.b_out, got) + rows * NIC_E * 4,
+        rows * 2 * (layer_macs + H * VOCAB), F32_FLOPS)
+    log("nic_seq", f"B={B} E={NIC_E} H={H} layers={NIC_LAYERS} V={VOCAB} "
+        f"L={MAX_LEN}: token agreement {agree:.4f} (min {MIN_AGREEMENT}), "
+        f"{distinct} distinct rows; one-token-forced run exact; kernel "
+        f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by}) [{smi}]; source {NIC_SRC}, replaces {NIC_TPU}")
+    return {"name": "nic_seq", "route": "cuda", "source": NIC_SRC,
+            "replaces": NIC_TPU, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None,
+            "token_agreement": agree}
+
+
+def phase_nic_path(smi):
+    import torch
+    from depth_image_captioning_pub_torch.cli import placeholder_vocab
+    from depth_image_captioning_pub_torch.models.captioner import (
+        build_captioner)
+    from depth_image_captioning_pub_torch.ops.image_ops import (
+        imagenet_normalize, to_unit_float)
+    from depth_image_captioning_pub_torch.ops.kernels import nic_seq
+    from depth_image_captioning_pub_torch.pipeline import CaptionPipeline
+    dev = torch.device("cuda")
+    w2i, i2w = placeholder_vocab(VOCAB)
+    t0 = time.perf_counter()
+    cap = build_captioner("nic", VOCAB, device=dev)
+    cap.init(torch.Generator().manual_seed(9))
+    pipe = CaptionPipeline(cap, w2i, i2w, max_length=MAX_LEN,
+                           batch_buckets=(1, 16, 64))
+    log("nic", f"nic: ResNet-152 bf16 + Linear 2048->{NIC_E} + "
+        f"{NIC_LAYERS}-layer LSTM, V={VOCAB}, "
+        f"{sum(p.numel() for p in cap.parameters()) / 1e6:.1f}M params, "
+        f"built in {time.perf_counter() - t0:.1f} s")
+    images = np.random.default_rng(9).integers(
+        0, 256, (117, 224, 224, 3), dtype=np.uint8)
+    requests = [images[:1], images[1:17], images[17:117]]
+    for size in (1, 16, 64):          # warm-up: one call per bucket
+        pipe.caption_tokens(images[:size])
+    outputs, launches = run_requests(pipe, requests, smi, "nic")
+    chunks = sum(-(-len(r) // pipe.batch_size) for r in requests)
+    want = dict.fromkeys(launches, 0)
+    want["nic_seq"] = chunks
+    if launches != want:
+        raise RuntimeError(f"nic launches {launches}, expected {want} for "
+                           f"{chunks} chunks")
+    with torch.inference_mode():
+        x = torch.from_numpy(requests[1]).to(dev)
+        feats = cap.encoder_apply()(imagenet_normalize(to_unit_float(x)))
+        if not bool(torch.isfinite(feats).all()):
+            raise RuntimeError("NIC image embeddings are not finite")
+        ref = nic_seq.fused_nic_greedy_decode_plain(
+            feats.float(), cap.decoder.seq_weights(),
+            max_length=MAX_LEN).cpu().numpy()
+    agree = float((ref == outputs[1]).mean())
+    if agree < MIN_AGREEMENT:
+        raise RuntimeError(f"nic path vs plain decode agreement {agree}")
+    log("nic", f"16-image request vs plain decode on the same embeddings: "
+        f"token agreement {agree:.4f}; embeddings {tuple(feats.shape)} "
+        f"{feats.dtype}, |x| max {feats.abs().max().item():.3e}")
+    for c in pipe(list(requests[1][:2])):
+        log("nic", f"caption: {c!r}")
+    log("nic", f"launches {launches} for {chunks} chunks; plain calls 0")
+    return launches
+
+
+def beam_steps(out, end_id):
+    """Steps each image's search ran: up to the one after which all its
+    beams had finished (the kernel's exit), replayed from the records."""
+    tok = out.tokens.cpu().numpy()
+    par = out.parents.cpu().numpy().astype(np.int64)
+    bsz, _, length = tok.shape
+    fin = np.zeros(tok.shape[:2], bool)
+    steps = np.full(bsz, length)
+    done = np.zeros(bsz, bool)
+    for t in range(length):
+        fin = np.take_along_axis(fin, par[:, :, t], 1) | (tok[:, :, t]
+                                                          == end_id)
+        newly = fin.all(1) & ~done
+        steps[newly] = t + 1
+        done |= newly
+    return steps
+
+
+def phase_beam_kernel(smi):
+    import torch
+    from depth_image_captioning_pub_torch.cli import (
+        SPECIAL, placeholder_vocab)
+    from depth_image_captioning_pub_torch.models.decoder import (
+        AttentionDecoder)
+    from depth_image_captioning_pub_torch.ops.attention import (
+        project_features)
+    from depth_image_captioning_pub_torch.ops.kernels import beam_seq
+    dev = torch.device("cuda")
+    w2i, _ = placeholder_vocab(VOCAB)
+    start_id, end_id = w2i[SPECIAL.start], w2i[SPECIAL.end]
+    dec = AttentionDecoder(VOCAB, A, E, D, H, device=dev)
+    dec.reset_parameters(torch.Generator().manual_seed(10))
+    rng = np.random.default_rng(10)
+    feats = torch.from_numpy(np.abs(rng.standard_normal((B, K, D)))
+                             .astype(np.float32)).to(dev, torch.bfloat16)
+    with torch.inference_mode():
+        proj = project_features(dec.att_params(), feats,
+                                compute_dtype=torch.float32)
+        state = dec.init_state(feats)
+        w = dec.seq_weights()
+
+        def run(fn, weights):
+            return fn(feats, proj, state.h, state.c, weights,
+                      beam_size=BEAM, max_length=MAX_LEN, start_id=start_id,
+                      end_id=end_id)
+
+        got = run(beam_seq.fused_beam_decode, w)
+        torch.cuda.synchronize()
+        want = run(beam_seq.fused_beam_decode_plain, w)
+        best_got = beam_seq.select_best(got, end_id)[0]
+        best_want = beam_seq.select_best(want, end_id)[0]
+        agree = (best_got == best_want).float().mean().item()
+        rec_agree = min((got.tokens == want.tokens).float().mean().item(),
+                        (got.parents == want.parents).float().mean().item())
+        err = (got.scores - want.scores).abs().max().item()
+        if min(agree, rec_agree) < MIN_AGREEMENT:
+            raise RuntimeError(f"beam best-token agreement {agree}, record "
+                               f"agreement {rec_agree} < {MIN_AGREEMENT}")
+        if not err <= SCORE_ATOL:
+            raise RuntimeError(f"beam scores max abs err {err} > "
+                               f"{SCORE_ATOL}")
+        ms = cuda_ms(lambda: run(beam_seq.fused_beam_decode, w), 10)
+        plain_ms = cuda_ms(lambda: run(beam_seq.fused_beam_decode_plain, w),
+                           3)
+        # every beam width the kernel has an instance for (its unroll depth
+        # is chosen per width)
+        ms_by_beam = {
+            bw: cuda_ms(lambda bw=bw: beam_seq.fused_beam_decode(
+                feats, proj, state.h, state.c, w, beam_size=bw,
+                max_length=MAX_LEN, start_id=start_id, end_id=end_id), 10)
+            for bw in range(2, BEAM + 1)}
+        exact = {}
+        for case in ("<end> forced", "all ties"):
+            if case == "<end> forced":
+                b_out = w.b_out.clone()
+                b_out[0, end_id] += 100.0
+                w_case = w._replace(b_out=b_out)
+            else:
+                w_case = w._replace(w_out=torch.zeros_like(w.w_out),
+                                    b_out=torch.zeros_like(w.b_out))
+            g = run(beam_seq.fused_beam_decode, w_case)
+            torch.cuda.synchronize()
+            x = run(beam_seq.fused_beam_decode_plain, w_case)
+            if not (torch.equal(g.tokens, x.tokens)
+                    and torch.equal(g.parents, x.parents)):
+                raise RuntimeError(f"beam kernel differs from the plain "
+                                   f"version with {case}")
+            exact[case] = (g.scores - x.scores).abs().max().item()
+            if not exact[case] <= SCORE_ATOL:
+                raise RuntimeError(f"beam scores with {case}: max abs err "
+                                   f"{exact[case]} > {SCORE_ATOL}")
+    steps = beam_steps(got, end_id)
+    beam_steps_total = int(steps.sum()) * BEAM
+    bound_ms, bound_by = bound(
+        nbytes(feats, proj, state.h, state.c, *w.step, w.w_out, w.b_out,
+               *got) + beam_steps_total * E * 4,
+        beam_steps_total * (step_flops(K, D, A, E, H) + 2 * H * VOCAB),
+        F32_FLOPS)
+    log("beam_seq", f"B={B} W={BEAM} V={VOCAB} L={MAX_LEN} end_id={end_id}: "
+        f"best-token agreement {agree:.4f}, record (token and parent) "
+        f"agreement {rec_agree:.4f} (min {MIN_AGREEMENT}), scores max abs "
+        f"err {err:.3e} (max {SCORE_ATOL}); steps per image "
+        f"{steps.min()}-{steps.max()}; exact tokens and parents with "
+        + ", ".join(f"{k} (scores err {v:.1e})" for k, v in exact.items())
+        + f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}); kernel by beam width "
+        + ", ".join(f"W={bw} {t:.3f} ms" for bw, t in ms_by_beam.items())
+        + f" [{smi}]; source {BEAM_SRC}, replaces {BEAM_TPU}")
+    return {"name": "beam_seq", "route": "cuda", "source": BEAM_SRC,
+            "replaces": BEAM_TPU, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None,
+            "token_agreement": agree, "record_agreement": rec_agree,
+            "ms_by_beam": ms_by_beam}
+
+
+def phase_beam_path(smi, cap):
+    import torch
+    from depth_image_captioning_pub_torch.cli import placeholder_vocab
+    from depth_image_captioning_pub_torch.models import decoder as dec_mod
+    from depth_image_captioning_pub_torch.ops.kernels import beam_seq
+    from depth_image_captioning_pub_torch.pipeline import CaptionPipeline
+    w2i, i2w = placeholder_vocab(VOCAB)
+    pipe = CaptionPipeline(cap, w2i, i2w, max_length=MAX_LEN,
+                           batch_buckets=(1, 16, 64), beam_size=BEAM)
+    images = np.random.default_rng(11).integers(
+        0, 256, (81, 224, 224, 3), dtype=np.uint8)
+    requests = [images[:1], images[1:17], images[17:81]]
+    for size in (1, 16, 64):          # warm-up: one call per bucket
+        pipe.caption_tokens(images[:size])
+    outputs, launches = run_requests(pipe, requests, smi, "beam")
+    chunks = sum(-(-len(r) // pipe.batch_size) for r in requests)
+    want = dict.fromkeys(launches, 0)
+    want["beam_seq"] = chunks
+    if launches != want:
+        raise RuntimeError(f"beam launches {launches}, expected {want} for "
+                           f"{chunks} chunks")
+    # the 16-image request again, with the search's plain version
+    dec_mod.fused_beam_decode = beam_seq.fused_beam_decode_plain
+    try:
+        ref = pipe.caption_tokens(requests[1])
+    finally:
+        dec_mod.fused_beam_decode = beam_seq.fused_beam_decode
+    agree = float((ref == outputs[1]).mean())
+    if agree < MIN_AGREEMENT:
+        raise RuntimeError(f"beam path vs plain search agreement {agree}")
+    log("beam", f"16-image request vs the plain search: token agreement "
+        f"{agree:.4f}")
+    for c in pipe(list(requests[1][:2])):
+        log("beam", f"caption: {c!r}")
+    log("beam", f"launches {launches} for {chunks} chunks; plain calls 0")
+    return launches
+
+
 def main():
     smi = phase_env()
     import torch
     phase_build()
     # the step kernel is checked and timed, but it is not a kernel of the
-    # main paths: they run its device step inside the greedy kernel
+    # main paths: they run its device step inside the greedy and beam
+    # kernels
     step = phase_step(smi)
     seq = phase_seq(smi)
-    base = phase_main_path(smi)
+    base, base_cap = phase_main_path(smi)
     vit = phase_vit(smi)
     depth = phase_depth_path(smi)
-    for entry in (step, seq, vit):
-        counts = {"base-soft": base[entry["name"]],
-                  "depth-soft": depth[entry["name"]]}
+    nic_k = phase_nic_kernel(smi)
+    nic = phase_nic_path(smi)
+    beam_k = phase_beam_kernel(smi)
+    beam = phase_beam_path(smi, base_cap)
+    by_path = dict(zip(PATHS, (base, depth, nic, beam)))
+    kernels = [step, seq, nic_k, beam_k, vit]
+    for entry in kernels:
+        counts = {path: c[entry["name"]] for path, c in by_path.items()}
         entry["launches"] = sum(counts.values())
         entry["launches_by_path"] = counts
     print(smi)
-    print(json.dumps({"kernels": [step, seq, vit]}))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

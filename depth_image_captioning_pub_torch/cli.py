@@ -2,11 +2,15 @@
 
     python -m depth_image_captioning_pub_torch.cli caption \\
         --images batch.npy [--kind depth-soft] [--weights params.npz] \\
-        [--vocab word_to_id.pkl] [--device cuda] [--batch-buckets 1,16,64]
+        [--vocab word_to_id.pkl] [--device cpu] [--batch-buckets 1,16,64] \\
+        [--beam 5 [--length-penalty 0.7]]
 
 ``--images`` is a uint8 ``.npy`` array [N, H, W, 3] (or [H, W, 3]);
 ``--random N`` captions N seeded random images instead. ``--kind`` is
-``base-soft`` (default) or ``depth-soft``. Weights come from an ``.npz``
+``base-soft`` (default), ``depth-soft`` or ``nic``. ``--beam N`` (N > 1)
+captions with beam search, ranked by score / length**``--length-penalty``.
+It runs on the CUDA card; ``--device cpu`` runs the plain PyTorch versions
+of the kernels on the CPU instead. Weights come from an ``.npz``
 that ``utils/jax_bridge.load_npz`` reads (the JAX package's parameter
 trees; for depth-soft also the depth encoder, its BN statistics and,
 under ``frozen/dpt``, the DPT) or, without ``--weights``, are drawn from
@@ -25,8 +29,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from depth_image_captioning_pub_tpu.config import ConfigEval
-from depth_image_captioning_pub_tpu.data.tokenizer import SPECIAL
+from depth_image_captioning_pub_torch.config import ConfigEval
+from depth_image_captioning_pub_torch.data.tokenizer import SPECIAL
 
 
 def placeholder_vocab(size: int) -> Tuple[Dict[str, int], Dict[int, str]]:
@@ -42,8 +46,8 @@ def _ints(text: str) -> Tuple[int, ...]:
     return tuple(int(x) for x in text.split(",") if x)
 
 
-def make_depth_fn(dpt_variables=None, *, tiny: bool = False, device=None,
-                  seed: int = 0):
+def make_depth_fn(dpt_variables=None, *, tiny: bool = False,
+                  device="cuda", seed: int = 0):
     """The bf16 DPT's standardized-depth function (counterpart of the JAX
     ``cli.make_depth_fn``). ``dpt_variables`` is the flax DPT tree
     ({"params": ...}); without it the weights are drawn from ``seed``, with
@@ -66,7 +70,7 @@ def make_depth_fn(dpt_variables=None, *, tiny: bool = False, device=None,
 
 
 def build_pipeline(args: argparse.Namespace):
-    from depth_image_captioning_pub_tpu.data.vocab import load_vocab
+    from depth_image_captioning_pub_torch.data.vocab import load_vocab
     from depth_image_captioning_pub_torch.models.captioner import (
         build_captioner)
     from depth_image_captioning_pub_torch.pipeline import CaptionPipeline
@@ -94,7 +98,9 @@ def build_pipeline(args: argparse.Namespace):
     return CaptionPipeline(cap, word_to_id, id_to_word, depth_fn=depth_fn,
                            max_length=args.max_length,
                            batch_buckets=args.batch_buckets,
-                           image_hw=(args.image_size, args.image_size))
+                           image_hw=(args.image_size, args.image_size),
+                           beam_size=args.beam,
+                           length_penalty=args.length_penalty)
 
 
 def caption(args: argparse.Namespace) -> List[str]:
@@ -118,13 +124,13 @@ def main(argv: Optional[List[str]] = None) -> None:
     src.add_argument("--images", help="uint8 .npy [N,H,W,3] or [H,W,3]")
     src.add_argument("--random", type=int, help="caption N seeded images")
     c.add_argument("--kind", default="base-soft",
-                   choices=("base-soft", "depth-soft"))
+                   choices=("base-soft", "depth-soft", "nic"))
     c.add_argument("--weights", help=".npz of the JAX parameter trees")
     c.add_argument("--vocab", help="word_to_id.pkl")
     c.add_argument("--vocab-size", type=int, default=9956)
     c.add_argument("--seed", type=int, default=0)
-    c.add_argument("--device", default="cuda" if torch.cuda.is_available()
-                   else "cpu")
+    c.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu (the kernels' plain versions)")
     c.add_argument("--resnet-layers", type=_ints, default=None,
                    help="e.g. 3,8,36,3 (ResNet-152, the default)")
     c.add_argument("--tiny-dpt", action="store_true",
@@ -132,6 +138,10 @@ def main(argv: Optional[List[str]] = None) -> None:
     c.add_argument("--image-size", type=int, default=224)
     c.add_argument("--max-length", type=int, default=30)
     c.add_argument("--batch-buckets", type=_ints, default=(1, 16, 64))
+    c.add_argument("--beam", type=int, default=1,
+                   help="beam width; 1 (default) is greedy decode")
+    c.add_argument("--length-penalty", type=float, default=0.0,
+                   help="GNMT alpha for ranking beams (0: log-prob)")
     args = p.parse_args(argv)
     for line in caption(args):
         sys.stdout.write(line + "\n")

@@ -27,20 +27,9 @@
 //
 // Plain C interface, loaded with ctypes (ops/kernels/_build.py). Returns the
 // launch's cudaError_t; the Python wrapper raises when it is not 0.
-#include <limits.h>
-
 #include "decode_step.cuh"
 
 namespace dcap {
-
-// Keep (v, j) if it beats the running best; the first column always does.
-__device__ __forceinline__ void take_max(float v, int j, float& best,
-                                         int& best_idx) {
-  if (v > best || best_idx == INT_MAX) {
-    best = v;
-    best_idx = j;
-  }
-}
 
 template <typename FT>
 __global__ void __launch_bounds__(kThreads)

@@ -34,6 +34,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -124,6 +125,17 @@ __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1)
     v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
+}
+
+// A thread's running argmax over the columns it visits in increasing order:
+// keep (v, j) if it beats the best so far (strict >, so the lowest index
+// wins among equal values); the first column always does.
+__device__ __forceinline__ void take_max(float v, int j, float& best,
+                                         int& best_idx) {
+  if (v > best || best_idx == INT_MAX) {
+    best = v;
+    best_idx = j;
+  }
 }
 
 // Block-wide sum or max; every thread calls it and gets the result.

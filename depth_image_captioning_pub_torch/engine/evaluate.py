@@ -1,12 +1,13 @@
 """Batched caption generation (counterpart of the JAX
-``engine/evaluate.py``): base-soft and depth-soft greedy decode on one
-device, no caches.
+``engine/evaluate.py``): NIC, base-soft and depth-soft, greedy or beam
+search, on one device, no caches.
 
 The hot path is ``make_caption_fn``: uint8 NHWC images -> /255 on the
 device, then (a) ImageNet normalization -> frozen RGB encoder and, for a
 depth kind, (b) ``depth_fn`` (the DPT: standardized depth maps) -> depth
 encoder; the decoder adds (b) to (a) and runs the whole-sequence greedy
-decode kernel -> token IDs.
+kernel or the whole-search beam kernel -> token IDs. NIC's encoder is the
+backbone, a global pool and the projection to the LSTM's input.
 """
 
 from __future__ import annotations
@@ -16,9 +17,9 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from depth_image_captioning_pub_tpu.data.pipeline import (
+from depth_image_captioning_pub_torch.data.pipeline import (
     Prefetcher, eval_batches)
-from depth_image_captioning_pub_tpu.data.tokenizer import ids_to_caption
+from depth_image_captioning_pub_torch.data.tokenizer import ids_to_caption
 from depth_image_captioning_pub_torch.models.captioner import Captioner
 from depth_image_captioning_pub_torch.ops.image_ops import (
     imagenet_normalize, to_unit_float)
@@ -26,18 +27,38 @@ from depth_image_captioning_pub_torch.ops.image_ops import (
 
 def make_caption_fn(cap: Captioner, start_id: int, max_length: int = 30,
                     depth_fn: Optional[Callable] = None,
-                    end_id: Optional[int] = None
+                    end_id: Optional[int] = None, beam_size: int = 1,
+                    length_penalty: float = 0.0
                     ) -> Callable[[torch.Tensor], torch.Tensor]:
     """fn(images [B,H,W,3] uint8 on the captioner's device) -> tokens
     [B, max_length] int32 on that device. ``depth_fn`` (required by depth
     kinds, e.g. ``DPTDepthEstimator.depth_fn()``) maps the [0,1] images to
     standardized [B,224,224,1] depth maps. ``end_id`` (when known) turns on
-    <end>-padding and the early exit of the decode kernel."""
+    <end>-padding and the early exit of the greedy kernel; NIC's greedy
+    decode ignores it and always runs ``max_length`` steps.
+
+    ``beam_size > 1`` switches to batched beam search (it needs
+    ``end_id``), ranked by score / length**``length_penalty``.
+    """
+    if beam_size > 1 and end_id is None:
+        raise ValueError("beam search needs end_id (<end> token)")
     encoder = cap.encoder_apply()
     depth_encoder = cap.depth_encoder_apply()
     sample = cap.sample_apply()
     if depth_encoder is not None and depth_fn is None:
         raise ValueError(f"{cap.spec.kind} needs depth_fn")
+
+    if cap.spec.is_nic:
+        @torch.inference_mode()
+        def nic_caption_fn(images: torch.Tensor) -> torch.Tensor:
+            feats = encoder(imagenet_normalize(to_unit_float(images)))
+            if beam_size > 1:
+                return cap.decoder.beam_sample(
+                    feats, end_id, beam_size=beam_size,
+                    max_length=max_length, length_penalty=length_penalty,
+                    early_exit=True)[0]
+            return sample(feats, max_length=max_length)
+        return nic_caption_fn
 
     @torch.inference_mode()
     def caption_fn(images: torch.Tensor) -> torch.Tensor:
@@ -46,6 +67,10 @@ def make_caption_fn(cap: Captioner, start_id: int, max_length: int = 30,
         dep = None
         if depth_encoder is not None:
             dep = depth_encoder(depth_fn(images))
+        if beam_size > 1:
+            return cap.decoder.beam_sample(
+                feats, start_id, end_id, dep, beam_size=beam_size,
+                max_length=max_length, length_penalty=length_penalty)[0]
         return sample(feats, start_id, dep, max_length=max_length,
                       end_id=end_id)
 

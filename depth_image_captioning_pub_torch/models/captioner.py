@@ -1,8 +1,10 @@
 """Model assembly per configuration kind (counterpart of the JAX
 ``models/captioner.py``). This package builds ``base-soft`` (a frozen
-ResNet-152 grid encoder and a soft-attention decoder) and ``depth-soft``
-(the same, plus a ``DepthCNNEncoder`` whose features are added to the RGB
-features). The DPT that makes the depth maps is not part of the
+ResNet-152 grid encoder and a soft-attention decoder), ``depth-soft`` (the
+same, plus a ``DepthCNNEncoder`` whose features are added to the RGB
+features) and ``nic`` (Show and Tell: the frozen ResNet-152, a global
+average pool, a trainable Linear 2048 -> 300 and a two-layer LSTM
+decoder). The DPT that makes the depth maps is not part of the
 ``Captioner``: ``make_caption_fn`` takes it as ``depth_fn``, as in the JAX
 package. Every other kind raises ``NotImplementedError`` until its slice is
 ported (ROADMAP.md).
@@ -16,14 +18,18 @@ from typing import Callable, Optional, Sequence
 import torch
 import torch.nn as nn
 
-from depth_image_captioning_pub_tpu.config import ConfigTrain
+from depth_image_captioning_pub_torch.config import ConfigTrain
 from depth_image_captioning_pub_torch.models.decoder import AttentionDecoder
 from depth_image_captioning_pub_torch.models.depth_encoders import (
     DepthCNNEncoder)
+from depth_image_captioning_pub_torch.models.initializers import (
+    torch_bias, torch_linear_kernel)
+from depth_image_captioning_pub_torch.models.nic import NICDecoder
 from depth_image_captioning_pub_torch.models.resnet import (
-    RESNET152_LAYERS, AttentionGridEncoder)
+    RESNET152_LAYERS, AttentionGridEncoder, ResNetBackbone)
+from depth_image_captioning_pub_torch.ops.pooling import global_avg_pool
 
-PORTED_KINDS = ("base-soft", "depth-soft")
+PORTED_KINDS = ("nic", "base-soft", "depth-soft")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,36 +62,72 @@ class CaptionerSpec:
         return self.attention is None
 
 
+class NICProjection(nn.Module):
+    """The trainable Linear(2048 -> dim_embedding) of the NIC encoder. As
+    flax's ``Dense(dtype=pooled.dtype)``: the product and the bias add run
+    in the pooled features' dtype, on weights cast to it."""
+
+    def __init__(self, dim_in: int, dim_embedding: int, device=None):
+        super().__init__()
+        self.linear = nn.Linear(dim_in, dim_embedding, device=device,
+                                dtype=torch.float32)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        w = self.linear.weight
+        with torch.no_grad():
+            w.copy_(torch_linear_kernel((w.shape[1], w.shape[0]),
+                                        generator).T)
+            self.linear.bias.copy_(torch_bias(w.shape[1])(
+                self.linear.bias.shape, generator))
+
+    def forward(self, pooled: torch.Tensor) -> torch.Tensor:
+        dt = pooled.dtype
+        y = pooled @ self.linear.weight.to(dt).T
+        return y + self.linear.bias.to(dt)
+
+
 class Captioner(nn.Module):
     """Encoder(s) + decoder of one configuration on one device.
 
     ``encoder_dtype`` is the conv compute/storage dtype of the RGB and depth
-    encoders (bf16 by default); the decoder is float32, as the greedy kernel
-    requires. ``resnet_layers`` shrinks the backbone for tests (default
-    ResNet-152).
+    encoders (bf16 by default); the decoder is float32, as the decode
+    kernels require. ``resnet_layers`` shrinks the backbone for tests
+    (default ResNet-152). ``device`` is where the modules live: the CUDA
+    card unless the caller asks for another.
     """
 
     def __init__(self, spec: CaptionerSpec, cfg: ConfigTrain,
                  vocab_size: int, encoder_dtype=torch.bfloat16,
                  resnet_layers: Optional[Sequence[int]] = None,
-                 device=None):
+                 device="cuda"):
         super().__init__()
         if spec.kind not in PORTED_KINDS:
             raise NotImplementedError(
                 f"kind {spec.kind!r} is not ported yet; this package has "
                 f"{PORTED_KINDS} (ROADMAP.md, Queue A)")
         self.spec = spec
-        self.device = torch.device(device or "cpu")
+        self.device = torch.device(device)
+        layers = tuple(resnet_layers or RESNET152_LAYERS)
+        self.depth_module = None
+        if spec.is_nic:
+            self.backbone = ResNetBackbone(layers, dtype=encoder_dtype,
+                                           device=self.device)
+            self.projection = NICProjection(cfg.dim_encoder,
+                                            cfg.nic_dim_embedding,
+                                            device=self.device)
+            self.decoder = NICDecoder(
+                vocab_size, dim_embedding=cfg.nic_dim_embedding,
+                dim_hidden=cfg.dim_hidden, num_layers=cfg.num_layers,
+                device=self.device)
+            return
         self.encoder = AttentionGridEncoder(
-            cfg.enc_img_size, dtype=encoder_dtype,
-            layers=tuple(resnet_layers or RESNET152_LAYERS),
+            cfg.enc_img_size, dtype=encoder_dtype, layers=layers,
             device=self.device)
         self.decoder = AttentionDecoder(
             vocab_size, dim_attention=cfg.dim_attention,
             dim_embedding=cfg.dim_embedding, dim_encoder=cfg.dim_encoder,
             dim_decoder=cfg.dim_hidden, fusion=spec.fusion,
             device=self.device)
-        self.depth_module = None
         if spec.depth_encoder == "cnn":
             self.depth_module = DepthCNNEncoder(
                 cfg.enc_img_size, dtype=encoder_dtype, device=self.device)
@@ -93,14 +135,24 @@ class Captioner(nn.Module):
     def init(self, generator: torch.Generator) -> None:
         """Draw every parameter from ``generator`` with the JAX package's
         distributions (torch defaults; U(-0.1, 0.1) embedding and head;
-        the depth encoder's BN at scale 1, bias 0, mean 0, var 1)."""
-        self.encoder.reset_parameters(generator)
+        the depth encoder's BN at scale 1, bias 0, mean 0, var 1; NIC's
+        embedding N(0, 1))."""
+        if self.spec.is_nic:
+            self.backbone.reset_parameters(generator)
+            self.projection.reset_parameters(generator)
+        else:
+            self.encoder.reset_parameters(generator)
         self.decoder.reset_parameters(generator)
         if self.depth_module is not None:
             self.depth_module.reset_parameters(generator)
 
     def encoder_apply(self) -> Callable[[torch.Tensor], torch.Tensor]:
-        """normalized NHWC images -> features [B, K, 2048] (encoder dtype)."""
+        """normalized NHWC images -> features [B, K, 2048] (encoder dtype);
+        for NIC the projected image embedding [B, 300]: backbone, global
+        average pool and projection, all in the encoder dtype."""
+        if self.spec.is_nic:
+            return lambda images: self.projection(
+                global_avg_pool(self.backbone(images)))
         return self.encoder
 
     def depth_encoder_apply(
@@ -111,8 +163,9 @@ class Captioner(nn.Module):
         return self.depth_module
 
     def sample_apply(self) -> Callable[..., torch.Tensor]:
-        """(features, start_id, depth_features=None, *, max_length, end_id)
-        -> tokens [B, L]."""
+        """Greedy decode: (features, start_id, depth_features=None, *,
+        max_length, end_id) -> tokens [B, L]; for NIC (features, *,
+        max_length) -> tokens [B, L]."""
         return self.decoder.greedy_sample
 
 
@@ -120,6 +173,6 @@ def build_captioner(kind: str, vocab_size: int,
                     cfg: Optional[ConfigTrain] = None,
                     encoder_dtype=torch.bfloat16,
                     resnet_layers: Optional[Sequence[int]] = None,
-                    device=None) -> Captioner:
+                    device="cuda") -> Captioner:
     return Captioner(CaptionerSpec.from_kind(kind), cfg or ConfigTrain(),
                      vocab_size, encoder_dtype, resnet_layers, device)

@@ -9,14 +9,15 @@ bridge from the JAX parameter tree is a name-for-name copy and
 
 Greedy decode runs the whole-sequence kernel of
 ``ops/kernels/decode_seq.py`` (``csrc/decode_seq.cu`` on a CUDA device,
-its plain PyTorch version on the CPU). Encoder features may stay bf16 in
-device memory: the projection, the initial state and the kernel upcast
-them exactly, and all decoder arithmetic is f32.
+its plain PyTorch version on the CPU), beam search the whole-search kernel
+of ``ops/kernels/beam_seq.py`` (``csrc/beam_seq.cu``). Encoder features may
+stay bf16 in device memory: the projection, the initial state and the
+kernels upcast them exactly, and all decoder arithmetic is f32.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -25,6 +26,8 @@ from depth_image_captioning_pub_torch.models.initializers import (
     torch_bias, torch_linear_kernel, uniform_pm)
 from depth_image_captioning_pub_torch.ops.attention import (
     AttentionParams, project_features)
+from depth_image_captioning_pub_torch.ops.kernels.beam_seq import (
+    fused_beam_decode, select_best)
 from depth_image_captioning_pub_torch.ops.kernels.decode_seq import (
     DecodeSeqWeights, fused_greedy_decode)
 from depth_image_captioning_pub_torch.ops.kernels.decode_step import (
@@ -120,6 +123,7 @@ class AttentionDecoder(nn.Module):
         return DecodeSeqWeights(step, self.out_w, self.out_b[None, :],
                                 self.embed)
 
+    @torch.no_grad()
     def greedy_sample(self, features: torch.Tensor, start_id: int,
                       depth_features: Optional[torch.Tensor] = None, *,
                       max_length: int = 30,
@@ -142,3 +146,29 @@ class AttentionDecoder(nn.Module):
             features.contiguous(), proj, state.h, state.c,
             self.seq_weights(), max_length=max_length, start_id=start_id,
             end_id=-1 if end_id is None else end_id)
+
+    @torch.no_grad()
+    def beam_sample(self, features: torch.Tensor, start_id: int,
+                    end_id: int,
+                    depth_features: Optional[torch.Tensor] = None, *,
+                    beam_size: int = 5, max_length: int = 30,
+                    length_penalty: float = 0.0
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Batched beam search: (tokens [B, max_length] int32 of the best
+        beam, its score [B]).
+
+        Fuses ``depth_features`` into ``features``, then runs the whole
+        search in one call (ops/kernels/beam_seq.py, csrc/beam_seq.cu; its
+        plain version for CPU tensors), which stops once every beam has
+        emitted <end>. ``length_penalty`` alpha ranks the final beams by
+        score / length**alpha (GNMT); 0 ranks by log-probability.
+        """
+        features = self.fuse(features, depth_features)
+        proj = project_features(self.att_params(), features,
+                                compute_dtype=torch.float32)
+        state = self.init_state(features)
+        out = fused_beam_decode(
+            features.contiguous(), proj, state.h, state.c,
+            self.seq_weights(), beam_size=beam_size, max_length=max_length,
+            start_id=start_id, end_id=end_id)
+        return select_best(out, end_id, length_penalty)

@@ -372,10 +372,11 @@ TINY_DPT = dict(vit_blocks=3, hooks=(1, 2), resnet_layers=(1, 1, 1),
 
 
 class DPTDepthEstimator:
-    """A DPT model and the standardized-depth function over it."""
+    """A DPT model and the standardized-depth function over it, on the CUDA
+    card unless ``device`` names another."""
 
     def __init__(self, dtype=torch.bfloat16, image_size: int = 384,
-                 device=None, **model_kwargs):
+                 device="cuda", **model_kwargs):
         self.model = DPTDepthModel(dtype=dtype, device=device, **model_kwargs)
         self.image_size = image_size
 

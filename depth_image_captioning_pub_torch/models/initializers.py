@@ -44,3 +44,10 @@ def torch_bias(fan_in: int) -> Init:
 def uniform_pm(scale: float) -> Init:
     """U(-scale, scale): embedding / vocab-head init."""
     return lambda shape, generator: _uniform(shape, scale, generator)
+
+
+def normal(std: float) -> Init:
+    """N(0, std^2): torch's nn.Embedding default (NIC's embedding)."""
+    return lambda shape, generator: torch.empty(
+        tuple(shape), dtype=torch.float32).normal_(0.0, std,
+                                                   generator=generator)

@@ -1,0 +1,134 @@
+"""Batched beam search (counterpart of the JAX ``ops/decode.py``).
+
+Generic over models through ``step_fn(state, tokens, t) -> (state,
+logprobs)``: every tensor of ``state`` (a dict) and ``tokens``/``logprobs``
+has a leading [B*W] dim, and ``t`` is the step index. Beams are reordered
+by a gather; finished beams persist by only offering ``<end>`` at zero
+cost. Used by ``NICDecoder.beam_sample``; the attention decoder's search
+runs in the whole-search kernel (``ops/kernels/beam_seq.py``), whose plain
+version repeats this selection step.
+
+Two points hold the search to the JAX package's:
+
+* the flat top-W over W·V takes the larger value first and, among equal
+  values, the lower flat index ``w·V + v`` (``lax.top_k``'s order; a stable
+  descending sort gives it, ``torch.topk`` promises no order among ties);
+* the length penalty measures a beam that never emitted ``<end>`` as
+  length 1 (the argmax of an all-False row is 0), as the JAX package does.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Tuple
+
+import torch
+
+NEG_INF = -1e9   # score of dead beams and of finished beams' other tokens
+
+State = Dict[str, torch.Tensor]
+
+
+def log_softmax(x: torch.Tensor) -> torch.Tensor:
+    """``x - max - log(sum(exp(x - max)))`` over the last dim, in the
+    JAX package's order of operations."""
+    shifted = x - x.amax(dim=-1, keepdim=True)
+    return shifted - torch.log(torch.exp(shifted).sum(dim=-1, keepdim=True))
+
+
+def top_w(total: torch.Tensor, beam_size: int
+          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Flat top-W of total [B, W, V] in ``lax.top_k``'s order: (scores,
+    parent beams, tokens), each [B, W]."""
+    bsz, _, vocab = total.shape
+    flat = total.reshape(bsz, -1)
+    vals, idx = torch.sort(flat, dim=1, descending=True, stable=True)
+    vals, idx = vals[:, :beam_size], idx[:, :beam_size]
+    return vals, idx // vocab, (idx % vocab).to(torch.int32)
+
+
+def restrict_finished(logprobs: torch.Tensor, finished: torch.Tensor,
+                      end_id: int) -> torch.Tensor:
+    """Finished beams may only continue with ``<end>``, at zero cost:
+    logprobs [B, W, V], finished [B, W] bool."""
+    fin_row = torch.full((logprobs.shape[-1],), NEG_INF,
+                         dtype=logprobs.dtype, device=logprobs.device)
+    fin_row[end_id] = 0.0
+    return torch.where(finished[..., None], fin_row, logprobs)
+
+
+def initial_scores(batch: int, beam_size: int, device) -> torch.Tensor:
+    """Only beam 0 is live at step 0: [B, W] of 0 and NEG_INF."""
+    scores = torch.full((batch, beam_size), NEG_INF, dtype=torch.float32,
+                        device=device)
+    scores[:, 0] = 0.0
+    return scores
+
+
+def tile_for_beams(tree: State, beam_size: int) -> State:
+    """[B, ...] -> [B*W, ...] by repeating each row beam_size times."""
+    return {k: torch.repeat_interleave(v, beam_size, dim=0)
+            for k, v in tree.items()}
+
+
+def _gather_beams(tree: State, parent: torch.Tensor) -> State:
+    """Reorder [B*W, ...] tensors by per-image parent beams [B, W]."""
+    batch, beam = parent.shape
+    rows = (torch.arange(batch, device=parent.device)[:, None] * beam
+            + parent).reshape(-1)
+    return {k: v[rows] for k, v in tree.items()}
+
+
+def select_best(scores: torch.Tensor, history: torch.Tensor, end_id: int,
+                length_penalty: float = 0.0
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The best beam per image: (tokens [B, L], its score [B]), scores
+    divided by length**alpha (GNMT) when ``length_penalty`` alpha > 0."""
+    max_length = history.shape[-1]
+    if length_penalty > 0.0:
+        first_end = torch.argmax((history == end_id).to(torch.int32), dim=-1)
+        lengths = torch.clamp(first_end + 1, max=max_length)
+        norm = scores / lengths.to(torch.float32) ** length_penalty
+    else:
+        norm = scores
+    best = torch.argmax(norm, dim=1)
+    rows = torch.arange(history.shape[0], device=history.device)
+    return history[rows, best], norm[rows, best]
+
+
+def beam_search(step_fn: Callable, init_state: State, batch: int,
+                start_id: int, end_id: int, *, beam_size: int = 5,
+                max_length: int = 30, length_penalty: float = 0.0,
+                early_exit: bool = False
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (tokens [B, max_length] int32 of the best beam, scores [B]).
+
+    ``init_state`` tensors are already tiled to [B*W, ...]
+    (``tile_for_beams``). ``early_exit`` stops once every beam of every
+    image has emitted <end>. It is exact: such a step offers each beam its
+    own <end> at an unchanged score, and the top-W order gives back the
+    sorted beams with identity parents.
+    """
+    state = init_state
+    device = next(iter(state.values())).device
+    scores = initial_scores(batch, beam_size, device)
+    prev = torch.full((batch * beam_size,), start_id, dtype=torch.int32,
+                      device=device)
+    history = torch.full((batch, beam_size, max_length), end_id,
+                         dtype=torch.int32, device=device)
+    finished = torch.zeros((batch, beam_size), dtype=torch.bool,
+                           device=device)
+    for t in range(max_length):
+        if early_exit and bool(finished.all()):
+            break
+        state, logprobs = step_fn(state, prev, t)
+        lp = restrict_finished(
+            logprobs.reshape(batch, beam_size, -1).to(torch.float32),
+            finished, end_id)
+        scores, parent, token = top_w(scores[..., None] + lp, beam_size)
+        state = _gather_beams(state, parent)
+        history = torch.gather(
+            history, 1, parent[..., None].expand(-1, -1, max_length))
+        history[:, :, t] = token
+        finished = torch.gather(finished, 1, parent) | (token == end_id)
+        prev = token.reshape(-1)
+    return select_best(scores, history, end_id, length_penalty)

@@ -1,6 +1,6 @@
-"""LSTM cell with torch's parameterization (counterpart of the JAX
-``ops/lstm.py``): per-gate blocks stacked in (i, f, g, o) order, weights
-in the JAX package's [in, 4H] layout."""
+"""LSTM cell and stacked LSTM step with torch's parameterization
+(counterpart of the JAX ``ops/lstm.py``): per-gate blocks stacked in
+(i, f, g, o) order, weights in the JAX package's [in, 4H] layout."""
 
 from __future__ import annotations
 
@@ -26,3 +26,24 @@ def lstm_cell(p: LSTMCellParams, x: torch.Tensor, h: torch.Tensor,
     c_new = torch.sigmoid(f) * c.to(f32) + torch.sigmoid(i) * torch.tanh(g)
     h_new = torch.sigmoid(o) * torch.tanh(c_new)
     return h_new.to(h.dtype), c_new.to(c.dtype)
+
+
+class StackedLSTMParams(NamedTuple):
+    """A multi-layer LSTM (NIC: two layers), one cell's params per layer."""
+
+    layers: Tuple[LSTMCellParams, ...]
+
+
+def stacked_lstm_step(p: StackedLSTMParams, x: torch.Tensor,
+                      hs: torch.Tensor, cs: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One time step through all layers; hs, cs [num_layers, B, H].
+    Returns (top layer's h', new hs, new cs)."""
+    new_h, new_c = [], []
+    inp = x
+    for li, lp in enumerate(p.layers):
+        h, c = lstm_cell(lp, inp, hs[li], cs[li])
+        new_h.append(h)
+        new_c.append(c)
+        inp = h
+    return inp, torch.stack(new_h), torch.stack(new_c)

@@ -11,7 +11,9 @@
                            batch_buckets=(1, 16, 64))
     pipe(images_uint8)                              # -> list of captions
 
-A depth kind also needs the DPT that makes its depth maps:
+``kind`` may also be ``"nic"``, and ``CaptionPipeline(...,
+beam_size=5, length_penalty=0.7)`` captions with beam search. A depth kind
+also needs the DPT that makes its depth maps:
 
     est = DPTDepthEstimator(device="cuda")          # models/dpt.py
     est.init(torch.Generator().manual_seed(0))      # or dpt_params_from_jax
@@ -25,9 +27,9 @@ rows are dropped before detokenization, so captions do not depend on the
 bucket. Chunk i+1 is dispatched before the host waits for chunk i's tokens.
 
 Parameters live in the captioner's modules on its device. Loading from an
-experiment directory, stochastic sampling, beam search, several devices
-and hot reload wait for later slices (ROADMAP.md), as does decoding JPEG
-paths: images are uint8 [H, W, 3] arrays at ``image_hw``.
+experiment directory, stochastic sampling, several devices and hot reload
+wait for later slices (ROADMAP.md), as does decoding JPEG paths: images
+are uint8 [H, W, 3] arrays at ``image_hw``.
 """
 
 from __future__ import annotations
@@ -37,19 +39,21 @@ from typing import Dict, List, Sequence, Union
 import numpy as np
 import torch
 
-from depth_image_captioning_pub_tpu.data.tokenizer import (
+from depth_image_captioning_pub_torch.data.tokenizer import (
     SPECIAL, ids_to_caption)
 from depth_image_captioning_pub_torch.engine.evaluate import make_caption_fn
 
 
 class CaptionPipeline:
-    """Batched greedy captioning over one captioner (base-soft, or
-    depth-soft with its ``depth_fn``)."""
+    """Batched captioning over one captioner (nic, base-soft, or
+    depth-soft with its ``depth_fn``): greedy, or beam search when
+    ``beam_size > 1``."""
 
     def __init__(self, cap, word_to_id: Dict[str, int],
                  id_to_word: Dict[int, str], *, depth_fn=None,
                  max_length: int = 30, batch_buckets=(64,),
-                 image_hw=(224, 224)):
+                 image_hw=(224, 224), beam_size: int = 1,
+                 length_penalty: float = 0.0):
         self.cap = cap
         self.device = cap.device
         self.max_length = int(max_length)
@@ -62,7 +66,8 @@ class CaptionPipeline:
         self._fn = make_caption_fn(
             cap, start_id=word_to_id[SPECIAL.start],
             max_length=self.max_length, depth_fn=depth_fn,
-            end_id=word_to_id.get(SPECIAL.end))
+            end_id=word_to_id.get(SPECIAL.end), beam_size=beam_size,
+            length_penalty=length_penalty)
 
     def caption_tokens(self, arrays: np.ndarray) -> np.ndarray:
         """[N,H,W,3] uint8 -> [N, max_length] int32 token IDs."""

@@ -16,6 +16,11 @@ input is what the JAX ``Captioner.init`` returns (or a checkpoint holds),
                                                 tree), loaded separately by
                                                 ``dpt_params_from_jax``
 
+For NIC, ``trainable`` holds ``"enc_linear"`` ({"linear": {kernel, bias}},
+the projection) and ``"decoder"``, and ``frozen["encoder"]`` is the
+backbone's own ``{"params", "batch_stats"}``, without the ``"backbone"``
+level of the attention kinds' grid encoder.
+
 Layout rules (``flax_state_dict``): conv kernels go HWIO -> OIHW, Dense
 kernels [in, out] -> ``nn.Linear``'s [out, in]; ``scale`` (BatchNorm,
 GroupNorm, LayerNorm) becomes ``weight``, ``mean``/``var`` become
@@ -97,10 +102,18 @@ def params_from_jax(cap, trainable: Tree, frozen: Tree,
     device. ``frozen["dpt"]``, where present, is left to
     ``dpt_params_from_jax``."""
     depth = cap.depth_module
+    _check_keys("frozen", frozen, ("encoder", "dpt"))
+    if cap.spec.is_nic:
+        _check_keys("trainable", trainable, ("enc_linear", "decoder"))
+        enc = frozen["encoder"]
+        _load(cap.backbone, flax_state_dict(enc["params"],
+                                            enc["batch_stats"]))
+        _load(cap.projection, flax_state_dict(trainable["enc_linear"]))
+        _load(cap.decoder, dict(trainable["decoder"]))
+        return
     _check_keys("trainable", trainable,
                 ("decoder",) + (("depth_encoder",) if depth is not None
                                 else ()))
-    _check_keys("frozen", frozen, ("encoder", "dpt"))
     _load(cap.encoder, encoder_state_dict(frozen["encoder"]))
     _load(cap.decoder, dict(trainable["decoder"]))
     if depth is not None:

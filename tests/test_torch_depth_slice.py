@@ -141,9 +141,11 @@ def _port(vocab, trees, dtype=torch.float32):
     w2i, _ = vocab
     _, trainable, frozen, stats = trees
     cap = build_captioner("depth-soft", len(w2i), ConfigTrain(),
-                          encoder_dtype=dtype, resnet_layers=LAYERS)
+                          encoder_dtype=dtype, resnet_layers=LAYERS,
+                          device="cpu")
     params_from_jax(cap, trainable, frozen, stats)
-    est = DPTDepthEstimator(dtype=dtype, image_size=HW, **TINY_DPT)
+    est = DPTDepthEstimator(dtype=dtype, image_size=HW, device="cpu",
+                            **TINY_DPT)
     dpt_params_from_jax(est, frozen["dpt"])
     return cap, est.depth_fn()
 
@@ -234,12 +236,12 @@ def test_params_from_jax_is_strict(vocab, trees):
     w2i, _ = vocab
     _, trainable, frozen, stats = trees
     cap = build_captioner("depth-soft", len(w2i), ConfigTrain(),
-                          resnet_layers=LAYERS)
+                          resnet_layers=LAYERS, device="cpu")
     no_bn_stats = {k: v for k, v in stats.items() if k != "bn2"}
     with pytest.raises(RuntimeError, match="bn2.running_mean"):
         params_from_jax(cap, trainable, frozen, no_bn_stats)
     base = build_captioner("base-soft", len(w2i), ConfigTrain(),
-                           resnet_layers=LAYERS)
+                           resnet_layers=LAYERS, device="cpu")
     with pytest.raises(KeyError, match="depth_encoder"):
         params_from_jax(base, trainable, frozen)
 

@@ -274,7 +274,7 @@ def tiny_dpt():
 
 def _port_estimator(variables, **kw):
     est = tdpt.DPTDepthEstimator(dtype=torch.float32, image_size=64,
-                                 **TINY, **kw)
+                                 device="cpu", **TINY, **kw)
     dpt_params_from_jax(est, variables)
     return est
 

@@ -11,7 +11,12 @@ JAX, so it also runs on a GPU machine without JAX:
 Tolerances: atol 1e-4 on h', c', alpha for the step (f32 sums in another
 order than cuBLAS's); greedy tokens agree on >= 99% of positions (a
 near-tie argmax may flip and the flip cascades along its row) and are
-equal when the <end> bias ends every row at step 0. ViT attention (K5):
+equal when the <end> bias ends every row at step 0. The same holds for the
+NIC greedy kernel (K3; exact when one token's bias is raised by 100) and
+for the beam kernel (K4): best tokens agree on >= 99% and the final scores
+within 1e-3 (log-probabilities summed over up to 30 steps, each from sums
+in another order); records are exact when <end> is forced and when a
+zeroed vocab head makes every token tie (the tie order alone decides). ViT attention (K5):
 in f32, atol 1e-5 (sums in another order); in bf16, atol of one bf16 ulp
 of max|v| (2^-7 * max|v|; each output is a convex mix of v's rows, so
 |out| <= max|v|), because p and the output are rounded to bf16 and an f32
@@ -24,8 +29,9 @@ import torch
 
 from depth_image_captioning_pub_torch.models.decoder import AttentionDecoder
 from depth_image_captioning_pub_torch.ops.attention import project_features
+from depth_image_captioning_pub_torch.models.nic import NICDecoder
 from depth_image_captioning_pub_torch.ops.kernels import (
-    decode_seq, decode_step, vit_attention)
+    beam_seq, decode_seq, decode_step, nic_seq, vit_attention)
 
 pytestmark = pytest.mark.cuda
 
@@ -173,3 +179,151 @@ def test_vit_attention_rejects_outside_envelope(cuda):
         vit_attention.fused_attention(q.transpose(0, 1).contiguous()
                                       .transpose(0, 1), q, q, scale=1.0,
                                       n_valid=8)
+
+
+# ---- NIC greedy decode (K3) -------------------------------------------------
+
+NIC_SHAPES = {"B1": (1, 300, 128, 2, 9956),      # B, E, H, layers, V
+              "odd": (7, 37, 32, 2, 41),         # odd E and V
+              "one_layer": (5, 24, 16, 1, 40),
+              "main": (64, 300, 128, 2, 9956)}
+
+
+def _nic(shape, dev, seed=0):
+    bsz, e, h, layers, v = shape
+    dec = NICDecoder(v, dim_embedding=e, dim_hidden=h, num_layers=layers,
+                     device=dev)
+    dec.reset_parameters(torch.Generator().manual_seed(seed))
+    x0 = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (bsz, e)).astype(np.float32)).to(dev)
+    return dec, x0
+
+
+@pytest.mark.parametrize("shape", sorted(NIC_SHAPES))
+def test_nic_kernel_matches_plain(cuda, shape):
+    dec, x0 = _nic(NIC_SHAPES[shape], cuda)
+    with torch.inference_mode():
+        w = dec.seq_weights()
+        before = nic_seq.LAUNCHES
+        got = nic_seq.fused_nic_greedy_decode(x0, w, max_length=30)
+        torch.cuda.synchronize()
+        assert nic_seq.LAUNCHES == before + 1
+        want = nic_seq.fused_nic_greedy_decode_plain(x0, w, max_length=30)
+        assert got.dtype == torch.int32 and got.shape == want.shape
+        assert (got == want).float().mean().item() >= 0.99
+        b_out = w.b_out.clone()
+        b_out[0, 3] += 100.0
+        w_tok = w._replace(b_out=b_out)
+        got = nic_seq.fused_nic_greedy_decode(x0, w_tok, max_length=30)
+        want = nic_seq.fused_nic_greedy_decode_plain(x0, w_tok,
+                                                     max_length=30)
+    assert torch.equal(got, want) and bool((got == 3).all())
+
+
+def test_nic_kernel_rejects_bad_input(cuda):
+    dec, x0 = _nic(NIC_SHAPES["odd"], cuda)
+    w = dec.seq_weights()
+    with pytest.raises(ValueError, match="expected"):
+        nic_seq.fused_nic_greedy_decode(x0.cpu(), w)
+    with pytest.raises(TypeError, match="float32"):
+        nic_seq.fused_nic_greedy_decode(x0.half(), w)
+    with pytest.raises(ValueError, match="contiguous"):
+        nic_seq.fused_nic_greedy_decode(
+            x0.t().contiguous().t(), w)
+
+
+# ---- beam search (K4) ---------------------------------------------------------
+
+BEAM_SHAPES = {"B1": (1,) + SHAPES["main"][1:],
+               "odd": (5, 49, 64, 32, 24, 32, 41),       # odd B and V
+               "main": (64,) + SHAPES["main"][1:]}
+
+
+def _beam_inputs(shape, dev, seed, storage=torch.bfloat16):
+    dec, feats = _decoder(shape, dev, seed=seed)
+    f = feats.to(storage)
+    with torch.inference_mode():
+        proj = project_features(dec.att_params(), f,
+                                compute_dtype=torch.float32)
+        state = dec.init_state(f)
+    return dec, f, proj, state
+
+
+def _run_beam(fn, f, proj, state, w, beam, end=END):
+    return fn(f, proj, state.h, state.c, w, beam_size=beam, max_length=30,
+              start_id=2, end_id=end)
+
+
+@pytest.mark.parametrize("shape", sorted(BEAM_SHAPES))
+@pytest.mark.parametrize("beam", [2, 3, 4, 5])
+def test_beam_kernel_matches_plain(cuda, shape, beam):
+    dec, f, proj, state = _beam_inputs(BEAM_SHAPES[shape], cuda, seed=beam)
+    with torch.inference_mode():
+        w = dec.seq_weights()
+        before = beam_seq.LAUNCHES
+        got = _run_beam(beam_seq.fused_beam_decode, f, proj, state, w, beam)
+        torch.cuda.synchronize()
+        assert beam_seq.LAUNCHES == before + 1
+        want = _run_beam(beam_seq.fused_beam_decode_plain, f, proj, state, w,
+                         beam)
+    assert got.tokens.dtype == got.parents.dtype == torch.int32
+    assert got.tokens.shape == want.tokens.shape
+    best_got = beam_seq.select_best(got, END)[0]
+    best_want = beam_seq.select_best(want, END)[0]
+    assert (best_got == best_want).float().mean().item() >= 0.99
+    torch.testing.assert_close(got.scores, want.scores, atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("beam", [2, 5])
+@pytest.mark.parametrize("case", ["forced_end", "all_ties"])
+def test_beam_kernel_exact_cases(cuda, beam, case):
+    dec, f, proj, state = _beam_inputs(BEAM_SHAPES["odd"], cuda, seed=7)
+    with torch.inference_mode():
+        if case == "forced_end":
+            dec.out_b[END] += 100.0
+        else:
+            dec.out_w.zero_()
+            dec.out_b.zero_()
+        w = dec.seq_weights()
+        got = _run_beam(beam_seq.fused_beam_decode, f, proj, state, w, beam)
+        want = _run_beam(beam_seq.fused_beam_decode_plain, f, proj, state, w,
+                         beam)
+    assert torch.equal(got.tokens, want.tokens)
+    assert torch.equal(got.parents, want.parents)
+    torch.testing.assert_close(got.scores, want.scores, atol=1e-4, rtol=0)
+    if case == "all_ties":
+        assert bool((got.tokens < beam).all())
+
+
+def test_decoder_beam_sample_on_card_matches_cpu(cuda):
+    """AttentionDecoder.beam_sample on the card (K4) against the same
+    decoder's plain path on the CPU, f32 features."""
+    dec, feats = _decoder(SHAPES["small"], cuda, seed=4)
+    with torch.inference_mode():
+        before = beam_seq.LAUNCHES
+        got, got_s = dec.beam_sample(feats, 2, END, beam_size=3,
+                                     max_length=9, length_penalty=0.7)
+        assert beam_seq.LAUNCHES == before + 1
+        want, want_s = dec.cpu().beam_sample(feats.cpu(), 2, END,
+                                             beam_size=3, max_length=9,
+                                             length_penalty=0.7)
+    assert (got.cpu() == want).float().mean().item() >= 0.99
+    torch.testing.assert_close(got_s.cpu(), want_s, atol=1e-3, rtol=0)
+
+
+def test_beam_kernel_rejects_outside_envelope(cuda):
+    dec, f, proj, state = _beam_inputs(BEAM_SHAPES["odd"], cuda, seed=1)
+    w = dec.seq_weights()
+    with pytest.raises(ValueError, match="beam sizes"):
+        _run_beam(beam_seq.fused_beam_decode, f, proj, state, w, 6)
+    with pytest.raises(ValueError, match="beam sizes"):
+        _run_beam(beam_seq.fused_beam_decode, f, proj, state, w, 1)
+    with pytest.raises(ValueError, match="expected"):
+        _run_beam(beam_seq.fused_beam_decode, f, proj.cpu(), state, w, 3)
+    with pytest.raises(TypeError, match="float32"):
+        _run_beam(beam_seq.fused_beam_decode, f.half(), proj, state, w, 3)
+    # D=8192: the beams' context and gate rows alone need 320 KB
+    dec, f, proj, state = _beam_inputs((1, 4, 8192, 8, 8, 8, 16), cuda, 1)
+    with pytest.raises(ValueError, match="shared memory"):
+        _run_beam(beam_seq.fused_beam_decode, f, proj, state,
+                  dec.seq_weights(), 5)

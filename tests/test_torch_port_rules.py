@@ -1,0 +1,160 @@
+"""Rules the port keeps, checked on the CPU.
+
+* No module of ``depth_image_captioning_pub_torch`` and not
+  ``chip_smoke.py`` imports ``jax``, ``flax`` or
+  ``depth_image_captioning_pub_tpu`` (an AST walk over every import).
+* The port's own copies of the JAX package's framework-free code behave as
+  the originals: ``ConfigTrain``/``ConfigEval`` field by field, the
+  detokenizer, the vocabulary loader and the evaluation batches.
+* The entry points run on the CUDA card unless the caller asks for the
+  CPU: their default device is ``"cuda"``, and without a card a default
+  call raises instead of running on the CPU.
+"""
+
+import ast
+import dataclasses
+import inspect
+import pickle
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from depth_image_captioning_pub_tpu import config as jconfig
+from depth_image_captioning_pub_tpu.data import pipeline as jpipeline
+from depth_image_captioning_pub_tpu.data import tokenizer as jtokenizer
+from depth_image_captioning_pub_tpu.data import vocab as jvocab
+from depth_image_captioning_pub_torch import cli
+from depth_image_captioning_pub_torch import config as tconfig
+from depth_image_captioning_pub_torch.data import pipeline as tpipeline
+from depth_image_captioning_pub_torch.data import tokenizer as ttokenizer
+from depth_image_captioning_pub_torch.data import vocab as tvocab
+from depth_image_captioning_pub_torch.models import captioner, dpt
+
+REPO = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "flax", "depth_image_captioning_pub_tpu")
+
+
+def _port_sources():
+    files = sorted((REPO / "depth_image_captioning_pub_torch").rglob("*.py"))
+    return files + [REPO / "chip_smoke.py"]
+
+
+def _imported_roots(path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0], node.lineno
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0], node.lineno
+
+
+def test_port_and_chip_smoke_import_no_jax():
+    files = _port_sources()
+    assert len(files) > 20
+    bad = [f"{p.relative_to(REPO)}:{line} imports {root}"
+           for p in files for root, line in _imported_roots(p)
+           if root in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_import_guard_sees_imports(tmp_path):
+    """The walk finds imports in functions and in every import form."""
+    src = tmp_path / "m.py"
+    src.write_text("def f():\n    from depth_image_captioning_pub_tpu.x "
+                   "import y\nimport flax.linen as nn\nimport os, jax\n")
+    assert sorted(r for r, _ in _imported_roots(src)) == [
+        "depth_image_captioning_pub_tpu", "flax", "jax", "os"]
+
+
+@pytest.mark.parametrize("name", ["ConfigTrain", "ConfigEval"])
+def test_config_copies_equal_jax(name, tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)          # paths default relative to the cwd
+    jcls, tcls = getattr(jconfig, name), getattr(tconfig, name)
+    jfields = [(f.name, f.type) for f in dataclasses.fields(jcls)]
+    tfields = [(f.name, f.type) for f in dataclasses.fields(tcls)]
+    assert tfields == jfields
+    assert dataclasses.asdict(tcls()) == dataclasses.asdict(jcls())
+    assert tcls().save_dir("nic", False) == jcls().save_dir("nic", False)
+
+
+def test_tokenizer_copy_equals_jax():
+    assert ttokenizer.SPECIAL == ttokenizer.SpecialTokens()
+    assert dataclasses.asdict(ttokenizer.SPECIAL) == dataclasses.asdict(
+        jtokenizer.SPECIAL)
+    i2w = {0: "a", 1: "dog", 2: "<start>", 3: "<end>", 4: "<unk>"}
+    w2i = {w: i for i, w in i2w.items()}
+    for ids in ([2, 0, 1, 3, 1], [0, 0, 1], [3, 0], [2, 2, 4, 1]):
+        assert ttokenizer.ids_to_caption(ids, i2w) == \
+            jtokenizer.ids_to_caption(ids, i2w)
+    for cap in ("A dog. , runs,", "a cat sat on the mat.", " . "):
+        assert ttokenizer.untokenize_caption(cap, w2i) == \
+            jtokenizer.untokenize_caption(cap, w2i)
+
+
+def test_vocab_and_eval_batches_copies_equal_jax(tmp_path):
+    w2i = {"a": 0, "dog": 1, "<start>": 2, "<end>": 3, "<unk>": 4}
+    path = tmp_path / "w2i.pkl"
+    with open(path, "wb") as f:
+        pickle.dump(w2i, f)
+    assert tvocab.load_vocab(str(path)) == jvocab.load_vocab(str(path))
+
+    class Dataset:
+        images = np.arange(5 * 2 * 2 * 3, dtype=np.uint8).reshape(5, 2, 2, 3)
+
+        def __len__(self):
+            return 5
+
+        def load_image(self, i):
+            return self.images[i]
+
+        def captions(self, i):
+            return [f"A dog {i}.", "a cat"]
+
+    got = list(tpipeline.Prefetcher(tpipeline.eval_batches(
+        Dataset(), w2i, batch_size=2)))
+    want = list(jpipeline.eval_batches(Dataset(), w2i, batch_size=2))
+    assert len(got) == len(want) == 3
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.images, w.images)
+        np.testing.assert_array_equal(g.pad_mask, w.pad_mask)
+        assert g.references == w.references
+
+
+def test_entry_points_default_to_cuda():
+    defaults = {
+        "build_captioner": inspect.signature(
+            captioner.build_captioner).parameters["device"].default,
+        "Captioner": inspect.signature(
+            captioner.Captioner).parameters["device"].default,
+        "DPTDepthEstimator": inspect.signature(
+            dpt.DPTDepthEstimator).parameters["device"].default,
+        "make_depth_fn": inspect.signature(
+            cli.make_depth_fn).parameters["device"].default,
+    }
+    assert set(defaults.values()) == {"cuda"}, defaults
+    assert "is_available" not in inspect.getsource(cli)
+    if torch.cuda.is_available():
+        return
+    # without a card a default call raises from PyTorch, it does not fall
+    # back to the CPU
+    with pytest.raises((RuntimeError, AssertionError)):
+        captioner.build_captioner("nic", 20, resnet_layers=(1, 1, 1, 1))
+    with pytest.raises((RuntimeError, AssertionError)):
+        cli.main(["caption", "--random", "1", "--vocab-size", "20",
+                  "--resnet-layers", "1,1,1,1", "--image-size", "64"])
+
+
+def test_cli_device_default_is_cuda(monkeypatch):
+    seen = {}
+
+    def fake_caption(args):
+        seen.update(vars(args))
+        return []
+
+    monkeypatch.setattr(cli, "caption", fake_caption)
+    cli.main(["caption", "--random", "1", "--kind", "nic", "--beam", "3",
+              "--length-penalty", "0.7"])
+    assert seen["device"] == "cuda" and seen["kind"] == "nic"
+    assert seen["beam"] == 3 and seen["length_penalty"] == 0.7

@@ -76,7 +76,8 @@ def models(vocab):
     out_b[w2i[SPECIAL.end]] += 1.0     # some captions end before MAX_LEN
     trainable["decoder"] = dict(trainable["decoder"], out_b=out_b)
     tcap = build_captioner("base-soft", len(w2i), cfg,
-                           encoder_dtype=torch.float32, resnet_layers=LAYERS)
+                           encoder_dtype=torch.float32, resnet_layers=LAYERS,
+                           device="cpu")
     params_from_jax(tcap, trainable, frozen)
     return jcap, tcap, trainable, frozen, stats
 
@@ -181,7 +182,7 @@ def test_cli_from_npz(vocab, models, images, tmp_path, capsys):
               "--max-length", str(MAX_LEN), "--batch-buckets", "4"])
     lines = capsys.readouterr().out.splitlines()
     cap = build_captioner("base-soft", len(w2i), ConfigTrain(),
-                          resnet_layers=LAYERS)
+                          resnet_layers=LAYERS, device="cpu")
     assert cap.encoder.backbone.conv1.weight.dtype == torch.bfloat16
     params_from_jax(cap, trainable, frozen)
     pipe = CaptionPipeline(cap, w2i, i2w, max_length=MAX_LEN,
@@ -191,7 +192,8 @@ def test_cli_from_npz(vocab, models, images, tmp_path, capsys):
 
 def test_other_kinds_not_ported():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_captioner("depth-hard", 20, resnet_layers=LAYERS)
+        build_captioner("depth-hard", 20, resnet_layers=LAYERS,
+                        device="cpu")
 
 
 _NO_JAX = r"""
@@ -211,7 +213,8 @@ cli.main(["caption", "--kind", "depth-soft", "--tiny-dpt", "--random", "2",
           "--batch-buckets", "2"])
 assert decode_seq.LAUNCHES == 0 and vit_attention.LAUNCHES == 0
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "PIL"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "PIL",
+                                    "depth_image_captioning_pub_tpu"))
 assert not bad, bad
 print("NO_JAX_OK")
 """
