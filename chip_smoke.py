@@ -27,10 +27,13 @@ the script exits non-zero:
    launch counter must grow by one per chunk and the plain greedy version
    must not run; tokens are checked against the plain version on one
    request; per-request latency and captions/s are printed.
-6. ViT attention kernel vs its plain version at full width (Z=64*12=768,
-   N=577, d=64 bf16), unpadded and padded to N=584 with n_valid=577: max
-   and mean abs error <= one bf16 ulp of max|v| (p and the output are
-   rounded to bf16, and the f32 sums run in another order);
+6. ViT attention kernel (K5, bf16 on the tensor cores) vs its plain version
+   at full width (Z=64*12=768, N=577, d=64 bf16), unpadded and padded to
+   N=584 with n_valid=577: max and mean abs error <= one bf16 ulp of max|v|
+   (p and the output are rounded to bf16, and the f32 sums run in another
+   order); the same check and times at the 1- and 16-image requests' Z=12
+   and Z=192, and at d=32 and d=128 (Z=96); ptxas' register and spill lines
+   of the kernel's bf16 instances;
 7. depth-soft path: ``CaptionPipeline`` over a seeded random-weight
    depth-soft captioner at full width (ResNet-152 bf16 at 224x224, the
    DPT-hybrid bf16 at 384x384, ``DepthCNNEncoder`` bf16, V=9956, buckets
@@ -40,7 +43,7 @@ the script exits non-zero:
    finite and in [0, 1]; on the 16-image request the tokens are compared
    with a run whose attention and decode take the plain versions (with the
    errors of each stage between the two runs); the time split of one
-   64-image chunk is printed.
+   64-image chunk is printed, with K5's share of it.
 
    Phase 6 also times ``F.scaled_dot_product_attention`` on the same q and
    k/v sliced to n_valid, laid out [B, 12, N, 64]: a yardstick for K5's
@@ -96,6 +99,8 @@ SEQ_TPU = "depth_image_captioning_pub_tpu/ops/pallas/decode_seq.py:287"
 VIT_SRC = "depth_image_captioning_pub_torch/csrc/vit_attention.cu"
 VIT_TPU = "depth_image_captioning_pub_tpu/ops/pallas/vit_attention.py:77"
 VIT_Z, VIT_N, VIT_D = 64 * 12, 577, 64
+# K5 also at the 1- and 16-image requests' Z and at the other head dims
+VIT_MORE = ((12, 64), (192, 64), (96, 32), (96, 128))     # Z, d at N=577
 NIC_SRC = "depth_image_captioning_pub_torch/csrc/nic_seq.cu"
 NIC_TPU = "depth_image_captioning_pub_tpu/ops/pallas/nic_seq.py:178"
 BEAM_SRC = "depth_image_captioning_pub_torch/csrc/beam_seq.cu"
@@ -435,46 +440,84 @@ def bf16_ulp(x):
     return 2.0 ** (math.floor(math.log2(m)) - 7) if m > 0 else 0.0
 
 
-def phase_vit(smi):
+def ptxas_report(kernel):
+    """{template arguments: "registers, spills"} of the build's instances of
+    ``kernel``, from ptxas' -v lines in the build log."""
+    import re
+    from depth_image_captioning_pub_torch.ops.kernels import _build
+    report, name = {}, None
+    for line in _build.BUILD_LOG.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if kernel in line else None
+        elif name and ("registers" in line or "spill" in line):
+            args = ",".join(re.findall(r"Li(\d+)E", name)) or name
+            report.setdefault(args, []).append(line.split(":")[-1].strip())
+    return {args: "; ".join(lines) for args, lines in report.items()}
+
+
+def attention_case(q, k, v, n_valid, iters=10):
+    """K5 vs its plain version on q/k/v: (max abs err, mean abs err, tol,
+    kernel ms, plain ms); raises on non-finite output or err > tol."""
     import torch
     from depth_image_captioning_pub_torch.ops.kernels import vit_attention
-    dev = torch.device("cuda")
-    rng = np.random.default_rng(6)
-    q, k, v = (torch.from_numpy(rng.standard_normal(
-        (VIT_Z, VIT_N + 7, VIT_D)).astype(np.float32)).to(dev, torch.bfloat16)
-        for _ in range(3))
+    scale = q.shape[-1] ** -0.5
+
+    def run(fn):
+        return fn(q, k, v, scale=scale, n_valid=n_valid)
+
+    got = run(vit_attention.fused_attention)
+    torch.cuda.synchronize()
+    want = run(vit_attention.fused_attention_plain)
+    if not bool(torch.isfinite(got).all()):
+        raise RuntimeError("vit_attention kernel produced non-finite values")
+    diff = (got.float() - want.float()).abs()
+    tol = bf16_ulp(v)
+    err, mean = diff.max().item(), diff.mean().item()
+    if err > tol:
+        raise RuntimeError(f"vit_attention {tuple(q.shape)} n_valid="
+                           f"{n_valid}: max abs err {err} > {tol}")
+    ms = cuda_ms(lambda: run(vit_attention.fused_attention), iters)
+    plain_ms = cuda_ms(lambda: run(vit_attention.fused_attention_plain),
+                       iters)
+    return err, mean, tol, ms, plain_ms
+
+
+def phase_vit(smi):
+    import torch
     import torch.nn.functional as F
+    from depth_image_captioning_pub_torch.ops.kernels import vit_attention
+    dev = torch.device("cuda")
+    for args, line in ptxas_report("attention_bf16_kernel").items():
+        log("vit_attention", f"ptxas bf16 route, d={args}: {line}")
+    rng = np.random.default_rng(6)
+
+    def qkv(z, n, d):
+        return [torch.from_numpy(rng.standard_normal((z, n, d)).astype(
+            np.float32)).to(dev, torch.bfloat16) for _ in range(3)]
+
+    q, k, v = qkv(VIT_Z, VIT_N + 7, VIT_D)
     scale = VIT_D ** -0.5
     worst = 0.0
     timed = {}
     for n, n_valid in ((VIT_N, VIT_N), (VIT_N + 7, VIT_N)):
         args = [t[:, :n].contiguous() for t in (q, k, v)]
-
-        def run(fn):
-            return fn(*args, scale=scale, n_valid=n_valid)
-
-        got = run(vit_attention.fused_attention)
-        torch.cuda.synchronize()
-        want = run(vit_attention.fused_attention_plain)
-        if not bool(torch.isfinite(got).all()):
-            raise RuntimeError("vit_attention kernel produced non-finite "
-                               "values")
-        diff = (got.float() - want.float()).abs()
-        tol = bf16_ulp(args[2])
-        err, mean = diff.max().item(), diff.mean().item()
-        if err > tol:
-            raise RuntimeError(f"vit_attention N={n} n_valid={n_valid}: max "
-                               f"abs err {err} > {tol}")
-        ms = cuda_ms(lambda: run(vit_attention.fused_attention), 10)
-        plain_ms = cuda_ms(lambda: run(vit_attention.fused_attention_plain),
-                           10)
+        err, mean, tol, ms, plain_ms = attention_case(*args, n_valid)
         timed[n] = (ms, plain_ms)
         worst = max(worst, err)
         log("vit_attention", f"Z={VIT_Z} N={n} n_valid={n_valid} d={VIT_D} "
             f"bf16: max abs err {err:.3e}, mean {mean:.3e} (tol {tol:.3e}, "
-            f"one bf16 ulp of max|v|); kernel {ms:.3f} ms, plain "
+            f"one bf16 ulp of max|v|); kernel {ms:.4f} ms, plain "
             f"{plain_ms:.3f} ms [{smi}]")
     ms, plain_ms = timed[VIT_N]
+    by_shape = {}
+    for z, d in VIT_MORE:
+        err, mean, tol, k_ms, p_ms = attention_case(*qkv(z, VIT_N, d), VIT_N)
+        worst = max(worst, err)
+        by_shape[f"Z={z} N={VIT_N} d={d}"] = {
+            "ms": k_ms, "plain_ms": p_ms, "max_abs_err": err}
+        log("vit_attention", f"Z={z} N={VIT_N} d={d} bf16: max abs err "
+            f"{err:.3e}, mean {mean:.3e} (tol {tol:.3e}); kernel {k_ms:.4f} "
+            f"ms, plain {p_ms:.3f} ms [{smi}]")
 
     # yardstick: one PyTorch call for the same function, keys < n_valid
     n, n_valid = VIT_N + 7, VIT_N
@@ -496,14 +539,15 @@ def phase_vit(smi):
     bound_ms, bound_by = bound(4 * z_rows * VIT_D * 2,
                                4 * z_rows * VIT_N * VIT_D, BF16_FLOPS)
     log("vit_attention", f"F.scaled_dot_product_attention on q [B={bsz}, 12, "
-        f"{n}, {VIT_D}] and k/v sliced to n_valid={n_valid}: {sdpa_ms:.3f} "
-        f"ms, max abs err {sdpa_err:.3e} against the plain version; K5's "
-        f"bound at N={VIT_N} {bound_ms:.4f} ms ({bound_by}) [{smi}]")
+        f"{n}, {VIT_D}] and k/v sliced to n_valid={n_valid}: {sdpa_ms:.4f} "
+        f"ms, max abs err {sdpa_err:.3e} against the plain version; K5 at "
+        f"N={VIT_N} {ms:.4f} ms, {ms / sdpa_ms:.2f}x SDPA, bound "
+        f"{bound_ms:.4f} ms ({bound_by}) [{smi}]")
     return {"name": "vit_attention", "route": "cuda", "source": VIT_SRC,
             "replaces": VIT_TPU, "max_abs_err": worst, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": sdpa_ms, "sdpa_ms": sdpa_ms,
-            "sdpa_max_abs_err": sdpa_err}
+            "sdpa_max_abs_err": sdpa_err, "ms_by_shape": by_shape}
 
 
 class Events:
@@ -674,9 +718,12 @@ def phase_depth_path(smi):
             f.contiguous(), proj, state.h, state.c, w, max_length=MAX_LEN,
             start_id=start_id, end_id=end_id))
     total = sum(v for k, v in ev.times.items() if ":" not in k)
+    k5 = ev.times["dpt: vit attention (K5)"]
     log("depth", "64-image chunk split (device ms, each stage timed alone): "
         + ", ".join(f"{k} {v:.2f}" for k, v in ev.times.items())
-        + f"; sum of stages {total:.2f} [{smi}]")
+        + f"; sum of stages {total:.2f}; K5 {k5:.2f} ms = "
+        f"{100 * k5 / total:.1f}% of the stages, "
+        f"{100 * k5 / ev.times['dpt']:.1f}% of the DPT [{smi}]")
     return launches
 
 

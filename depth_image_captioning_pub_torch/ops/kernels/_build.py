@@ -45,7 +45,8 @@ _SIGNATURES = {
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
-BUILD_LOG = ""       # nvcc's output (ptxas register/spill report) of the build
+BUILD_LOG = ""       # nvcc's output (ptxas register/spill report) of the
+                     # build, kept as build.log beside the library
 BUILD_SECONDS = 0.0  # 0.0 when the library was already built
 
 
@@ -81,7 +82,10 @@ def build() -> Path:
     """Compile the sources unless the library for them exists; returns it."""
     global BUILD_LOG, BUILD_SECONDS
     out = library_path()
+    log = out.with_name("build.log")
     if out.is_file():
+        if log.is_file():
+            BUILD_LOG = log.read_text()
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
@@ -94,6 +98,7 @@ def build() -> Path:
         logs += _nvcc([[nvcc, *NVCC_FLAGS[:2], "-shared", "-o", lib, *objs]])
         BUILD_SECONDS = time.perf_counter() - t0
         BUILD_LOG = "".join(logs)
+        log.write_text(BUILD_LOG)
         os.replace(lib, out)  # atomic: a concurrent build sees all or none
     return out
 

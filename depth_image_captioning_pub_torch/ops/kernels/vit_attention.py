@@ -7,12 +7,14 @@ Counterpart of the JAX ``ops/pallas/vit_attention.py``. Over q/k/v
   p   = softmax(s)                 f32, then rounded to v's dtype
   out = p @ v                      f32 accumulation, stored in v's dtype
 
-``fused_attention`` launches ``csrc/vit_attention.cu`` (one CTA per z and
-tile of 32 query rows, the tile's score rows in shared memory) for CUDA
-tensors and ``fused_attention_plain`` for CPU tensors. The kernel takes
-d in (32, 64, 128) and any N >= 1 whose score rows fit the 227 KB of shared
-memory a block may use (n_valid up to about 1,490 at d=64); the wrapper
-raises outside that envelope, as the Pallas kernel asserts its VMEM budget.
+``fused_attention`` launches ``csrc/vit_attention.cu`` for CUDA tensors
+and ``fused_attention_plain`` for CPU tensors. The kernel takes d in (32,
+64, 128). bf16 runs on the tensor cores (one CTA per z and tile of 128
+query rows, 64 at d=128; two passes over the key tiles, no score rows
+kept) at any N >= 1. f32 runs on the CUDA cores with a tile of 32 query
+rows' score rows in shared memory, so its n_valid is bounded by the 227 KB
+a block may use (about 1,490 at d=64); the wrapper raises outside that
+envelope, as the Pallas kernel asserts its VMEM budget.
 """
 
 from __future__ import annotations
@@ -26,13 +28,20 @@ from depth_image_captioning_pub_torch.ops.kernels.decode_step import (
 LAUNCHES = 0   # kernel launches of dcap_vit_attention in this process
 
 HEAD_DIMS = (32, 64, 128)
-ROWS, TILE = 32, 128             # kRows, kTile of csrc/vit_attention.cu
+ROWS, TILE = 32, 128             # kRows, kTile of the f32 route
+# kWarps, kBlocks, kKeys, kStages of the bf16 route
+TC_WARPS, TC_BLOCKS, TC_KEYS, TC_STAGES = 4, 2, 64, 2
 SMEM_LIMIT = 232448              # bytes of shared memory a block may use
 
 
-def smem_bytes(d: int, n_valid: int) -> int:
-    """The kernel's dynamic shared memory (csrc/vit_attention.cu
-    ``smem_bytes``): Q tile, one K/V tile, the score rows."""
+def smem_bytes(d: int, n_valid: int, dtype: torch.dtype) -> int:
+    """The kernel's dynamic shared memory (``smem_bytes`` of
+    csrc/vit_attention.cu). bf16: the Q rows and the K/V ring, rows padded
+    by 16 bytes, whatever n_valid; f32: the Q tile, one K/V tile and the
+    score rows."""
+    if dtype == torch.bfloat16:
+        rows = 16 * TC_WARPS * (TC_BLOCKS if d < 128 else 1)
+        return (rows + 2 * TC_STAGES * TC_KEYS) * (2 * d + 16)
     ld = (n_valid + 3) // 4 * 4
     return 4 * (ROWS * d + d * (TILE + 1) + ROWS * ld)
 
@@ -77,11 +86,15 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
-    if smem_bytes(d, n_valid) > SMEM_LIMIT:
-        raise ValueError(f"n_valid={n_valid} at d={d} needs "
-                         f"{smem_bytes(d, n_valid)} bytes of shared memory "
-                         f"per block, more than {SMEM_LIMIT}")
+    smem = smem_bytes(d, n_valid, q.dtype)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"n_valid={n_valid} at d={d} in {q.dtype} needs "
+                         f"{smem} bytes of shared memory per block, more "
+                         f"than {SMEM_LIMIT}")
     ptrs = cuda_pointers(named)
+    if q.dtype == torch.bfloat16 and any(p % 16 for p in ptrs):
+        raise ValueError("bf16 q, k and v must start on 16-byte boundaries "
+                         "(the kernel copies rows in 16-byte pieces)")
     lib = _build.load()
     out = torch.empty_like(v)
     with torch.cuda.device(q.device):

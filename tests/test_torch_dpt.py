@@ -123,10 +123,34 @@ def test_fused_attention_rejects_bad_input():
 
 
 def test_fused_attention_smem_envelope():
-    """The wrapper's shared-memory sum: 577 tokens at d=64 fit one block,
-    and the score rows bound n_valid well above the DPT's 577."""
-    assert vit_attention.smem_bytes(64, 577) < vit_attention.SMEM_LIMIT
-    assert vit_attention.smem_bytes(64, 1500) > vit_attention.SMEM_LIMIT
+    """The wrapper's shared-memory sum by dtype. f32 keeps a tile's score
+    rows, so 577 tokens at d=64 fit one block and n_valid stops near 1,490;
+    bf16 keeps no score rows, so it fits at every n_valid for d <= 128."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    limit = vit_attention.SMEM_LIMIT
+    assert vit_attention.smem_bytes(64, 577, f32) < limit
+    assert vit_attention.smem_bytes(64, 1480, f32) <= limit
+    assert vit_attention.smem_bytes(64, 1500, f32) > limit
+    for d in vit_attention.HEAD_DIMS:
+        sizes = {vit_attention.smem_bytes(d, n, bf16)
+                 for n in (1, 577, 1500, 4096, 1 << 20)}
+        assert len(sizes) == 1 and sizes.pop() <= limit
+
+
+def test_fused_attention_bf16_cpu_takes_plain_version():
+    """A bf16 CPU call beyond the f32 route's envelope still runs the plain
+    version (no launch) and matches the Pallas kernel at one bf16 ulp."""
+    q, k, v = (_arr(s, 2, 600, 32) for s in (7, 8, 9))
+    jb = [jnp.asarray(x).astype(jnp.bfloat16) for x in (q, k, v)]
+    want = jax_fused_attention(*jb, scale=32 ** -0.5, n_valid=590,
+                               interpret=True)
+    tb = [torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v)]
+    before = vit_attention.LAUNCHES
+    got = vit_attention.fused_attention(*tb, scale=32 ** -0.5, n_valid=590)
+    assert vit_attention.LAUNCHES == before
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == q.shape
+    vmax = np.abs(np.asarray(jb[2].astype(jnp.float32))).max()
+    _close(got, np.asarray(want.astype(jnp.float32)), atol=2 ** -7 * vmax)
 
 
 # ---- image ops --------------------------------------------------------

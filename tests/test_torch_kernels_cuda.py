@@ -17,8 +17,9 @@ for the beam kernel (K4): best tokens agree on >= 99% and the final scores
 within 1e-3 (log-probabilities summed over up to 30 steps, each from sums
 in another order); records are exact when <end> is forced and when a
 zeroed vocab head makes every token tie (the tie order alone decides). ViT attention (K5):
-in f32, atol 1e-5 (sums in another order); in bf16, atol of one bf16 ulp
-of max|v| (2^-7 * max|v|; each output is a convex mix of v's rows, so
+in f32, atol 1e-5 (sums in another order); in bf16 (the tensor-core
+route, at d = 32, 64, 128 and N from 1 to 2048), atol of one bf16 ulp of
+max|v| (2^-7 * max|v|; each output is a convex mix of v's rows, so
 |out| <= max|v|), because p and the output are rounded to bf16 and an f32
 sum in another order can round either way.
 """
@@ -135,14 +136,28 @@ def test_kernel_wrappers_reject_strided_input(cuda):
                                            state.c, dec.seq_weights())
 
 
-@pytest.mark.parametrize("n,n_valid", [(1, 1), (17, 17), (577, 577),
-                                       (584, 577)])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_vit_attention_matches_plain(cuda, n, n_valid, dtype):
-    rng = np.random.default_rng(n)
-    z, d = 6, 64
-    q, k, v = (torch.from_numpy(rng.standard_normal((z, n, d)).astype(
-        np.float32)).to(cuda, getattr(torch, dtype)) for _ in range(3))
+F32_VIT_SHAPES = [(1, 1), (17, 17), (577, 577), (584, 577)]
+BF16_VIT_SHAPES = [(1, 1), (17, 17), (63, 63), (64, 64), (65, 65),
+                   (577, 577), (584, 577), (2048, 2048)]
+VIT_CASES = ([("float32", 64, n, nv) for n, nv in F32_VIT_SHAPES]
+             + [("bfloat16", d, n, nv) for d in (32, 64, 128)
+                for n, nv in BF16_VIT_SHAPES])
+
+
+def _qkv(seed, shape, dev, dtype):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+            .to(dev, getattr(torch, dtype)) for _ in range(3)]
+
+
+def _vit_atol(v):
+    """1e-5 in f32; one bf16 ulp of max|v| in bf16."""
+    return 1e-5 if v.dtype == torch.float32 else 2 ** -7 * v.abs().max().item()
+
+
+@pytest.mark.parametrize("dtype,d,n,n_valid", VIT_CASES)
+def test_vit_attention_matches_plain(cuda, dtype, d, n, n_valid):
+    q, k, v = _qkv(n, (6, n, d), cuda, dtype)
     before = vit_attention.LAUNCHES
     got = vit_attention.fused_attention(q, k, v, scale=d ** -0.5,
                                         n_valid=n_valid)
@@ -151,15 +166,15 @@ def test_vit_attention_matches_plain(cuda, n, n_valid, dtype):
     want = vit_attention.fused_attention_plain(q, k, v, scale=d ** -0.5,
                                                n_valid=n_valid)
     assert got.dtype == v.dtype and got.shape == v.shape
-    atol = 1e-5 if dtype == "float32" else 2 ** -7 * v.abs().max().item()
-    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+    torch.testing.assert_close(got.float(), want.float(), atol=_vit_atol(v),
+                               rtol=0)
 
 
-def test_vit_attention_masks_padded_keys(cuda):
-    """Keys >= n_valid get no weight: garbage there changes nothing."""
-    rng = np.random.default_rng(5)
-    q, k, v = (torch.from_numpy(rng.standard_normal((4, 40, 32)).astype(
-        np.float32)).to(cuda) for _ in range(3))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_vit_attention_masks_padded_keys(cuda, dtype):
+    """Keys >= n_valid get no weight: garbage there changes nothing (in
+    bf16 the rows are never read, so NaN cannot reach the mma)."""
+    q, k, v = _qkv(5, (4, 40, 32), cuda, dtype)
     out = vit_attention.fused_attention(q, k, v, scale=0.2, n_valid=33)
     k[:, 33:] = 1e4
     v[:, 33:] = float("nan")
@@ -171,14 +186,25 @@ def test_vit_attention_rejects_outside_envelope(cuda):
     q = torch.zeros(2, 8, 48, device=cuda)
     with pytest.raises(ValueError, match="head dim"):
         vit_attention.fused_attention(q, q, q, scale=1.0, n_valid=8)
-    q = torch.zeros(1, 4096, 64, device=cuda)
+    # f32 keeps a tile's score rows in shared memory; bf16 keeps none
+    q, k, v = _qkv(4096, (1, 4096, 64), cuda, "float32")
     with pytest.raises(ValueError, match="shared memory"):
-        vit_attention.fused_attention(q, q, q, scale=1.0, n_valid=4096)
+        vit_attention.fused_attention(q, k, v, scale=1.0, n_valid=4096)
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    got = vit_attention.fused_attention(q, k, v, scale=0.125, n_valid=4096)
+    want = vit_attention.fused_attention_plain(q, k, v, scale=0.125,
+                                               n_valid=4096)
+    torch.testing.assert_close(got.float(), want.float(), atol=_vit_atol(v),
+                               rtol=0)
     q = torch.zeros(2, 8, 64, device=cuda)
     with pytest.raises(ValueError, match="contiguous"):
         vit_attention.fused_attention(q.transpose(0, 1).contiguous()
                                       .transpose(0, 1), q, q, scale=1.0,
                                       n_valid=8)
+    q = torch.zeros(2 * 8 * 64 + 4, device=cuda, dtype=torch.bfloat16)
+    q = q[4:].view(2, 8, 64)       # contiguous, 8 bytes off a boundary
+    with pytest.raises(ValueError, match="16-byte"):
+        vit_attention.fused_attention(q, q, q, scale=1.0, n_valid=8)
 
 
 # ---- NIC greedy decode (K3) -------------------------------------------------
