@@ -17,16 +17,21 @@ the script exits non-zero:
 3. decode_step kernel vs its plain version at full width (B=64, K=196,
    D=2048 bf16 features, A=E=H=128): max abs error <= 1e-4 on h', c',
    alpha (f32 sums in another order);
-4. greedy decode kernel vs its plain version (B=64, V=9956, 30 steps,
-   <end> set): token agreement >= 0.99 (random weights make near-ties
-   possible and a flip cascades along its row), and exact equality with
-   the <end> bias raised so every row ends at step 0;
+4. greedy decode kernel (K2: one cooperative launch, one CTA per SM,
+   weights resident in shared memory) vs its plain version at B = 1, 16
+   and 64 (V=9956, 30 steps, <end> set): token agreement >= 0.99 at each
+   (random weights make near-ties possible and a flip cascades along its
+   row), exact equality with the <end> bias raised so every row ends at
+   step 0; times, the bound, the per-step floor of re-reading the
+   features, the CTA count, shared memory and ptxas' registers/spills;
 5. main path: ``CaptionPipeline`` over a seeded random-weight base-soft
    captioner at full width (ResNet-152 bf16, 224x224, V=9956, buckets
    1/16/64) answers requests of 1, 16 and 100 images; the decode kernel's
    launch counter must grow by one per chunk and the plain greedy version
    must not run; tokens are checked against the plain version on one
-   request; per-request latency and captions/s are printed.
+   request; per-request latency and captions/s are printed, and the time
+   split of one chunk at each bucket (encoder, decoder set-up, K2, the
+   whole caption program; CUDA events, each stage timed alone).
 6. ViT attention kernel (K5, bf16 on the tensor cores) vs its plain version
    at full width (Z=64*12=768, N=577, d=64 bf16), unpadded and padded to
    N=584 with n_valid=577: max and mean abs error <= one bf16 ulp of max|v|
@@ -70,12 +75,14 @@ Each path (phases 5, 7, 9, 11) runs with every launch counter set to 0
 just before it and read just after. The line before the last is a JSON
 object with the five ported kernels (K1 step, K2 greedy, K3 NIC greedy, K4
 beam, K5 ViT attention): launches per path (K1 has none: the paths run the
-step as a device function inside K2 and K4), error, time beside the plain
+step as a device function inside K4), error, time beside the plain
 version's, the least time the card could take for the same work
 (``bound_ms``: the larger of the bytes moved over 3.35 TB/s and the
 operations over 67 TFLOP/s f32, or 989 TFLOP/s bf16 for K5, from this
 run's inputs) and the time of one PyTorch call computing the same function
-where there is one (``library_ms``: SDPA for K5). The last line is
+where there is one (``library_ms``: SDPA for K5; no single PyTorch call
+computes a whole decode loop, so K1-K4 have none); K2 and K5 also carry
+``ms_by_shape``. The last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -89,6 +96,7 @@ import numpy as np
 B, K, D, A, E, H = 64, 196, 2048, 128, 128, 128
 VOCAB = 9956
 MAX_LEN = 30
+SEQ_BATCHES = (1, 16, 64)   # K2 at the main path's chunk sizes
 STEP_ATOL = 1e-4
 MIN_AGREEMENT = 0.99
 SCORE_ATOL = 1e-3   # beam scores: 30 f32 log-softmax terms summed
@@ -304,6 +312,9 @@ def phase_step(smi):
 
 
 def phase_seq(smi):
+    """K2 at B = 1, 16 and 64 (the main path's chunk sizes) against its
+    plain version: token agreement, exact with <end> forced, times, the
+    bound, the per-step feature floor and the launch's plan."""
     import torch
     from depth_image_captioning_pub_torch.cli import (
         SPECIAL, placeholder_vocab)
@@ -318,62 +329,94 @@ def phase_seq(smi):
     dec = AttentionDecoder(VOCAB, A, E, D, H, device=dev)
     dec.reset_parameters(torch.Generator().manual_seed(2))
     rng = np.random.default_rng(2)
-    feats = torch.from_numpy(np.abs(rng.standard_normal((B, K, D)))
-                             .astype(np.float32)).to(dev, torch.bfloat16)
-    with torch.inference_mode():
-        proj = project_features(dec.att_params(), feats,
-                                compute_dtype=torch.float32)
-        state = dec.init_state(feats)
-        w = dec.seq_weights()
+    feats64 = torch.from_numpy(np.abs(rng.standard_normal((B, K, D)))
+                               .astype(np.float32)).to(dev, torch.bfloat16)
+    for args, line in ptxas_report("greedy_tiled_kernel").items():
+        log("decode_seq", f"ptxas, "
+            f"{'bf16' if 'bfloat16' in args else 'f32'} features: {line}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    by_shape = {}
+    for bsz in SEQ_BATCHES:
+        feats = feats64[:bsz].contiguous()
+        with torch.inference_mode():
+            proj = project_features(dec.att_params(), feats,
+                                    compute_dtype=torch.float32)
+            state = dec.init_state(feats)
+            w = dec.seq_weights()
 
-        def run(fn, weights):
-            return fn(feats, proj, state.h, state.c, weights,
-                      max_length=MAX_LEN, start_id=start_id, end_id=end_id)
+            def run(fn, weights):
+                return fn(feats, proj, state.h, state.c, weights,
+                          max_length=MAX_LEN, start_id=start_id,
+                          end_id=end_id)
 
-        got = run(decode_seq.fused_greedy_decode, w)
-        torch.cuda.synchronize()
-        want = run(decode_seq.fused_greedy_decode_plain, w)
-        agree = (got == want).float().mean().item()
-        distinct = len({tuple(r) for r in got.tolist()})
-        if agree < MIN_AGREEMENT:
-            raise RuntimeError(f"greedy token agreement {agree} < "
-                               f"{MIN_AGREEMENT}")
-        ms = cuda_ms(lambda: run(decode_seq.fused_greedy_decode, w), 10)
-        plain_ms = cuda_ms(lambda: run(decode_seq.fused_greedy_decode_plain,
-                                       w), 10)
-        b_out = w.b_out.clone()
-        b_out[0, end_id] += 100.0
-        w_end = w._replace(b_out=b_out)
-        got_end = run(decode_seq.fused_greedy_decode, w_end)
-        torch.cuda.synchronize()
-        want_end = run(decode_seq.fused_greedy_decode_plain, w_end)
-        err = (got_end - want_end).abs().max().item()
-        if err != 0 or not bool((got_end == end_id).all()):
-            raise RuntimeError("greedy kernel with <end> forced differs "
-                               "from the plain version")
-    # the steps this run's rows took: up to and including their <end>
-    ended = (got == end_id).cpu().numpy()
-    steps = int(np.where(ended.any(1), ended.argmax(1) + 1, MAX_LEN).sum())
-    bound_ms, bound_by = bound(
-        nbytes(feats, proj, state.h, state.c, *w.step, w.w_out, w.b_out, got)
-        + steps * E * 4, steps * (step_flops(K, D, A, E, H) + 2 * H * VOCAB),
-        F32_FLOPS)
-    log("decode_seq", f"B={B} V={VOCAB} L={MAX_LEN} end_id={end_id}: token "
-        f"agreement {agree:.4f} (min {MIN_AGREEMENT}), {distinct} distinct "
-        f"rows, {steps} row-steps; <end>-forced run exact; kernel "
-        f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
-        f"({bound_by}) [{smi}]")
+            got = run(decode_seq.fused_greedy_decode, w)
+            torch.cuda.synchronize()
+            want = run(decode_seq.fused_greedy_decode_plain, w)
+            agree = (got == want).float().mean().item()
+            distinct = len({tuple(r) for r in got.tolist()})
+            if agree < MIN_AGREEMENT:
+                raise RuntimeError(f"greedy token agreement {agree} < "
+                                   f"{MIN_AGREEMENT} at B={bsz}")
+            ms = cuda_ms(lambda: run(decode_seq.fused_greedy_decode, w), 10)
+            plain_ms = cuda_ms(
+                lambda: run(decode_seq.fused_greedy_decode_plain, w), 10)
+            b_out = w.b_out.clone()
+            b_out[0, end_id] += 100.0
+            w_end = w._replace(b_out=b_out)
+            got_end = run(decode_seq.fused_greedy_decode, w_end)
+            torch.cuda.synchronize()
+            want_end = run(decode_seq.fused_greedy_decode_plain, w_end)
+            err = (got_end - want_end).abs().max().item()
+            if err != 0 or not bool((got_end == end_id).all()):
+                raise RuntimeError(f"greedy kernel with <end> forced differs "
+                                   f"from the plain version at B={bsz}")
+        # the steps this run's rows took: up to and including their <end>
+        ended = (got == end_id).cpu().numpy()
+        steps = int(np.where(ended.any(1), ended.argmax(1) + 1,
+                             MAX_LEN).sum())
+        bound_ms, bound_by = bound(
+            nbytes(feats, proj, state.h, state.c, *w.step, w.w_out, w.b_out,
+                   got) + steps * E * 4,
+            steps * (step_flops(K, D, A, E, H) + 2 * H * VOCAB), F32_FLOPS)
+        # the kernel reads the features again every step (they exceed the
+        # L2 at B=64): that stream alone, per step and over the steps run
+        loop_steps = int(np.where(ended.any(1), ended.argmax(1) + 1,
+                                  MAX_LEN).max())
+        floor_step = nbytes(feats) / HBM_BYTES_PER_S * 1e3
+        plan = decode_seq.plan(bsz, K, D, A, E, H, VOCAB, sms)
+        by_shape[f"B={bsz}"] = {
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "token_agreement": agree,
+            "feature_floor_ms_per_step": floor_step,
+            "feature_floor_ms": floor_step * loop_steps,
+            "ctas": plan.ctas, "smem_bytes": plan.smem_bytes,
+            "units_per_cta": plan.units, "h_rows": plan.h_rows}
+        log("decode_seq", f"B={bsz} V={VOCAB} L={MAX_LEN} end_id={end_id}: "
+            f"token agreement {agree:.4f} (min {MIN_AGREEMENT}), {distinct} "
+            f"distinct rows, {steps} row-steps; <end>-forced run exact; "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by}), feature floor "
+            f"{floor_step * 1e3:.2f} us/step x {loop_steps} steps = "
+            f"{floor_step * loop_steps:.4f} ms; one cooperative launch of "
+            f"{plan.ctas} CTAs x {plan.threads} threads, {plan.smem_bytes} B "
+            f"shared memory each ({plan.h_cols} h-product columns, "
+            f"{plan.units} hidden unit(s), h tile {plan.h_rows} rows) "
+            f"[{smi}]")
+    main = by_shape[f"B={B}"]
     return {"name": "decode_seq", "route": "cuda", "source": SEQ_SRC,
-            "replaces": SEQ_TPU, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None,
-            "token_agreement": agree}
+            "replaces": SEQ_TPU, "max_abs_err": 0.0, "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": None,
+            "token_agreement": main["token_agreement"],
+            "ms_by_shape": by_shape}
 
 
 def phase_main_path(smi):
     import torch
     from depth_image_captioning_pub_torch.cli import (
         SPECIAL, placeholder_vocab)
+    from depth_image_captioning_pub_torch.engine.evaluate import (
+        make_caption_fn)
     from depth_image_captioning_pub_torch.models.captioner import (
         build_captioner)
     from depth_image_captioning_pub_torch.ops.attention import (
@@ -430,6 +473,31 @@ def phase_main_path(smi):
     for c in caps:
         log("main", f"caption: {c!r}")
     log("main", f"launches {launches} for {chunks} chunks; plain calls 0")
+
+    # time split of one chunk at each bucket, each stage timed alone
+    start_id, end_id = w2i[SPECIAL.start], w2i[SPECIAL.end]
+    program = make_caption_fn(cap, start_id, MAX_LEN, end_id=end_id)
+    with torch.inference_mode():
+        for bsz in (1, 16, 64):
+            ev = Events()
+            x = torch.from_numpy(images[:bsz]).to(dev)
+            f = ev.ms("encoder", lambda: cap.encoder(
+                imagenet_normalize(to_unit_float(x))))
+
+            def setup():
+                proj = project_features(dec.att_params(), f,
+                                        compute_dtype=torch.float32)
+                return proj, dec.init_state(f), dec.seq_weights()
+
+            proj, state, w = ev.ms("decoder set-up", setup)
+            ev.ms("greedy decode (K2)", lambda: decode_seq.fused_greedy_decode(
+                f, proj, state.h, state.c, w, max_length=MAX_LEN,
+                start_id=start_id, end_id=end_id))
+            ev.ms("caption program", lambda: program(x))
+            log("main", f"{bsz}-image chunk split (device ms, each stage "
+                "timed alone): " + ", ".join(
+                    f"{k} {v:.2f}" for k, v in ev.times.items())
+                + f" [{smi}]")
     return launches, cap
 
 
@@ -993,8 +1061,7 @@ def main():
     import torch
     phase_build()
     # the step kernel is checked and timed, but it is not a kernel of the
-    # main paths: they run its device step inside the greedy and beam
-    # kernels
+    # main paths: they run its device step inside the beam kernel
     step = phase_step(smi)
     seq = phase_seq(smi)
     base, base_cap = phase_main_path(smi)

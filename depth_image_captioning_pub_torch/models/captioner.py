@@ -28,6 +28,7 @@ from depth_image_captioning_pub_torch.models.nic import NICDecoder
 from depth_image_captioning_pub_torch.models.resnet import (
     RESNET152_LAYERS, AttentionGridEncoder, ResNetBackbone)
 from depth_image_captioning_pub_torch.ops.pooling import global_avg_pool
+from depth_image_captioning_pub_torch.ops.precision import full_f32
 
 PORTED_KINDS = ("nic", "base-soft", "depth-soft")
 
@@ -80,6 +81,7 @@ class NICProjection(nn.Module):
             self.linear.bias.copy_(torch_bias(w.shape[1])(
                 self.linear.bias.shape, generator))
 
+    @full_f32()
     def forward(self, pooled: torch.Tensor) -> torch.Tensor:
         dt = pooled.dtype
         y = pooled @ self.linear.weight.to(dt).T

@@ -32,6 +32,7 @@ from depth_image_captioning_pub_torch.ops.kernels.decode_seq import (
     DecodeSeqWeights, fused_greedy_decode)
 from depth_image_captioning_pub_torch.ops.kernels.decode_step import (
     pack_weights)
+from depth_image_captioning_pub_torch.ops.precision import full_f32
 
 
 class DecoderState(NamedTuple):
@@ -124,6 +125,7 @@ class AttentionDecoder(nn.Module):
                                 self.embed)
 
     @torch.no_grad()
+    @full_f32()   # the f32 projection and h0/c0 products, without TF32
     def greedy_sample(self, features: torch.Tensor, start_id: int,
                       depth_features: Optional[torch.Tensor] = None, *,
                       max_length: int = 30,
@@ -148,6 +150,7 @@ class AttentionDecoder(nn.Module):
             end_id=-1 if end_id is None else end_id)
 
     @torch.no_grad()
+    @full_f32()
     def beam_sample(self, features: torch.Tensor, start_id: int,
                     end_id: int,
                     depth_features: Optional[torch.Tensor] = None, *,

@@ -17,6 +17,7 @@ from depth_image_captioning_pub_torch.models.initializers import (
 from depth_image_captioning_pub_torch.models.resnet import FrozenBatchNorm2d
 from depth_image_captioning_pub_torch.ops.pooling import (
     adaptive_avg_pool2d, nchw, nhwc)
+from depth_image_captioning_pub_torch.ops.precision import full_f32
 
 
 class DepthCNNEncoder(nn.Module):
@@ -52,6 +53,7 @@ class DepthCNNEncoder(nn.Module):
         for bn in (self.bn1, self.bn2, self.bn3):
             bn.reset_parameters(generator)
 
+    @full_f32()   # f32 convs in full f32, not cuDNN's default TF32
     def forward(self, depth: torch.Tensor) -> torch.Tensor:
         x = nchw(depth.to(self.dtype))
         x = F.max_pool2d(F.relu(self.bn1(self.conv1(x))), 3)

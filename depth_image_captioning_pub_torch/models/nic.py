@@ -25,6 +25,7 @@ from depth_image_captioning_pub_torch.ops.decode import (
     beam_search, log_softmax, tile_for_beams)
 from depth_image_captioning_pub_torch.ops.kernels.nic_seq import (
     NICSeqWeights, fused_nic_greedy_decode, pack_nic_weights)
+from depth_image_captioning_pub_torch.ops.precision import full_f32
 from depth_image_captioning_pub_torch.ops.lstm import (
     LSTMCellParams, StackedLSTMParams, stacked_lstm_step)
 
@@ -84,6 +85,7 @@ class NICDecoder(nn.Module):
             max_length=max_length)
 
     @torch.no_grad()
+    @full_f32()   # the f32 LSTM and head products, without TF32
     def beam_sample(self, features: torch.Tensor, end_id: int, *,
                     beam_size: int = 5, max_length: int = 30,
                     length_penalty: float = 0.0, early_exit: bool = False

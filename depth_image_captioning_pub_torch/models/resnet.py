@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from depth_image_captioning_pub_torch.models.initializers import (
     torch_conv_kernel)
 from depth_image_captioning_pub_torch.ops.pooling import adaptive_avg_pool2d
+from depth_image_captioning_pub_torch.ops.precision import full_f32
 
 RESNET152_LAYERS = (3, 8, 36, 3)
 
@@ -125,6 +126,7 @@ class ResNetBackbone(nn.Module):
             if isinstance(m, (FrozenConv2d, FrozenBatchNorm2d)):
                 m.reset_parameters(generator)
 
+    @full_f32()   # f32 convs in full f32, not cuDNN's default TF32
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         x = images.to(self.dtype).permute(0, 3, 1, 2)   # channels_last view
         x = F.relu(self.bn1(self.conv1(x)), inplace=True)

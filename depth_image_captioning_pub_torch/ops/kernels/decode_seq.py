@@ -1,22 +1,25 @@
-"""Whole-sequence greedy decode: CUDA kernel wrapper and plain version.
+"""Whole-sequence greedy decode: CUDA kernel wrapper, planner and plain
+version.
 
 Counterpart of the JAX ``ops/pallas/decode_seq.py``. Every step runs the
 attention-LSTM step of ``decode_step``, then the vocab head
 ``h' @ w_out + b_out``, an argmax (lowest index on equal values) and the
 embedding of the chosen token; the output is the token matrix [B, L].
 
-``fused_greedy_decode`` launches ``csrc/decode_seq.cu`` (the whole loop in
-one launch, one CTA per image row) for CUDA tensors and
-``fused_greedy_decode_plain`` (a Python time loop) for CPU tensors.
-``end_id >= 0`` gives finished rows <end>-padding and stops once every row
-is done, the output of the JAX early-exit paths; ``end_id < 0`` runs all
-``max_length`` steps. Any batch size B >= 1 is taken as it is: there is no
-padding to a multiple of 8 as on the TPU.
+``fused_greedy_decode`` launches ``csrc/decode_seq.cu`` for CUDA tensors:
+one cooperative launch of one CTA per SM, the time loop inside it, each
+CTA holding a column slice of the weights in shared memory for the whole
+launch (``plan`` sizes it). CPU tensors run ``fused_greedy_decode_plain``
+(a Python time loop). ``end_id >= 0`` gives finished rows <end>-padding
+and stops once every row is done, the output of the JAX early-exit paths;
+``end_id < 0`` runs all ``max_length`` steps. Any batch size B >= 1 is
+taken as it is: there is no padding to a multiple of 8 as on the TPU.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -27,6 +30,119 @@ from depth_image_captioning_pub_torch.ops.kernels.decode_step import (
     plain_step_params)
 
 LAUNCHES = 0   # kernel launches of dcap_greedy_decode in this process
+
+# csrc/decode_seq.cu's build constants: threads per CTA and the rows of a
+# thread's h-product tile (the tile's row count is a multiple of it)
+THREADS = 512
+H_ROWS = 4
+G_UNITS = 2           # kGUnits: the most hidden units a CTA holds
+SMEM_LIMIT = 232448   # shared memory a block may use on sm_90 (227 KB)
+H_TILE_MAX = 64       # rows of h staged at once for the h-products
+A_MIN = 128           # fewest feature columns of an attention item: each
+#                       item recomputes its row's scores over K x A
+
+
+class GreedyPlan(NamedTuple):
+    """How ``csrc/decode_seq.cu`` splits the work over ``ctas`` CTAs."""
+
+    ctas: int
+    threads: int
+    h_slices: Tuple[Tuple[int, int], ...]  # per CTA: [c0, c1) of the
+    #                       h-product columns [W_dec | W_fb | W_out]
+    h_cols: int       # the widest slice, padded to a multiple of 4
+    units: int        # hidden units per CTA of the gate products
+    g_groups: int     # unit groups: CTA p takes group p % g_groups ...
+    g_parts: int      # ... for row part p // g_groups of g_parts
+    a_chunk: int      # feature columns per attention item
+    h_rows: int       # rows of h per h-product tile
+    row_group: int    # rows decoded together, one group after the other
+    smem_bytes: int
+    scratch_floats: int
+    scratch_ints: int
+
+
+def smem_floats(k: int, d: int, a: int, e: int, h: int, h_cols: int,
+                units: int, h_rows: int, threads: int) -> int:
+    """Shared memory of one CTA in floats (``smem_floats`` of the .cu)."""
+    return (h * h_cols + units * (e + d + h) * 4 + h_rows * (h + 4)
+            + 8 * threads + 2 * h_rows * (h_cols // 4) + h_cols + 4 * units
+            + 2 * a + k + threads // 32)
+
+
+@functools.lru_cache(maxsize=256)
+def plan(bsz: int, k: int, d: int, a: int, e: int, h: int, v: int,
+         ctas: int, *, threads: int = THREADS, h_tile: int = H_ROWS,
+         row_group: Optional[int] = None,
+         units: Optional[int] = None) -> GreedyPlan:
+    """Split the greedy decode of ``bsz`` rows over ``ctas`` CTAs.
+
+    CTA p holds columns [p*N/ctas, (p+1)*N/ctas) of the N = A + D + V
+    h-product columns, and the gate weights of ``units`` hidden units:
+    those of group p % g_groups (g_groups = ceil(H / units)), for the rows
+    of part p // g_groups of g_parts = max(1, ctas // g_groups). Two units
+    per CTA from 32 rows on, else one, where they fit beside a full h
+    tile. Attention items are (row,
+    chunk of ``a_chunk`` feature columns), about ``ctas`` of them per row
+    group. The h-product row tile shrinks until the CTA fits in 227 KB of
+    shared memory; raises ValueError when even the smallest does not.
+    """
+    if min(bsz, k, d, a, e, h, v, ctas) < 1:
+        raise ValueError(f"greedy decode needs positive sizes, got B={bsz} "
+                         f"K={k} D={d} A={a} E={e} H={h} V={v} "
+                         f"ctas={ctas}")
+    if d % 8 or e % 8 or h % 8 or a % 4:
+        raise ValueError(f"the greedy kernel reads 16 or 32 bytes at a time: "
+                         f"D={d}, E={e} and H={h} must be multiples of 8, "
+                         f"A={a} a multiple of 4")
+    rows = bsz if row_group is None else max(1, min(row_group, bsz))
+    n = a + d + v
+    h_slices = tuple((p * n // ctas, (p + 1) * n // ctas)
+                     for p in range(ctas))
+    h_cols = -(-max(c1 - c0 for c0, c1 in h_slices) // 4) * 4
+    least = -(-h // ctas)       # every unit needs a CTA
+    if least > G_UNITS:
+        raise ValueError(f"greedy kernel: H={h} hidden units over {ctas} "
+                         f"CTAs needs {least} units per CTA, above the "
+                         f"{G_UNITS} a CTA can hold")
+    # two units per CTA halve the CTAs that read each row's input; with
+    # fewer than 32 rows, one unit per CTA spreads the rows' work wider
+    # (tools/decode_seq_ab.py)
+    choices = ([units] if units else
+               [u for u in ((2, 1) if rows >= 32 else (1, 2)) if u >= least])
+    if not least <= choices[0] <= G_UNITS:
+        raise ValueError(f"units={units} outside [{least}, {G_UNITS}]")
+    chunks = max(1, min(ctas // rows, d // A_MIN))
+    a_chunk = min(d, (-(-d // chunks) + 7) // 8 * 8)
+    tile = -(-min(rows, H_TILE_MAX) // h_tile) * h_tile
+
+    def need_bytes(u, t):
+        return 4 * smem_floats(k, d, a, e, h, h_cols, u, t, threads)
+
+    fits = [u for u in choices if need_bytes(u, tile) <= SMEM_LIMIT]
+    units = fits[0] if fits else choices[-1]
+    while need_bytes(units, tile) > SMEM_LIMIT and tile > h_tile:
+        tile -= h_tile
+    need = need_bytes(units, tile)
+    if need > SMEM_LIMIT:
+        raise ValueError(
+            f"greedy kernel at K={k} D={d} A={a} E={e} H={h} V={v} over "
+            f"{ctas} CTAs needs {need} bytes of shared memory per CTA "
+            f"({units} hidden unit(s) of {e + d + h} x 4 gate weights, "
+            f"{h_cols} h-product columns of {h}), above the {SMEM_LIMIT}-"
+            f"byte limit of a block")
+    groups = -(-h // units)
+    return GreedyPlan(
+        ctas=ctas, threads=threads, h_slices=h_slices, h_cols=h_cols,
+        units=units, g_groups=groups, g_parts=max(1, ctas // groups),
+        a_chunk=a_chunk, h_rows=tile, row_group=rows,
+        smem_bytes=need,
+        scratch_floats=rows * (2 * d + a + 3 * h + ctas),
+        scratch_ints=2 + rows * (ctas + 2))
+
+
+@functools.lru_cache(maxsize=16)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 class DecodeSeqWeights(NamedTuple):
@@ -106,15 +222,33 @@ def fused_greedy_decode(features: torch.Tensor, features_proj: torch.Tensor,
         raise ValueError(f"no kernel for device {features.device}")
 
     ptrs = cuda_pointers([("features", features)] + named)
+    for name, t in (("features", features), ("features_proj", features_proj),
+                    ("h0", h0), ("embed", w.embed)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
     lib = _build.load()
-    tokens = torch.empty((bsz, max_length), dtype=torch.int32,
-                         device=features.device)
+    bf16 = int(features.dtype == torch.bfloat16)
     with torch.cuda.device(features.device):
+        p = plan(bsz, k, d, a, e, hdim, vocab, _sm_count(
+            features.device.index if features.device.index is not None
+            else torch.cuda.current_device()))
+        fits = lib.dcap_greedy_max_ctas(bf16, p.smem_bytes)
+        if fits < 0:
+            _build.check_launch(-fits, "dcap_greedy_max_ctas")
+        if fits < p.ctas:
+            p = plan(bsz, k, d, a, e, hdim, vocab, fits)
+        tokens = torch.empty((bsz, max_length), dtype=torch.int32,
+                             device=features.device)
+        fscr = torch.empty((p.scratch_floats,), dtype=torch.float32,
+                           device=features.device)
+        iscr = torch.empty((p.scratch_ints,), dtype=torch.int32,
+                           device=features.device)
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.dcap_greedy_decode(
-            ptrs[0], int(features.dtype == torch.bfloat16), *ptrs[1:],
-            tokens.data_ptr(), bsz, k, d, a, e, hdim, vocab, max_length,
-            start_id, end_id, stream)
+            ptrs[0], bf16, *ptrs[1:], tokens.data_ptr(), fscr.data_ptr(),
+            iscr.data_ptr(), bsz, k, d, a, e, hdim, vocab, max_length,
+            start_id, end_id, p.ctas, p.h_cols, p.units, p.a_chunk,
+            p.h_rows, p.row_group, p.smem_bytes, stream)
     _build.check_launch(err, "dcap_greedy_decode")
     LAUNCHES += 1
     return tokens

@@ -11,7 +11,8 @@ JAX, so it also runs on a GPU machine without JAX:
 Tolerances: atol 1e-4 on h', c', alpha for the step (f32 sums in another
 order than cuBLAS's); greedy tokens agree on >= 99% of positions (a
 near-tie argmax may flip and the flip cascades along its row) and are
-equal when the <end> bias ends every row at step 0. The same holds for the
+equal when the <end> bias ends every row at step 0; two calls of the
+greedy kernel give bit-identical tokens (fixed sum orders). The same holds for the
 NIC greedy kernel (K3; exact when one token's bias is raised by 100) and
 for the beam kernel (K4): best tokens agree on >= 99% and the final scores
 within 1e-3 (log-probabilities summed over up to 30 steps, each from sums
@@ -37,7 +38,8 @@ from depth_image_captioning_pub_torch.ops.kernels import (
 pytestmark = pytest.mark.cuda
 
 SHAPES = {"small": (10, 49, 64, 32, 24, 32, 40),      # B, K, D, A, E, H, V
-          "main": (8, 196, 2048, 128, 128, 128, 9956)}
+          "main": (8, 196, 2048, 128, 128, 128, 9956),
+          "concat": (8, 196, 2080, 128, 128, 128, 9956)}  # mdepth-* D
 END = 3
 
 
@@ -106,6 +108,110 @@ def test_greedy_kernel_matches_plain(cuda, shape, end_bias):
     assert agree >= 0.99, agree
     if end_bias:
         assert torch.equal(got, want) and bool((got == END).all())
+
+
+def _greedy_inputs(dec, f):
+    with torch.inference_mode():
+        proj = project_features(dec.att_params(), f,
+                                compute_dtype=torch.float32)
+        state = dec.init_state(f)
+    return f, proj, state.h, state.c, dec.seq_weights()
+
+
+def _greedy(fn, inputs, max_length=30, end_id=END):
+    with torch.inference_mode():
+        return fn(*inputs, max_length=max_length, start_id=2, end_id=end_id)
+
+
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+@pytest.mark.parametrize("bsz", [1, 10, 64, 130])
+def test_greedy_kernel_batch_sizes(cuda, shape, bsz):
+    """The persistent kernel from one row to more rows than SMs."""
+    dec, feats = _decoder((bsz,) + SHAPES[shape][1:], cuda, seed=bsz)
+    inputs = _greedy_inputs(dec, feats.to(torch.bfloat16))
+    before = decode_seq.LAUNCHES
+    got = _greedy(decode_seq.fused_greedy_decode, inputs)
+    torch.cuda.synchronize()
+    assert decode_seq.LAUNCHES == before + 1
+    want = _greedy(decode_seq.fused_greedy_decode_plain, inputs)
+    assert got.shape == want.shape == (bsz, 30)
+    assert (got == want).float().mean().item() >= 0.99
+
+
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+@pytest.mark.parametrize("max_length", [1, 7, 30])
+def test_greedy_kernel_without_end(cuda, shape, max_length):
+    """end_id < 0 runs every step; any max_length."""
+    dec, feats = _decoder(SHAPES[shape], cuda, seed=max_length)
+    inputs = _greedy_inputs(dec, feats)
+    got = _greedy(decode_seq.fused_greedy_decode, inputs, max_length, -1)
+    want = _greedy(decode_seq.fused_greedy_decode_plain, inputs, max_length,
+                   -1)
+    assert got.shape == want.shape == (feats.shape[0], max_length)
+    assert (got == want).float().mean().item() >= 0.99
+
+
+@pytest.mark.parametrize("shape,scale,bias", [("small", 20.0, 0.3),
+                                              ("main", 10.0, 0.0)])
+def test_greedy_kernel_rows_end_at_different_steps(cuda, shape, scale, bias):
+    """With <end>'s head column scaled, rows end at different steps (and
+    at main shape all end early, so the loop exits): every slot after a
+    row's first <end> is <end>."""
+    dec, feats = _decoder((64,) + SHAPES[shape][1:], cuda, seed=5)
+    with torch.inference_mode():
+        dec.out_w[:, END] *= scale
+        dec.out_b[END] += bias
+    inputs = _greedy_inputs(dec, feats)
+    got = _greedy(decode_seq.fused_greedy_decode, inputs).cpu().numpy()
+    want = _greedy(decode_seq.fused_greedy_decode_plain, inputs)
+    assert (got == want.cpu().numpy()).mean() >= 0.99
+    ended = got == END
+    first = np.where(ended.any(1), ended.argmax(1), got.shape[1])
+    assert len(set(first.tolist())) >= 2, first
+    for row, t in zip(got, first):
+        assert np.all(row[t:] == END)
+
+
+def test_greedy_kernel_repeats_bit_identical(cuda):
+    """Fixed sum orders and no float atomics: two calls, the same tokens."""
+    dec, feats = _decoder((64,) + SHAPES["main"][1:], cuda, seed=6)
+    inputs = _greedy_inputs(dec, feats.to(torch.bfloat16))
+    first = _greedy(decode_seq.fused_greedy_decode, inputs, end_id=-1)
+    again = _greedy(decode_seq.fused_greedy_decode, inputs, end_id=-1)
+    assert torch.equal(first, again)
+
+
+def test_greedy_kernel_rejects_outside_envelope(cuda):
+    dec, feats = _decoder((2, 9, 60, 8, 8, 8, 16), cuda)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        _greedy(decode_seq.fused_greedy_decode, _greedy_inputs(dec, feats))
+    # D=16384: one hidden unit's gate weights alone need 264 KB
+    dec, feats = _decoder((1, 4, 16384, 8, 8, 8, 16), cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        _greedy(decode_seq.fused_greedy_decode, _greedy_inputs(dec, feats))
+
+
+def test_greedy_sample_ignores_tf32_flags(cuda):
+    """greedy_sample pins TF32 off for its f32 products: with both flags
+    turned on first, the tokens equal those of a call with them off."""
+    dec, feats = _decoder((16,) + SHAPES["main"][1:], cuda, seed=7)
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        with torch.inference_mode():
+            got = dec.greedy_sample(feats, 2, max_length=30, end_id=END)
+        assert (torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32) == (True, True)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        with torch.inference_mode():
+            want = dec.greedy_sample(feats, 2, max_length=30, end_id=END)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+    assert torch.equal(got, want)
 
 
 def test_decoder_greedy_sample_on_card_matches_cpu(cuda):
