@@ -50,10 +50,9 @@
 // above the 50 MB L2; read evict-first), near the HBM rate at B=64; the
 // rest of a step is latency: every CTA of a phase reads the same freshly
 // written rows from L2 (the inputs of G, the h tile of H, one row's proj
-// at small B), and three grid barriers of ~1.3 us. `row_group` runs the
-// rows in groups, one after the other inside the launch, so that a group's
-// features can stay in L2; it measured slower (every step's latency is
-// paid per group), so the planner's default is one group.
+// at small B), and three grid barriers of ~1.3 us. Decoding the rows in
+// groups, so that a group's features stay in L2, measured slower: every
+// step's latency is paid once per group.
 //
 // The phases are device functions (attention_phase, gates_phase,
 // hproducts_phase) for the other decode kernels to take up. The planner in
@@ -90,7 +89,6 @@ struct Params {
   int units;           // hidden units per CTA, at most kGUnits
   int a_chunk;         // feature columns per attention item, a multiple of 8
   int h_rows;          // rows per h-product tile, a multiple of kHRows
-  int row_group;       // rows decoded together
 };
 
 // Shared memory in floats; the same sum as ops/kernels/decode_seq.plan.
@@ -136,23 +134,23 @@ __device__ inline Smem carve_smem(float* base, const Params& q) {
   return s;
 }
 
-// Per-group scratch in global memory, written and read by different CTAs
-// (read with __ldcg: L1 is not coherent across SMs). G = row_group rows:
-// G * (2D + A + 3H + ctas) floats, 2 + G * (ctas + 2) ints.
+// Scratch in global memory, written and read by different CTAs (read with
+// __ldcg: L1 is not coherent across SMs): B * (2D + A + 3H + ctas) floats,
+// 2 + B * (ctas + 2) ints.
 struct Scratch {
-  float* gated;   // [G, D]
-  float* dec;     // [G, A]
-  float* gp;      // [G, D]  h W_fb + b_fb
-  float* h;       // [2, G, H]
-  float* c;       // [G, H]
-  float* cand_v;  // [G, ctas]
-  int* cand_i;    // [G, ctas]
-  int* tok;       // [G]  the token fed to the next step
-  int* done;      // [G]
+  float* gated;   // [B, D]
+  float* dec;     // [B, A]
+  float* gp;      // [B, D]  h W_fb + b_fb
+  float* h;       // [2, B, H]
+  float* c;       // [B, H]
+  float* cand_v;  // [B, ctas]
+  int* cand_i;    // [B, ctas]
+  int* tok;       // [B]  the token fed to the next step
+  int* done;      // [B]
 };
 
 __device__ inline Scratch carve_scratch(const Params& q) {
-  const long g = q.row_group;
+  const long g = q.batch;
   Scratch x;
   x.gated = q.fscr;
   x.dec = x.gated + g * q.d.D;
@@ -166,47 +164,15 @@ __device__ inline Scratch carve_scratch(const Params& q) {
   return x;
 }
 
-#ifdef DCAP_GREEDY_TRACE
-__device__ inline long long* trace_stamps(const Params& q) {
-  return reinterpret_cast<long long*>(
-      q.iscr + ((2 + (long)q.row_group * (q.ctas + 2) + 1) & ~1L));
-}
-// Marks inside the phase that ends at barrier t_slot: [barriers, kMarks,
-// ctas] int64 after the stamps.
-constexpr int kMarks = 4;
-__shared__ int t_slot;
-#define TRACE_MARK(q, m)                                                    \
-  do {                                                                      \
-    if (threadIdx.x == 0) {                                                 \
-      const long groups = ((q).batch + (q).row_group - 1) / (q).row_group; \
-      const long rows = 2 * (1 + groups * (3L * (q).max_length + 2));       \
-      trace_stamps(q)[(rows + (long)t_slot * kMarks + (m)) * (q).ctas +     \
-                      blockIdx.x] = clock64();                              \
-    }                                                                       \
-  } while (0)
-#else
-#define TRACE_MARK(q, m) \
-  do {                   \
-  } while (0)
-#endif
-
 // Grid-wide barrier on a counter and a generation word in global memory
 // (iscr[0], iscr[1]); safe because the cooperative launch makes every CTA
 // co-resident. The counter starts at 0 and is 0 again after every barrier.
 // Thread 0 fences for the CTA after __syncthreads (fences are cumulative)
 // and spins on the generation word.
-// `slot` counts the barriers. Built with -DDCAP_GREEDY_TRACE (as
-// tools/decode_seq_ab.py does), every CTA also stamps its SM clock as it
-// starts, and as it arrives at and leaves each barrier: [1 + barriers, 2,
-// ctas] int64 past the int scratch's carve.
-__device__ __forceinline__ void grid_sync(const Params& q, int& slot) {
+__device__ __forceinline__ void grid_sync(const Params& q) {
   int* bar = q.iscr;
   __syncthreads();
   if (threadIdx.x == 0) {
-#ifdef DCAP_GREEDY_TRACE
-    long long* tr = trace_stamps(q);
-    tr[(2L * slot + 2) * q.ctas + blockIdx.x] = clock64();
-#endif
     volatile int* gen = bar + 1;
     const int g = *gen;
     __threadfence();
@@ -219,12 +185,7 @@ __device__ __forceinline__ void grid_sync(const Params& q, int& slot) {
       }
     }
     __threadfence();
-#ifdef DCAP_GREEDY_TRACE
-    tr[(2L * slot + 3) * q.ctas + blockIdx.x] = clock64();
-    t_slot = slot + 1;
-#endif
   }
-  ++slot;
   __syncthreads();
 }
 
@@ -367,7 +328,6 @@ __device__ void hproducts_phase(const Params& q, const Smem& s,
                   : make_float4(0.f, 0.f, 0.f, 0.f);
     }
     __syncthreads();
-    if (r0 == 0) TRACE_MARK(q, 0);
     const int items = (rt4 / kHRows) * ncg;
     int S = 1;
     while (S < 32 && 2 * S * items <= kThreads && 8 * S <= d.H) S *= 2;
@@ -460,7 +420,6 @@ __device__ void hproducts_phase(const Params& q, const Smem& s,
       }
     }
     __syncthreads();
-    if (r0 == 0) TRACE_MARK(q, 1);
     if (logits) {
       for (int rr = warp; rr < rt; rr += kWarps) {
         float v = -INFINITY;
@@ -556,7 +515,6 @@ __device__ void attention_phase(const Params& q, const Smem& s,
     for (int a = tid; a < d.A; a += kThreads)
       s.dec[a] = __ldcg(x.dec + (size_t)r * d.A + a);
     __syncthreads();
-    if (item == blockIdx.x) TRACE_MARK(q, 0);
     for (int k0 = 0; k0 < d.K; k0 += kThreads / parts) {
       const int k = k0 + tid / parts;
       const int part = tid % parts;
@@ -580,7 +538,6 @@ __device__ void attention_phase(const Params& q, const Smem& s,
       if (k < d.K && part == 0) s.alpha[k] = acc + b_full;
     }
     __syncthreads();
-    if (item == blockIdx.x) TRACE_MARK(q, 1);
     // softmax over K in f32
     float m = -INFINITY;
     for (int k = tid; k < d.K; k += kThreads) m = fmaxf(m, s.alpha[k]);
@@ -594,7 +551,6 @@ __device__ void attention_phase(const Params& q, const Smem& s,
     sum = block_reduce<false>(sum, s.red);
     for (int k = tid; k < d.K; k += kThreads) s.alpha[k] = s.alpha[k] / sum;
     __syncthreads();
-    if (item == blockIdx.x) TRACE_MARK(q, 2);
     // ctx over the chunk: 16 bytes of adjacent columns per thread (kVec);
     // with fewer column groups than threads, K is cut into slices whose
     // partial sums meet in a fixed pairwise tree
@@ -750,21 +706,18 @@ __device__ void gates_phase(const Params& q, const Smem& s,
       for (int k = 0; k < kGRows; ++k)
         src[k] = x.gated + (size_t)row[k] * d.D + (lo - d.E);
       if (lo < hi) gate_segment(s.wg, len, nu, lo, hi, lane, src, rows, acc);
-      if (warp == 0 && base == 0) TRACE_MARK(q, 1);
       lo = max(i0, d.E + d.D);
       hi = i1;
 #pragma unroll
       for (int k = 0; k < kGRows; ++k)
         src[k] = h_in + (size_t)row[k] * d.H + (lo - d.E - d.D);
       if (lo < hi) gate_segment(s.wg, len, nu, lo, hi, lane, src, rows, acc);
-      if (warp == 0 && base == 0) TRACE_MARK(q, 2);
       lo = i0;
       hi = min(i1, d.E);
 #pragma unroll
       for (int k = 0; k < kGRows; ++k)
         src[k] = q.embed + (size_t)tok[k] * d.E + lo;
       if (lo < hi) gate_segment(s.wg, len, nu, lo, hi, lane, src, rows, acc);
-      if (warp == 0 && base == 0) TRACE_MARK(q, 3);
 #pragma unroll
       for (int u = 0; u < kGUnits; ++u) {
         if (u >= nu) break;
@@ -779,7 +732,6 @@ __device__ void gates_phase(const Params& q, const Smem& s,
       }
     }
     __syncthreads();
-    if (base == 0) TRACE_MARK(q, 0);
     if (tail) {
       const int gl = tk / kGRows;
       float gate[4];
@@ -811,59 +763,46 @@ greedy_tiled_kernel(const Params q) {
   const Smem s = carve_smem(reinterpret_cast<float*>(smem_raw), q);
   const Scratch x = carve_scratch(q);
   const StepDims& d = q.d;
-  int slot = 0;
-#ifdef DCAP_GREEDY_TRACE
-  if (threadIdx.x == 0) {
-    trace_stamps(q)[blockIdx.x] = clock64();
-    t_slot = 0;
-  }
-#endif
+  const int bsz = q.batch;
+  const FT* feat = static_cast<const FT*>(q.feat);
   load_slices(q, s);
-  for (int row0 = 0; row0 < q.batch; row0 += q.row_group) {
-    const int bsz = min(q.row_group, q.batch - row0);
-    const FT* feat = static_cast<const FT*>(q.feat) + (size_t)row0 * d.K * d.D;
-    const float* proj = q.proj + (size_t)row0 * d.K * d.A;
-    const float* h0 = q.h0 + (size_t)row0 * d.H;
-    const float* c0 = q.c0 + (size_t)row0 * d.H;
-    int* tokens = q.tokens + (size_t)row0 * q.max_length;
-    for (int r = blockIdx.x + threadIdx.x * q.ctas; r < bsz;
-         r += kThreads * q.ctas) {
-      x.tok[r] = q.start_id;
-      x.done[r] = 0;
-    }
-    __syncthreads();  // load_slices' writes, before the first tile
-    hproducts_phase(q, s, x, h0, bsz, false);
-    grid_sync(q, slot);
-    bool ended = false;
-    for (int t = 0; t < q.max_length; ++t) {
-      if (t > 0) resolve_rows(q, x, bsz, tokens, t - 1);
-      attention_phase<FT>(q, s, x, feat, proj, bsz);
-      grid_sync(q, slot);
-      if (q.end_id >= 0 && t > 0) {
-        bool all = true;
-        for (int r = threadIdx.x; r < bsz; r += kThreads)
-          all = all && __ldcg(x.done + r);
-        if (__syncthreads_and(all)) {  // the same in every CTA
-          for (int r = blockIdx.x; r < bsz; r += q.ctas)
-            for (int u = t + threadIdx.x; u < q.max_length; u += kThreads)
-              tokens[(size_t)r * q.max_length + u] = q.end_id;
-          ended = true;
-          break;
-        }
-      }
-      const float* h_in = t == 0 ? h0 : x.h + (size_t)((t - 1) & 1) * bsz * d.H;
-      const float* c_in = t == 0 ? c0 : x.c;
-      float* h_out = x.h + (size_t)(t & 1) * bsz * d.H;
-      gates_phase(q, s, x, h_in, c_in, h_out, bsz);
-      grid_sync(q, slot);
-      hproducts_phase(q, s, x, h_out, bsz, true);
-      grid_sync(q, slot);
-    }
-    if (!ended) resolve_rows(q, x, bsz, tokens, q.max_length - 1);
-    grid_sync(q, slot);  // the next group reuses the scratch
+  for (int r = blockIdx.x + threadIdx.x * q.ctas; r < bsz;
+       r += kThreads * q.ctas) {
+    x.tok[r] = q.start_id;
+    x.done[r] = 0;
   }
+  __syncthreads();  // load_slices' writes, before the first tile
+  hproducts_phase(q, s, x, q.h0, bsz, false);
+  grid_sync(q);
+  for (int t = 0; t < q.max_length; ++t) {
+    if (t > 0) resolve_rows(q, x, bsz, q.tokens, t - 1);
+    attention_phase<FT>(q, s, x, feat, q.proj, bsz);
+    grid_sync(q);
+    if (q.end_id >= 0 && t > 0) {
+      bool all = true;
+      for (int r = threadIdx.x; r < bsz; r += kThreads)
+        all = all && __ldcg(x.done + r);
+      if (__syncthreads_and(all)) {  // the same in every CTA
+        for (int r = blockIdx.x; r < bsz; r += q.ctas)
+          for (int u = t + threadIdx.x; u < q.max_length; u += kThreads)
+            q.tokens[(size_t)r * q.max_length + u] = q.end_id;
+        return;
+      }
+    }
+    const float* h_in = t == 0 ? q.h0 : x.h + (size_t)((t - 1) & 1) * bsz * d.H;
+    const float* c_in = t == 0 ? q.c0 : x.c;
+    float* h_out = x.h + (size_t)(t & 1) * bsz * d.H;
+    gates_phase(q, s, x, h_in, c_in, h_out, bsz);
+    grid_sync(q);
+    hproducts_phase(q, s, x, h_out, bsz, true);
+    grid_sync(q);
+  }
+  resolve_rows(q, x, bsz, q.tokens, q.max_length - 1);
 }
 
+// The grid must be co-resident: the caller sizes it with max_ctas, and
+// cudaLaunchCooperativeKernel refuses a larger one
+// (cudaErrorCooperativeLaunchTooLarge).
 template <typename FT>
 cudaError_t launch(const Params& q, int smem, cudaStream_t stream) {
   if (smem_floats(q) * (long)sizeof(float) > smem)
@@ -872,14 +811,6 @@ cudaError_t launch(const Params& q, int smem, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kThreads,
-                                                      smem);
-  if (err != cudaSuccess) return err;
-  if (q.ctas > per_sm * sms) return cudaErrorCooperativeLaunchTooLarge;
   err = cudaMemsetAsync(q.iscr, 0, 2 * sizeof(int), stream);  // the barrier
   if (err != cudaSuccess) return err;
   Params arg = q;
@@ -915,14 +846,6 @@ extern "C" int dcap_greedy_max_ctas(int feat_bf16, int smem) {
                    : dcap::greedy::max_ctas<float>(smem);
 }
 
-// Threads per CTA and the register tiles the kernel was built with.
-extern "C" int dcap_greedy_config(int* out) {
-  out[0] = dcap::greedy::kThreads;
-  out[1] = dcap::greedy::kHRows;
-  out[2] = dcap::greedy::kGUnits;
-  return 0;
-}
-
 extern "C" int dcap_greedy_decode(
     const void* feat, int feat_bf16, const float* proj, const float* h0,
     const float* c0, const float* w_dec, const float* b_dec,
@@ -932,8 +855,7 @@ extern "C" int dcap_greedy_decode(
     const float* b_out, const float* embed, int* tokens, float* fscr,
     int* iscr, int batch, int k, int d, int a, int e, int hdim, int vocab,
     int max_length, int start_id, int end_id, int ctas, int h_cols,
-    int units, int a_chunk, int h_rows, int row_group, int smem,
-    void* stream) {
+    int units, int a_chunk, int h_rows, int smem, void* stream) {
   dcap::greedy::Params q;
   q.feat = feat;
   q.proj = proj;
@@ -958,7 +880,6 @@ extern "C" int dcap_greedy_decode(
   q.units = units;
   q.a_chunk = a_chunk;
   q.h_rows = h_rows;
-  q.row_group = row_group;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       feat_bf16 ? dcap::greedy::launch<__nv_bfloat16>(q, smem, st)

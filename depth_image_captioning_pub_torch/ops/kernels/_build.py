@@ -37,9 +37,8 @@ _I = ctypes.c_int
 # (a ctypes int would cut a 64-bit pointer)
 _SIGNATURES = {
     "dcap_decode_step": [_P, _I] + [_P] * 17 + [_I] * 6 + [_P],
-    "dcap_greedy_decode": [_P, _I] + [_P] * 19 + [_I] * 17 + [_P],
+    "dcap_greedy_decode": [_P, _I] + [_P] * 19 + [_I] * 16 + [_P],
     "dcap_greedy_max_ctas": [_I, _I],
-    "dcap_greedy_config": [_P],
     "dcap_vit_attention": [_P] * 4 + [_I] * 5 + [ctypes.c_float, _P],
     "dcap_nic_greedy_decode": [_P] * 17 + [_I] * 6 + [_P],
     "dcap_beam_decode": [_P, _I] + [_P] * 20 + [_I] * 11 + [_P],

@@ -9,7 +9,8 @@ embedding of the chosen token; the output is the token matrix [B, L].
 ``fused_greedy_decode`` launches ``csrc/decode_seq.cu`` for CUDA tensors:
 one cooperative launch of one CTA per SM, the time loop inside it, each
 CTA holding a column slice of the weights in shared memory for the whole
-launch (``plan`` sizes it). CPU tensors run ``fused_greedy_decode_plain``
+launch (``plan`` sizes it; ``LAST_PLAN`` is the plan of the last
+launch). CPU tensors run ``fused_greedy_decode_plain``
 (a Python time loop). ``end_id >= 0`` gives finished rows <end>-padding
 and stops once every row is done, the output of the JAX early-exit paths;
 ``end_id < 0`` runs all ``max_length`` steps. Any batch size B >= 1 is
@@ -40,13 +41,13 @@ SMEM_LIMIT = 232448   # shared memory a block may use on sm_90 (227 KB)
 H_TILE_MAX = 64       # rows of h staged at once for the h-products
 A_MIN = 128           # fewest feature columns of an attention item: each
 #                       item recomputes its row's scores over K x A
+TWO_UNITS_FROM = 32   # rows from which a CTA takes two hidden units
 
 
 class GreedyPlan(NamedTuple):
     """How ``csrc/decode_seq.cu`` splits the work over ``ctas`` CTAs."""
 
     ctas: int
-    threads: int
     h_slices: Tuple[Tuple[int, int], ...]  # per CTA: [c0, c1) of the
     #                       h-product columns [W_dec | W_fb | W_out]
     h_cols: int       # the widest slice, padded to a multiple of 4
@@ -55,10 +56,12 @@ class GreedyPlan(NamedTuple):
     g_parts: int      # ... for row part p // g_groups of g_parts
     a_chunk: int      # feature columns per attention item
     h_rows: int       # rows of h per h-product tile
-    row_group: int    # rows decoded together, one group after the other
     smem_bytes: int
     scratch_floats: int
     scratch_ints: int
+
+
+LAST_PLAN: Optional[GreedyPlan] = None   # the plan of the last launch
 
 
 def smem_floats(k: int, d: int, a: int, e: int, h: int, h_cols: int,
@@ -71,20 +74,18 @@ def smem_floats(k: int, d: int, a: int, e: int, h: int, h_cols: int,
 
 @functools.lru_cache(maxsize=256)
 def plan(bsz: int, k: int, d: int, a: int, e: int, h: int, v: int,
-         ctas: int, *, threads: int = THREADS, h_tile: int = H_ROWS,
-         row_group: Optional[int] = None,
-         units: Optional[int] = None) -> GreedyPlan:
+         ctas: int) -> GreedyPlan:
     """Split the greedy decode of ``bsz`` rows over ``ctas`` CTAs.
 
     CTA p holds columns [p*N/ctas, (p+1)*N/ctas) of the N = A + D + V
     h-product columns, and the gate weights of ``units`` hidden units:
     those of group p % g_groups (g_groups = ceil(H / units)), for the rows
     of part p // g_groups of g_parts = max(1, ctas // g_groups). Two units
-    per CTA from 32 rows on, else one, where they fit beside a full h
-    tile. Attention items are (row,
-    chunk of ``a_chunk`` feature columns), about ``ctas`` of them per row
-    group. The h-product row tile shrinks until the CTA fits in 227 KB of
-    shared memory; raises ValueError when even the smallest does not.
+    per CTA from ``TWO_UNITS_FROM`` rows on, else one, where they fit
+    beside a full h tile. Attention items are (row, chunk of ``a_chunk``
+    feature columns), about ``ctas`` of them in all. The h-product row
+    tile shrinks until the CTA fits in 227 KB of shared memory; raises
+    ValueError when even the smallest does not.
     """
     if min(bsz, k, d, a, e, h, v, ctas) < 1:
         raise ValueError(f"greedy decode needs positive sizes, got B={bsz} "
@@ -94,7 +95,6 @@ def plan(bsz: int, k: int, d: int, a: int, e: int, h: int, v: int,
         raise ValueError(f"the greedy kernel reads 16 or 32 bytes at a time: "
                          f"D={d}, E={e} and H={h} must be multiples of 8, "
                          f"A={a} a multiple of 4")
-    rows = bsz if row_group is None else max(1, min(row_group, bsz))
     n = a + d + v
     h_slices = tuple((p * n // ctas, (p + 1) * n // ctas)
                      for p in range(ctas))
@@ -105,23 +105,21 @@ def plan(bsz: int, k: int, d: int, a: int, e: int, h: int, v: int,
                          f"CTAs needs {least} units per CTA, above the "
                          f"{G_UNITS} a CTA can hold")
     # two units per CTA halve the CTAs that read each row's input; with
-    # fewer than 32 rows, one unit per CTA spreads the rows' work wider
+    # fewer rows, one unit per CTA spreads the rows' work wider
     # (tools/decode_seq_ab.py)
-    choices = ([units] if units else
-               [u for u in ((2, 1) if rows >= 32 else (1, 2)) if u >= least])
-    if not least <= choices[0] <= G_UNITS:
-        raise ValueError(f"units={units} outside [{least}, {G_UNITS}]")
-    chunks = max(1, min(ctas // rows, d // A_MIN))
+    choices = [u for u in ((2, 1) if bsz >= TWO_UNITS_FROM else (1, 2))
+               if u >= least]
+    chunks = max(1, min(ctas // bsz, d // A_MIN))
     a_chunk = min(d, (-(-d // chunks) + 7) // 8 * 8)
-    tile = -(-min(rows, H_TILE_MAX) // h_tile) * h_tile
+    tile = -(-min(bsz, H_TILE_MAX) // H_ROWS) * H_ROWS
 
     def need_bytes(u, t):
-        return 4 * smem_floats(k, d, a, e, h, h_cols, u, t, threads)
+        return 4 * smem_floats(k, d, a, e, h, h_cols, u, t, THREADS)
 
     fits = [u for u in choices if need_bytes(u, tile) <= SMEM_LIMIT]
     units = fits[0] if fits else choices[-1]
-    while need_bytes(units, tile) > SMEM_LIMIT and tile > h_tile:
-        tile -= h_tile
+    while need_bytes(units, tile) > SMEM_LIMIT and tile > H_ROWS:
+        tile -= H_ROWS
     need = need_bytes(units, tile)
     if need > SMEM_LIMIT:
         raise ValueError(
@@ -132,17 +130,26 @@ def plan(bsz: int, k: int, d: int, a: int, e: int, h: int, v: int,
             f"byte limit of a block")
     groups = -(-h // units)
     return GreedyPlan(
-        ctas=ctas, threads=threads, h_slices=h_slices, h_cols=h_cols,
-        units=units, g_groups=groups, g_parts=max(1, ctas // groups),
-        a_chunk=a_chunk, h_rows=tile, row_group=rows,
-        smem_bytes=need,
-        scratch_floats=rows * (2 * d + a + 3 * h + ctas),
-        scratch_ints=2 + rows * (ctas + 2))
+        ctas=ctas, h_slices=h_slices, h_cols=h_cols, units=units,
+        g_groups=groups, g_parts=max(1, ctas // groups), a_chunk=a_chunk,
+        h_rows=tile, smem_bytes=need,
+        scratch_floats=bsz * (2 * d + a + 3 * h + ctas),
+        scratch_ints=2 + bsz * (ctas + 2))
 
 
 @functools.lru_cache(maxsize=16)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=64)
+def _max_ctas(index: int, bf16: int, smem: int) -> int:
+    """CTAs of the kernel that can be co-resident on the current card
+    ``index`` at ``smem`` bytes of shared memory each."""
+    fits = _build.load().dcap_greedy_max_ctas(bf16, smem)
+    if fits < 0:
+        _build.check_launch(-fits, "dcap_greedy_max_ctas")
+    return fits
 
 
 class DecodeSeqWeights(NamedTuple):
@@ -188,7 +195,7 @@ def fused_greedy_decode(features: torch.Tensor, features_proj: torch.Tensor,
     h0/c0 [B,H] float32. CPU tensors run the plain version; CUDA tensors
     launch the kernel or raise.
     """
-    global LAUNCHES
+    global LAUNCHES, LAST_PLAN
     if features.dim() != 3 or features.shape[0] < 1:
         raise ValueError(f"features must be [B>=1, K, D], got "
                          f"{tuple(features.shape)}")
@@ -229,13 +236,9 @@ def fused_greedy_decode(features: torch.Tensor, features_proj: torch.Tensor,
     lib = _build.load()
     bf16 = int(features.dtype == torch.bfloat16)
     with torch.cuda.device(features.device):
-        p = plan(bsz, k, d, a, e, hdim, vocab, _sm_count(
-            features.device.index if features.device.index is not None
-            else torch.cuda.current_device()))
-        fits = lib.dcap_greedy_max_ctas(bf16, p.smem_bytes)
-        if fits < 0:
-            _build.check_launch(-fits, "dcap_greedy_max_ctas")
-        if fits < p.ctas:
+        index = torch.cuda.current_device()
+        p = plan(bsz, k, d, a, e, hdim, vocab, _sm_count(index))
+        while (fits := _max_ctas(index, bf16, p.smem_bytes)) < p.ctas:
             p = plan(bsz, k, d, a, e, hdim, vocab, fits)
         tokens = torch.empty((bsz, max_length), dtype=torch.int32,
                              device=features.device)
@@ -248,7 +251,8 @@ def fused_greedy_decode(features: torch.Tensor, features_proj: torch.Tensor,
             ptrs[0], bf16, *ptrs[1:], tokens.data_ptr(), fscr.data_ptr(),
             iscr.data_ptr(), bsz, k, d, a, e, hdim, vocab, max_length,
             start_id, end_id, p.ctas, p.h_cols, p.units, p.a_chunk,
-            p.h_rows, p.row_group, p.smem_bytes, stream)
+            p.h_rows, p.smem_bytes, stream)
     _build.check_launch(err, "dcap_greedy_decode")
     LAUNCHES += 1
+    LAST_PLAN = p
     return tokens

@@ -22,16 +22,14 @@ CASES = [(b, ctas, d) for b in (1, 16, 64, 130, 500) for ctas in (132, 114)
 
 def _gate_owners(p, bsz, h):
     """(unit, row) -> number of CTAs computing it, as gates_phase splits
-    the rows of each row group."""
+    the rows."""
     seen = np.zeros((h, bsz), dtype=np.int64)
-    for row0 in range(0, bsz, p.row_group):
-        rows = min(p.row_group, bsz - row0)
-        for cta in range(min(p.ctas, p.g_groups * p.g_parts)):
-            j0 = cta % p.g_groups * p.units
-            part = cta // p.g_groups
-            lo = part * rows // p.g_parts
-            hi = (part + 1) * rows // p.g_parts
-            seen[j0:min(h, j0 + p.units), row0 + lo:row0 + hi] += 1
+    for cta in range(min(p.ctas, p.g_groups * p.g_parts)):
+        j0 = cta % p.g_groups * p.units
+        part = cta // p.g_groups
+        lo = part * bsz // p.g_parts
+        hi = (part + 1) * bsz // p.g_parts
+        seen[j0:min(h, j0 + p.units), lo:hi] += 1
     return seen
 
 
@@ -56,7 +54,7 @@ def test_plan_fits_shared_memory(bsz, ctas, d):
     p = decode_seq.plan(bsz, K, d, A, E, H, V, ctas)
     assert p.smem_bytes <= decode_seq.SMEM_LIMIT == 227 * 1024
     assert p.smem_bytes == 4 * decode_seq.smem_floats(
-        K, d, A, E, H, p.h_cols, p.units, p.h_rows, p.threads)
+        K, d, A, E, H, p.h_cols, p.units, p.h_rows, decode_seq.THREADS)
     assert p.h_rows % decode_seq.H_ROWS == 0 and p.h_rows >= 4
     assert 1 <= p.units <= decode_seq.G_UNITS
 
@@ -64,13 +62,15 @@ def test_plan_fits_shared_memory(bsz, ctas, d):
 def test_plan_units_follow_the_rows():
     """One hidden unit per CTA below 32 rows, two from 32 on (half the
     CTAs read each row's input); more when H outnumbers the CTAs."""
+    assert decode_seq.TWO_UNITS_FROM == 32
     assert decode_seq.plan(16, K, 2048, A, E, H, V, 132).units == 1
+    assert decode_seq.plan(31, K, 2048, A, E, H, V, 132).units == 1
     assert decode_seq.plan(64, K, 2048, A, E, H, V, 132).units == 2
     assert decode_seq.plan(64, K, 2048, A, E, H, V, 132).g_parts == 2
     assert decode_seq.plan(1, K, 2048, A, E, H, V, 100).units == 2
-    p = decode_seq.plan(64, K, 2048, A, E, H, V, 132, row_group=32)
-    assert p.row_group == 32 and p.units == 2 and p.g_parts == 2
-    assert np.all(_gate_owners(p, 64, H) == 1)
+    p = decode_seq.plan(32, K, 2048, A, E, H, V, 132)
+    assert p.units == 2 and p.g_parts == 2
+    assert np.all(_gate_owners(p, 32, H) == 1)
 
 
 @pytest.mark.parametrize("kwargs,match", [

@@ -7,24 +7,30 @@ the source (an earlier commit's one-CTA-per-row kernel, say).
         [--variants 512,4,2 256,4,2 ...] [--row-groups 32 ...] \\
         [--units 1 2] [--out FILE.json]
 
-A variant ``T,HR,GR`` is ``csrc/decode_seq.cu`` built with ``kThreads =
-T`` threads per CTA, ``kHRows = HR`` rows in a thread's h-product tile and
-``kGRows = GR`` rows per warp in the gate products;
-``--row-groups N`` adds the first variant run with the rows in groups of
-N, one group after the other inside the launch, and ``--units U`` the
-first variant with U hidden units per CTA in the gate products. A ``--source`` copy is taken as the parent's
-kernel (the C entry of one CTA per row) when it has no
-``dcap_greedy_config``. Every library is built by nvcc (all at the same
+A variant ``T,HR,GR`` is a copy of ``csrc/decode_seq.cu`` with ``kThreads
+= T`` threads per CTA, ``kHRows = HR`` rows in a thread's h-product tile
+and ``kGRows = GR`` rows per warp in the gate products, planned with the
+same numbers. ``--units U`` adds the first variant with U hidden units per
+CTA at every B (the planner's ``TWO_UNITS_FROM`` moved past or below B);
+``--row-groups N`` adds the first variant run as one launch per N rows,
+one after the other, so that a group's features stay in L2. A
+``--source`` copy without ``dcap_greedy_max_ctas`` is taken as the
+parent's kernel (the C entry of one CTA per row); any other copy must have
+this kernel's C entry. Every library is built by nvcc (all at the same
 time) under ``build/decode_seq_ab/``, checked against the plain PyTorch
 version (token agreement >= 0.99 with ``<end>`` set) and timed with CUDA
 events at full width (K=196, D=2048 bf16, A=E=H=128, V=9956, 30 steps) at
 B = 1, 16 and 64, in turns (A B C ... C B A, twice); the least of the four
-timings is shown. The first variant is also built with
-``-DDCAP_GREEDY_TRACE`` and run once at each B without ``<end>``: its
-barrier stamps give each phase's critical path (the slowest CTA's work
-between two barriers) and the barriers' own latency. Prints ptxas' lines,
-the tables and the card's ``nvidia-smi`` name and power limit; ``--out``
-also writes them as JSON.
+timings is shown.
+
+The first variant is also built as a traced copy, into which the tool
+writes SM-clock stamps (``clock64``) as each CTA starts, as it arrives at
+and leaves each grid barrier, and at marks inside the phases; they land in
+the int scratch past the kernel's own carve. One run at each B without
+``<end>`` gives each phase's critical path (the slowest CTA's work between
+two barriers), the slowest CTA's time to each mark, and the barriers' own
+latency. Prints ptxas' lines, the tables and the card's ``nvidia-smi``
+name and power limit; ``--out`` also writes them as JSON.
 """
 
 import argparse
@@ -34,6 +40,7 @@ import re
 import subprocess
 import sys
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 
@@ -48,8 +55,63 @@ MAX_LEN, START, END = 30, 2, 3
 CONSTS = ("kThreads", "kHRows", "kGRows")
 ITERS = 10          # launches per timing
 _P, _I = ctypes.c_void_p, ctypes.c_int
-NEW_ARGS = [_P, _I] + [_P] * 19 + [_I] * 17 + [_P]
+NEW_ARGS = [_P, _I] + [_P] * 19 + [_I] * 16 + [_P]
 OLD_ARGS = [_P, _I] + [_P] * 17 + [_I] * 10 + [_P]
+
+# The traced copy: (anchor, text put before it); each anchor occurs once.
+TRACE_PRELUDE = """\
+// SM-clock stamps, [1 + barriers, 2, ctas] int64 past the int scratch's
+// carve, then the marks, [barriers, 4, ctas]
+__device__ inline long long* trace_stamps(const Params& q) {
+  return reinterpret_cast<long long*>(
+      q.iscr + ((2 + (long)q.batch * (q.ctas + 2) + 1) & ~1L));
+}
+__shared__ int t_slot;  // barriers passed: the running phase ends at it
+#define TRACE_MARK(q, m)                                                   \\
+  do {                                                                     \\
+    if (threadIdx.x == 0) {                                                \\
+      const long rows = 2 * (2 + 3L * (q).max_length);                     \\
+      trace_stamps(q)[(rows + 4L * t_slot + (m)) * (q).ctas + blockIdx.x] = \\
+          clock64();                                                       \\
+    }                                                                      \\
+  } while (0)
+
+"""
+TRACE_INSERTS = (
+    ("// Grid-wide barrier on a counter", TRACE_PRELUDE),
+    ("    volatile int* gen = bar + 1;",
+     "    long long* tr = trace_stamps(q);\n"
+     "    tr[(2L * t_slot + 2) * q.ctas + blockIdx.x] = clock64();\n"),
+    ("  }\n  __syncthreads();\n}\n\n// 16 bytes of features",
+     "    tr[(2L * t_slot + 3) * q.ctas + blockIdx.x] = clock64();\n"
+     "    ++t_slot;\n"),
+    ("  load_slices(q, s);\n",
+     "  if (threadIdx.x == 0) {\n"
+     "    trace_stamps(q)[blockIdx.x] = clock64();\n"
+     "    t_slot = 0;\n  }\n"),
+    ("    const int items = (rt4 / kHRows) * ncg;",
+     "    if (r0 == 0) TRACE_MARK(q, 0);\n"),
+    ("    if (logits) {\n      for (int rr = warp;",
+     "    if (r0 == 0) TRACE_MARK(q, 1);\n"),
+    ("    for (int k0 = 0; k0 < d.K; k0 += kThreads / parts) {",
+     "    if (item == blockIdx.x) TRACE_MARK(q, 0);\n"),
+    ("    // softmax over K in f32", "    if (item == blockIdx.x) TRACE_MARK(q, 1);\n"),
+    ("    // ctx over the chunk", "    if (item == blockIdx.x) TRACE_MARK(q, 2);\n"),
+    ("      lo = max(i0, d.E + d.D);",
+     "      if (warp == 0 && base == 0) TRACE_MARK(q, 1);\n"),
+    ("      lo = i0;\n      hi = min(i1, d.E);",
+     "      if (warp == 0 && base == 0) TRACE_MARK(q, 2);\n"),
+    ("#pragma unroll\n      for (int u = 0; u < kGUnits; ++u) {\n"
+     "        if (u >= nu) break;",
+     "      if (warp == 0 && base == 0) TRACE_MARK(q, 3);\n"),
+    ("    if (tail) {", "    if (base == 0) TRACE_MARK(q, 0);\n"),
+)
+# The marks of each phase, in TRACE_MARK's numbering
+MARKS = {"set-up (slices, H on h0)": ("h staged", "products"),
+         "A attention": ("tokens, dec staged", "scores", "softmax"),
+         "G gates": ("products", "warp 0: gated part", "warp 0: h part",
+                     "warp 0: emb part"),
+         "H h-products": ("h staged", "products")}
 
 
 def variant_source(text, values):
@@ -61,16 +123,25 @@ def variant_source(text, values):
     return text
 
 
+def traced_source(text):
+    for anchor, insert in TRACE_INSERTS:
+        if text.count(anchor) != 1:
+            raise ValueError(f"trace anchor {anchor!r} occurs "
+                             f"{text.count(anchor)} times in {SRC}")
+        text = text.replace(anchor, insert + anchor)
+    return text
+
+
 def build_all(sources):
-    """nvcc every (name, text, flags) at once; {name: (library, ptxas)}."""
+    """nvcc every (name, text) at once; {name: (library, ptxas)}."""
     from depth_image_captioning_pub_torch.ops.kernels import _build
     nvcc = _build.nvcc_path()
     procs = {}
-    for name, text, flags in sources:
+    for name, text in sources:
         d = OUT_DIR / name
         d.mkdir(parents=True, exist_ok=True)
         (d / "decode_seq.cu").write_text(text)
-        cmd = [nvcc, *_build.NVCC_FLAGS, *flags, "-I", str(CSRC), "-shared",
+        cmd = [nvcc, *_build.NVCC_FLAGS, "-I", str(CSRC), "-shared",
                "-o", str(d / "lib.so"), str(d / "decode_seq.cu")]
         procs[name] = (d / "lib.so", subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
@@ -90,54 +161,72 @@ def build_all(sources):
 
 
 class Kernel:
-    """One library's greedy entry, called like ``fused_greedy_decode``."""
+    """One library's greedy entry, called like ``fused_greedy_decode``.
 
-    def __init__(self, lib_path, row_group=None, units=None):
+    ``consts`` are the (kThreads, kHRows) it was built with; ``units``
+    fixes the hidden units per CTA; ``row_group`` runs one launch per that
+    many rows."""
+
+    def __init__(self, lib_path, consts, units=None, row_group=None):
         self.lib = ctypes.CDLL(str(lib_path))
-        self.new = hasattr(self.lib, "dcap_greedy_config")
+        self.new = hasattr(self.lib, "dcap_greedy_max_ctas")
         fn = self.lib.dcap_greedy_decode
         fn.argtypes = NEW_ARGS if self.new else OLD_ARGS
         fn.restype = ctypes.c_int
-        self.fn, self.row_group, self.units = fn, row_group, units
-        if self.new:
-            cfg = (ctypes.c_int * 3)()
-            self.lib.dcap_greedy_config(cfg)
-            self.threads, self.h_rows = cfg[0], cfg[1]
+        self.fn, self.consts = fn, consts
+        self.units, self.row_group = units, row_group
+        self.plans = {}
 
     def plan(self, bsz):
         import torch
         from depth_image_captioning_pub_torch.ops.kernels import decode_seq
-        ctas = torch.cuda.get_device_properties(0).multi_processor_count
-        return decode_seq.plan(bsz, K, D, A, E, H, V, ctas,
-                               threads=self.threads, h_tile=self.h_rows,
-                               row_group=self.row_group, units=self.units)
+        if bsz not in self.plans:
+            ctas = torch.cuda.get_device_properties(0).multi_processor_count
+            two_from = {None: decode_seq.TWO_UNITS_FROM, 1: bsz + 1,
+                        2: 0}[self.units]
+            with mock.patch.multiple(decode_seq, THREADS=self.consts[0],
+                                     H_ROWS=self.consts[1],
+                                     TWO_UNITS_FROM=two_from):
+                self.plans[bsz] = decode_seq.plan.__wrapped__(
+                    bsz, K, D, A, E, H, V, ctas)
+        return self.plans[bsz]
 
     def __call__(self, case, end_id=END, extra_ints=0):
         import torch
-        f, proj, h0, c0, w = case
+        f = case[0]
         bsz = f.shape[0]
-        dev = f.device
+        tokens = torch.empty((bsz, MAX_LEN), dtype=torch.int32,
+                             device=f.device)
+        step = min(self.row_group or bsz, bsz)
+        for r in range(0, bsz, step):
+            iscr = self.launch([t[r:r + step] for t in case[:4]], case[4],
+                               tokens[r:r + step], end_id, extra_ints)
+        return tokens, iscr
+
+    def launch(self, rows, w, tokens, end_id, extra_ints):
+        import torch
+        f, proj, h0, c0 = rows
+        bsz = f.shape[0]
         ptrs = [t.data_ptr() for t in (proj, h0, c0, *w.step, w.w_out,
                                        w.b_out, w.embed)]
-        tokens = torch.empty((bsz, MAX_LEN), dtype=torch.int32, device=dev)
         stream = torch.cuda.current_stream().cuda_stream
+        iscr = None
         if not self.new:
             err = self.fn(f.data_ptr(), 1, *ptrs, tokens.data_ptr(), bsz, K,
                           D, A, E, H, V, MAX_LEN, START, end_id, stream)
-            if err:
-                raise RuntimeError(f"dcap_greedy_decode: CUDA error {err}")
-            return tokens, None
-        p = self.plan(bsz)
-        fscr = torch.empty(p.scratch_floats, dtype=torch.float32, device=dev)
-        iscr = torch.zeros(p.scratch_ints + 1 + extra_ints, dtype=torch.int32,
-                           device=dev)
-        err = self.fn(f.data_ptr(), 1, *ptrs, tokens.data_ptr(),
-                      fscr.data_ptr(), iscr.data_ptr(), bsz, K, D, A, E, H,
-                      V, MAX_LEN, START, end_id, p.ctas, p.h_cols, p.units,
-                      p.a_chunk, p.h_rows, p.row_group, p.smem_bytes, stream)
+        else:
+            p = self.plan(bsz)
+            fscr = torch.empty(p.scratch_floats, dtype=torch.float32,
+                               device=f.device)
+            iscr = torch.zeros(p.scratch_ints + 1 + extra_ints,
+                               dtype=torch.int32, device=f.device)
+            err = self.fn(f.data_ptr(), 1, *ptrs, tokens.data_ptr(),
+                          fscr.data_ptr(), iscr.data_ptr(), bsz, K, D, A, E,
+                          H, V, MAX_LEN, START, end_id, p.ctas, p.h_cols,
+                          p.units, p.a_chunk, p.h_rows, p.smem_bytes, stream)
         if err:
             raise RuntimeError(f"dcap_greedy_decode: CUDA error {err}")
-        return tokens, (p, iscr)
+        return iscr
 
 
 def make_case(bsz, seed=2):
@@ -173,13 +262,6 @@ def cuda_ms(fn, iters):
     return start.elapsed_time(stop) / iters
 
 
-MARKS = {"set-up (slices, H on h0)": ("h staged", "products"),
-         "A attention": ("tokens, dec staged", "scores", "softmax"),
-         "G gates": ("products", "warp 0: gated part", "warp 0: h part",
-                     "warp 0: emb part"),
-         "H h-products": ("h staged", "products")}
-
-
 def phase_breakdown(kernel, case, mhz):
     """Each phase's critical path (the slowest CTA's work between two
     barriers), the points marked inside it (the slowest CTA's time to
@@ -188,11 +270,10 @@ def phase_breakdown(kernel, case, mhz):
     import torch
     bsz = case[0].shape[0]
     p = kernel.plan(bsz)
-    groups = -(-bsz // p.row_group)
-    barriers = groups * (2 + 3 * MAX_LEN)
-    off = (2 + p.row_group * (p.ctas + 2) + 1) & ~1
+    barriers = 1 + 3 * MAX_LEN
+    off = (2 + bsz * (p.ctas + 2) + 1) & ~1
     rows = 2 * (1 + barriers) + 4 * barriers     # int64 rows of ctas
-    _, (p, iscr) = kernel(case, end_id=-1, extra_ints=off + 2 * rows * p.ctas)
+    _, iscr = kernel(case, end_id=-1, extra_ints=off + 2 * rows * p.ctas)
     torch.cuda.synchronize()
     tr = iscr[off:off + 2 * rows * p.ctas].cpu().numpy().view(
         np.int64).reshape(rows, p.ctas)
@@ -201,8 +282,7 @@ def phase_breakdown(kernel, case, mhz):
     leave = stamps[:, 1].copy()
     leave[0] = stamps[0, 0]
     kinds = (["set-up (slices, H on h0)"]
-             + ["A attention", "G gates", "H h-products"] * MAX_LEN
-             + ["last token"]) * groups
+             + ["A attention", "G gates", "H h-products"] * MAX_LEN)
     work, wait = {}, 0.0
     for b in range(barriers):
         kind = kinds[b]
@@ -227,7 +307,8 @@ def main():
                     metavar="NAME=PATH", help="another decode_seq.cu")
     ap.add_argument("--variants", nargs="*", default=["512,4,2"])
     ap.add_argument("--row-groups", nargs="*", type=int, default=[])
-    ap.add_argument("--units", nargs="*", type=int, default=[])
+    ap.add_argument("--units", nargs="*", type=int, default=[],
+                    choices=(1, 2))
     ap.add_argument("--out", type=Path)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -236,25 +317,30 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     text = SRC.read_text()
-    specs = [v.split(",") for v in args.variants]
-    sources = [(f"t{t}_h{hr}_g{gr}", variant_source(text, (t, hr, gr)),
-                []) for t, hr, gr in specs]
-    sources.append(("trace", variant_source(text, specs[0]),
-                    ["-DDCAP_GREEDY_TRACE"]))
+    specs = [tuple(int(x) for x in v.split(",")) for v in args.variants]
+    sources = [(f"t{t}_h{hr}_g{gr}", variant_source(text, (t, hr, gr)))
+               for t, hr, gr in specs]
+    sources.append(("trace", traced_source(variant_source(text, specs[0]))))
+    consts = dict(zip([n for n, _ in sources], specs + [specs[0]]))
     for spec in args.source:
         name, path = spec.split("=", 1)
-        sources.append((name, Path(path).read_text(), []))
+        sources.append((name, Path(path).read_text()))
     built = build_all(sources)
     for name, (_, lines) in built.items():
         for line in lines:
             print(f"[ptxas] {name}: {line}", flush=True)
-    kernels = {name: Kernel(lib) for name, (lib, _) in built.items()
-               if name != "trace"}
+    from depth_image_captioning_pub_torch.ops.kernels import decode_seq
+    default = (decode_seq.THREADS, decode_seq.H_ROWS)
+    kernels = {name: Kernel(lib, consts.get(name, default))
+               for name, (lib, _) in built.items() if name != "trace"}
     first = sources[0][0]
     for rg in args.row_groups:
-        kernels[f"{first}_rows{rg}"] = Kernel(built[first][0], row_group=rg)
+        kernels[f"{first}_rows{rg}"] = Kernel(built[first][0], specs[0],
+                                              row_group=rg)
     for u in args.units:
-        kernels[f"{first}_units{u}"] = Kernel(built[first][0], units=u)
+        kernels[f"{first}_units{u}"] = Kernel(built[first][0], specs[0],
+                                              units=u)
+    traced = Kernel(built["trace"][0], specs[0])
 
     results, breakdown = {}, {}
     for bsz in BATCHES:
@@ -278,8 +364,7 @@ def main():
                 ["nvidia-smi", "--query-gpu=clocks.sm",
                  "--format=csv,noheader,nounits"], capture_output=True,
                 text=True, check=True).stdout.split()[0])
-            breakdown[bsz] = phase_breakdown(Kernel(built["trace"][0]),
-                                             case, mhz)
+            breakdown[bsz] = phase_breakdown(traced, case, mhz)
             breakdown[bsz]["sm_mhz"] = mhz
         for name in kernels:
             ok = agree[name] >= 0.99
