@@ -63,11 +63,15 @@ the script exits non-zero:
    1/16/64) answers requests of 1, 16 and 100 images; K3's counter grows by
    one per chunk, K2's does not, no plain version runs; one request's
    tokens are checked against the plain version on the same features;
-10. beam kernel (K4) vs its plain version at full width (B=64, W=5,
-   V=9956, 30 steps, <end> set): best-token agreement and token and parent
-   record agreement >= 0.99, scores' max abs error <= 1e-3, and exact
-   tokens and parents (scores within 1e-3) with <end> forced and with every
-   token tied (zeroed vocab head); the kernel is also timed at W=2..5;
+10. beam kernel (K4: one cooperative launch, one CTA per SM, on the
+   greedy kernel's phases) vs its plain version at full width (B = 1, 16
+   and 64 images, W=5, V=9956, 30 steps, <end> set): best-token agreement
+   and token and parent record agreement >= 0.99, scores' max abs error <=
+   1e-3 at each B, and exact tokens and parents (scores within 1e-3) with
+   <end> forced and with every token tied (zeroed vocab head) at B=64;
+   times, the bound, and in the log line the per-step feature floor, the
+   launch's plan (``beam_seq.LAST_PLAN``) and ptxas' registers/spills; the
+   kernel is also timed at W=2..5 at B=64;
 11. beam path: ``CaptionPipeline(beam_size=5)`` over the base-soft
    captioner at full width answers requests of 1, 16 and 64 images; K4's
    counter grows by one per chunk, K2's does not, no plain version runs;
@@ -76,15 +80,15 @@ the script exits non-zero:
 Each path (phases 5, 7, 9, 11) runs with every launch counter set to 0
 just before it and read just after. The line before the last is a JSON
 object with the five ported kernels (K1 step, K2 greedy, K3 NIC greedy, K4
-beam, K5 ViT attention): launches per path (K1 has none: the paths run the
-step as a device function inside K4), error, time beside the plain
+beam, K5 ViT attention): launches per path (K1 has none: no path runs the
+per-step kernel), error, time beside the plain
 version's, the least time the card could take for the same work
 (``bound_ms``: the larger of the bytes moved over 3.35 TB/s and the
 operations over 67 TFLOP/s f32, or 989 TFLOP/s bf16 for K5, from this
 run's inputs) and the time of one PyTorch call computing the same function
 where there is one (``library_ms``: SDPA for K5; no single PyTorch call
-computes a whole decode loop, so K1-K4 have none); K2 and K5 also carry
-``ms_by_shape``. The last line is
+computes a whole decode loop, so K1-K4 have none); K2, K4 and K5 also
+carry ``ms_by_shape``. The last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -507,9 +511,10 @@ def bf16_ulp(x):
     return 2.0 ** (math.floor(math.log2(m)) - 7) if m > 0 else 0.0
 
 
-def ptxas_report(kernel):
+def ptxas_report(kernel, typed=False):
     """{template arguments: "registers, spills"} of the build's instances of
-    ``kernel``, from ptxas' -v lines in the build log."""
+    ``kernel``, from ptxas' -v lines in the build log; ``typed`` puts the
+    feature type (bf16 or f32) before the integer arguments."""
     import re
     from depth_image_captioning_pub_torch.ops.kernels import _build
     report, name = {}, None
@@ -518,6 +523,8 @@ def ptxas_report(kernel):
             name = line.split("'")[1] if kernel in line else None
         elif name and ("registers" in line or "spill" in line):
             args = ",".join(re.findall(r"Li(\d+)E", name)) or name
+            if typed:
+                args = ("bf16 " if "bfloat16" in name else "f32 ") + args
             report.setdefault(args, []).append(line.split(":")[-1].strip())
     return {args: "; ".join(lines) for args, lines in report.items()}
 
@@ -920,6 +927,10 @@ def beam_steps(out, end_id):
 
 
 def phase_beam_kernel(smi):
+    """K4 at B = 1, 16 and 64 images (W=5) against its plain version:
+    best-token and record agreement, scores, exact with <end> forced and
+    with every token tied (at B=64), times, the bound, the per-step feature
+    floor and the launch's plan; and K4 at W=2..5 at B=64."""
     import torch
     from depth_image_captioning_pub_torch.cli import (
         SPECIAL, placeholder_vocab)
@@ -934,87 +945,113 @@ def phase_beam_kernel(smi):
     dec = AttentionDecoder(VOCAB, A, E, D, H, device=dev)
     dec.reset_parameters(torch.Generator().manual_seed(10))
     rng = np.random.default_rng(10)
-    feats = torch.from_numpy(np.abs(rng.standard_normal((B, K, D)))
-                             .astype(np.float32)).to(dev, torch.bfloat16)
-    with torch.inference_mode():
-        proj = project_features(dec.att_params(), feats,
-                                compute_dtype=torch.float32)
-        state = dec.init_state(feats)
-        w = dec.seq_weights()
+    feats64 = torch.from_numpy(np.abs(rng.standard_normal((B, K, D)))
+                               .astype(np.float32)).to(dev, torch.bfloat16)
+    for args, line in ptxas_report("beam_kernel", typed=True).items():
+        kind, beam = args.split()
+        log("beam_seq", f"ptxas, {kind} features, W={beam}: {line}")
+    by_shape, exact = {}, {}
+    for bsz in SEQ_BATCHES:
+        feats = feats64[:bsz].contiguous()
+        with torch.inference_mode():
+            proj = project_features(dec.att_params(), feats,
+                                    compute_dtype=torch.float32)
+            state = dec.init_state(feats)
+            w = dec.seq_weights()
 
-        def run(fn, weights):
-            return fn(feats, proj, state.h, state.c, weights,
-                      beam_size=BEAM, max_length=MAX_LEN, start_id=start_id,
-                      end_id=end_id)
+            def run(fn, weights, beam=BEAM):
+                return fn(feats, proj, state.h, state.c, weights,
+                          beam_size=beam, max_length=MAX_LEN,
+                          start_id=start_id, end_id=end_id)
 
-        got = run(beam_seq.fused_beam_decode, w)
-        torch.cuda.synchronize()
-        want = run(beam_seq.fused_beam_decode_plain, w)
-        best_got = beam_seq.select_best(got, end_id)[0]
-        best_want = beam_seq.select_best(want, end_id)[0]
-        agree = (best_got == best_want).float().mean().item()
-        rec_agree = min((got.tokens == want.tokens).float().mean().item(),
-                        (got.parents == want.parents).float().mean().item())
-        err = (got.scores - want.scores).abs().max().item()
-        if min(agree, rec_agree) < MIN_AGREEMENT:
-            raise RuntimeError(f"beam best-token agreement {agree}, record "
-                               f"agreement {rec_agree} < {MIN_AGREEMENT}")
-        if not err <= SCORE_ATOL:
-            raise RuntimeError(f"beam scores max abs err {err} > "
-                               f"{SCORE_ATOL}")
-        ms = cuda_ms(lambda: run(beam_seq.fused_beam_decode, w), 10)
-        plain_ms = cuda_ms(lambda: run(beam_seq.fused_beam_decode_plain, w),
-                           3)
-        # every beam width the kernel has an instance for (its unroll depth
-        # is chosen per width)
-        ms_by_beam = {
-            bw: cuda_ms(lambda bw=bw: beam_seq.fused_beam_decode(
-                feats, proj, state.h, state.c, w, beam_size=bw,
-                max_length=MAX_LEN, start_id=start_id, end_id=end_id), 10)
-            for bw in range(2, BEAM + 1)}
-        exact = {}
-        for case in ("<end> forced", "all ties"):
-            if case == "<end> forced":
-                b_out = w.b_out.clone()
-                b_out[0, end_id] += 100.0
-                w_case = w._replace(b_out=b_out)
-            else:
-                w_case = w._replace(w_out=torch.zeros_like(w.w_out),
-                                    b_out=torch.zeros_like(w.b_out))
-            g = run(beam_seq.fused_beam_decode, w_case)
+            got = run(beam_seq.fused_beam_decode, w)
             torch.cuda.synchronize()
-            x = run(beam_seq.fused_beam_decode_plain, w_case)
-            if not (torch.equal(g.tokens, x.tokens)
-                    and torch.equal(g.parents, x.parents)):
-                raise RuntimeError(f"beam kernel differs from the plain "
-                                   f"version with {case}")
-            exact[case] = (g.scores - x.scores).abs().max().item()
-            if not exact[case] <= SCORE_ATOL:
-                raise RuntimeError(f"beam scores with {case}: max abs err "
-                                   f"{exact[case]} > {SCORE_ATOL}")
-    steps = beam_steps(got, end_id)
-    beam_steps_total = int(steps.sum()) * BEAM
-    bound_ms, bound_by = bound(
-        nbytes(feats, proj, state.h, state.c, *w.step, w.w_out, w.b_out,
-               *got) + beam_steps_total * E * 4,
-        beam_steps_total * (step_flops(K, D, A, E, H) + 2 * H * VOCAB),
-        F32_FLOPS)
-    log("beam_seq", f"B={B} W={BEAM} V={VOCAB} L={MAX_LEN} end_id={end_id}: "
-        f"best-token agreement {agree:.4f}, record (token and parent) "
-        f"agreement {rec_agree:.4f} (min {MIN_AGREEMENT}), scores max abs "
-        f"err {err:.3e} (max {SCORE_ATOL}); steps per image "
-        f"{steps.min()}-{steps.max()}; exact tokens and parents with "
+            plan = beam_seq.LAST_PLAN      # the plan of that launch
+            want = run(beam_seq.fused_beam_decode_plain, w)
+            best_got = beam_seq.select_best(got, end_id)[0]
+            best_want = beam_seq.select_best(want, end_id)[0]
+            agree = (best_got == best_want).float().mean().item()
+            rec_agree = min(
+                (got.tokens == want.tokens).float().mean().item(),
+                (got.parents == want.parents).float().mean().item())
+            err = (got.scores - want.scores).abs().max().item()
+            if min(agree, rec_agree) < MIN_AGREEMENT:
+                raise RuntimeError(f"beam best-token agreement {agree}, "
+                                   f"record agreement {rec_agree} < "
+                                   f"{MIN_AGREEMENT} at B={bsz}")
+            if not err <= SCORE_ATOL:
+                raise RuntimeError(f"beam scores max abs err {err} > "
+                                   f"{SCORE_ATOL} at B={bsz}")
+            ms = cuda_ms(lambda: run(beam_seq.fused_beam_decode, w), 10)
+            plain_ms = cuda_ms(
+                lambda: run(beam_seq.fused_beam_decode_plain, w), 3)
+            if bsz == B:
+                # every beam width the kernel has an instance for
+                ms_by_beam = {
+                    bw: cuda_ms(lambda bw=bw: run(
+                        beam_seq.fused_beam_decode, w, bw), 10)
+                    for bw in range(2, BEAM + 1)}
+                for case in ("<end> forced", "all ties"):
+                    if case == "<end> forced":
+                        b_out = w.b_out.clone()
+                        b_out[0, end_id] += 100.0
+                        w_case = w._replace(b_out=b_out)
+                    else:
+                        w_case = w._replace(
+                            w_out=torch.zeros_like(w.w_out),
+                            b_out=torch.zeros_like(w.b_out))
+                    g = run(beam_seq.fused_beam_decode, w_case)
+                    torch.cuda.synchronize()
+                    x = run(beam_seq.fused_beam_decode_plain, w_case)
+                    if not (torch.equal(g.tokens, x.tokens)
+                            and torch.equal(g.parents, x.parents)):
+                        raise RuntimeError(f"beam kernel differs from the "
+                                           f"plain version with {case}")
+                    exact[case] = (g.scores - x.scores).abs().max().item()
+                    if not exact[case] <= SCORE_ATOL:
+                        raise RuntimeError(
+                            f"beam scores with {case}: max abs err "
+                            f"{exact[case]} > {SCORE_ATOL}")
+        steps = beam_steps(got, end_id)
+        beam_rows = int(steps.sum()) * BEAM
+        bound_ms, bound_by = bound(
+            nbytes(feats, proj, state.h, state.c, *w.step, w.w_out, w.b_out,
+                   *got) + beam_rows * E * 4,
+            beam_rows * (step_flops(K, D, A, E, H) + 2 * H * VOCAB),
+            F32_FLOPS)
+        # the kernel reads the features again every step (once for the W
+        # beams of an image): that stream alone, per step and over the
+        # steps run
+        floor_step = nbytes(feats) / HBM_BYTES_PER_S * 1e3
+        by_shape[f"B={bsz}"] = {
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "token_agreement": agree,
+            "record_agreement": rec_agree, "max_abs_err": err}
+        log("beam_seq", f"B={bsz} W={BEAM} V={VOCAB} L={MAX_LEN} end_id="
+            f"{end_id}: best-token agreement {agree:.4f}, record (token and "
+            f"parent) agreement {rec_agree:.4f} (min {MIN_AGREEMENT}), "
+            f"scores max abs err {err:.3e} (max {SCORE_ATOL}); steps per "
+            f"image {steps.min()}-{steps.max()}; kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+            f"feature floor {floor_step * 1e3:.2f} us/step x {steps.max()} "
+            f"steps = {floor_step * steps.max():.4f} ms; one cooperative "
+            f"launch of {plan.ctas} CTAs x {beam_seq.THREADS} threads, "
+            f"{plan.smem_bytes} B shared memory each ({plan.h_cols} "
+            f"h-product columns, {plan.units} hidden unit(s), h tile "
+            f"{plan.h_rows} rows, {plan.rows} beam rows) [{smi}]")
+    main = by_shape[f"B={B}"]
+    log("beam_seq", f"B={B}: exact tokens and parents with "
         + ", ".join(f"{k} (scores err {v:.1e})" for k, v in exact.items())
-        + f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-        f"{bound_ms:.4f} ms ({bound_by}); kernel by beam width "
-        + ", ".join(f"W={bw} {t:.3f} ms" for bw, t in ms_by_beam.items())
+        + "; kernel by beam width " + ", ".join(
+            f"W={bw} {t:.3f} ms" for bw, t in ms_by_beam.items())
         + f" [{smi}]; source {BEAM_SRC}, replaces {BEAM_TPU}")
     return {"name": "beam_seq", "route": "cuda", "source": BEAM_SRC,
-            "replaces": BEAM_TPU, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None,
-            "token_agreement": agree, "record_agreement": rec_agree,
-            "ms_by_beam": ms_by_beam}
+            "replaces": BEAM_TPU, "max_abs_err": main["max_abs_err"],
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": None, "token_agreement": main["token_agreement"],
+            "record_agreement": main["record_agreement"],
+            "ms_by_beam": ms_by_beam, "ms_by_shape": by_shape}
 
 
 def phase_beam_path(smi, cap):
@@ -1059,8 +1096,7 @@ def main():
     smi = phase_env()
     import torch
     phase_build()
-    # the step kernel is checked and timed, but it is not a kernel of the
-    # main paths: they run its device step inside the beam kernel
+    # the step kernel is checked and timed, but no main path launches it
     step = phase_step(smi)
     seq = phase_seq(smi)
     base, base_cap = phase_main_path(smi)

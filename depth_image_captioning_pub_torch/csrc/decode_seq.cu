@@ -14,17 +14,11 @@
 //   token  = argmax(h' W_out + b_out), lowest index on ties  [B]
 //   emb    = embed[token]
 //
-// Each CTA loads, once per launch and straight from the weight tensors, a
-// column slice of two weight groups:
-//
-//   h-products     [W_dec | W_fb | W_out], H x (A + D + V), input h:
-//                  92 of the 12,132 columns per CTA at the main shape
-//   gate products  [W_ih_e; W_ih_c; W_hh], E + D + H rows, input
-//                  [emb | gated | h]: the 4 columns (i, f, g, o) of 1 or 2
-//                  whole hidden units, so the LSTM tail stays in the CTA
-//
-// and from then on reads each weight element from shared memory once per
-// step for all the rows it serves. A step is three phases between grid
+// Each CTA holds a column slice of [W_dec | W_fb | W_out] and the gate
+// weights of 1 or 2 whole hidden units in shared memory for the whole
+// launch (load_slices of decode_phases.cuh, shared with the beam-search
+// kernel), and reads each weight element from shared memory once per step
+// for all the rows it serves. A step is three phases between grid
 // barriers:
 //
 //   A  the token of step t-1 for the CTA's own rows (the best of the CTAs'
@@ -54,41 +48,19 @@
 // groups, so that a group's features stay in L2, measured slower: every
 // step's latency is paid once per group.
 //
-// The phases are device functions (attention_phase, gates_phase,
-// hproducts_phase) for the other decode kernels to take up. The planner in
+// G and H, the slice loader and the grid barrier are decode_phases.cuh's;
+// phase A and the candidates' resolution are this kernel's. The planner in
 // ops/kernels/decode_seq.py sizes the slices, the row tile and the shared
 // memory; the launcher checks the carve against it. Plain C interface,
 // loaded with ctypes (ops/kernels/_build.py). Build without --use_fast_math.
-#include "decode_step.cuh"
+#include "decode_phases.cuh"
 
 namespace dcap {
+namespace seq {
 namespace greedy {
 
-constexpr int kThreads = 512;  // threads per CTA
-constexpr int kHRows = 4;      // rows of a thread's h-product tile (x 4 cols)
-constexpr int kGRows = 2;      // rows of a warp's gate products
-constexpr int kGUnits = 2;     // most hidden units a CTA holds
-constexpr int kWarps = kThreads / 32;
-
-struct Params {
-  const void* feat;    // [B, K, D] f32 or bf16
-  const float* proj;   // [B, K, A]
-  const float* h0;     // [B, H]
-  const float* c0;     // [B, H]
-  StepWeights w;
-  StepDims d;
-  const float* w_out;  // [H, V]
-  const float* b_out;  // [V]
-  const float* embed;  // [V, E]
-  int* tokens;         // [B, max_length]
-  float* fscr;         // float scratch, carved by carve_scratch
-  int* iscr;           // int scratch: barrier (2), then carve_scratch
-  int batch, vocab, max_length, start_id, end_id;
-  int ctas;            // grid size, every CTA co-resident
-  int h_cols;          // h-product columns per CTA, padded to a multiple of 4
-  int units;           // hidden units per CTA, at most kGUnits
-  int a_chunk;         // feature columns per attention item, a multiple of 8
-  int h_rows;          // rows per h-product tile, a multiple of kHRows
+struct Params : PhaseParams {
+  int* tokens;  // [B, max_length]
 };
 
 // Shared memory in floats; the same sum as ops/kernels/decode_seq.plan.
@@ -99,21 +71,6 @@ __host__ __device__ inline long smem_floats(const Params& q) {
          2L * q.h_rows * (q.h_cols / 4) + q.h_cols + 4L * q.units + 2L * d.A +
          d.K + kWarps;
 }
-
-struct Smem {
-  float* wh;     // [H, h_cols]      h-product slice
-  float* wg;     // [units, 4, E+D+H] gate-product slice, planes i, f, g, o
-  float* ht;     // [h_rows, H + 4]  h tile
-  float* part;   // [8 * kThreads] partial sums
-  float* wfull;  // [A]
-  float* dec;    // [A]  an attention item's row of dec
-  float* bh;     // [h_cols]     the biases of the h-product columns
-  float* bg;     // [units, 4]   the gate biases of the CTA's units
-  float* cv;     // [h_rows, h_cols/4] head candidates: value
-  int* ci;       //                    and index
-  float* alpha;  // [K]
-  float* red;    // [kWarps]
-};
 
 __device__ inline Smem carve_smem(float* base, const Params& q) {
   const StepDims& d = q.d;
@@ -162,285 +119,6 @@ __device__ inline Scratch carve_scratch(const Params& q) {
   x.tok = x.cand_i + g * q.ctas;
   x.done = x.tok + g;
   return x;
-}
-
-// Grid-wide barrier on a counter and a generation word in global memory
-// (iscr[0], iscr[1]); safe because the cooperative launch makes every CTA
-// co-resident. The counter starts at 0 and is 0 again after every barrier.
-// Thread 0 fences for the CTA after __syncthreads (fences are cumulative)
-// and spins on the generation word.
-__device__ __forceinline__ void grid_sync(const Params& q) {
-  int* bar = q.iscr;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    volatile int* gen = bar + 1;
-    const int g = *gen;
-    __threadfence();
-    if (atomicAdd(bar, 1) == q.ctas - 1) {
-      atomicExch(bar, 0);
-      __threadfence();
-      atomicAdd(bar + 1, 1);
-    } else {
-      while (*gen == g) {
-      }
-    }
-    __threadfence();
-  }
-  __syncthreads();
-}
-
-// 16 bytes of features as floats: 4 f32 or 8 bf16 (upcast exactly), read
-// evict-first, so that the stream does not push the scratch out of L2
-__device__ __forceinline__ void load16(const float* p, float (&v)[4]) {
-  const float4 a = __ldcs(reinterpret_cast<const float4*>(p));
-  v[0] = a.x;
-  v[1] = a.y;
-  v[2] = a.z;
-  v[3] = a.w;
-}
-__device__ __forceinline__ void load16(const __nv_bfloat16* p,
-                                       float (&v)[8]) {
-  const uint4 raw = __ldcs(reinterpret_cast<const uint4*>(p));
-  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
-#pragma unroll
-  for (int m = 0; m < 4; ++m) {
-    const float2 f =
-        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[m]));
-    v[2 * m] = f.x;
-    v[2 * m + 1] = f.y;
-  }
-}
-
-// (v, i) beats (best, best_i): larger value, or lower index on equal values
-__device__ __forceinline__ bool beats(float v, int i, float best,
-                                      int best_i) {
-  return v > best || (v == best && i < best_i);
-}
-
-__device__ __forceinline__ void warp_best(float& v, int& i) {
-  for (int o = 16; o > 0; o >>= 1) {
-    const float ov = __shfl_xor_sync(0xffffffffu, v, o);
-    const int oi = __shfl_xor_sync(0xffffffffu, i, o);
-    if (beats(ov, oi, v, i)) {
-      v = ov;
-      i = oi;
-    }
-  }
-}
-
-template <bool kMax>
-__device__ float block_reduce(float v, float* red) {
-  v = kMax ? warp_max(v) : warp_sum(v);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  float r = red[0];
-  for (int i = 1; i < kWarps; ++i) r = kMax ? fmaxf(r, red[i]) : r + red[i];
-  __syncthreads();
-  return r;
-}
-
-// Load the CTA's weight slices into shared memory (once per launch).
-__device__ void load_slices(const Params& q, const Smem& s) {
-  const StepDims& d = q.d;
-  const int tid = threadIdx.x;
-  const long nc = (long)d.A + d.D + q.vocab;
-  const long c0 = (long)blockIdx.x * nc / q.ctas;
-  const int width = (int)((long)(blockIdx.x + 1) * nc / q.ctas - c0);
-#pragma unroll 4
-  for (int x = tid; x < d.H * q.h_cols; x += kThreads) {
-    const int i = x / q.h_cols;
-    const int c = x % q.h_cols;
-    const long gc = c0 + c;
-    float v = 0.0f;
-    if (c < width) {
-      if (gc < d.A) v = q.w.w_dec[(size_t)i * d.A + gc];
-      else if (gc < d.A + d.D) v = q.w.w_fb[(size_t)i * d.D + (gc - d.A)];
-      else v = q.w_out[(size_t)i * q.vocab + (gc - d.A - d.D)];
-    }
-    s.wh[x] = v;
-  }
-  for (int c = tid; c < q.h_cols; c += kThreads) {
-    const long gc = c0 + c;
-    float v = 0.0f;
-    if (c < width) {
-      if (gc < d.A) v = q.w.b_dec[gc];
-      else if (gc < d.A + d.D) v = q.w.b_fb[gc - d.A];
-      else v = q.b_out[gc - d.A - d.D];
-    }
-    s.bh[c] = v;
-  }
-  const int len = d.E + d.D + d.H;
-  const int G = 4 * d.H;
-  const int groups = (d.H + q.units - 1) / q.units;  // as in gates_phase
-#pragma unroll 4
-  for (int x = tid; x < q.units * len * 4; x += kThreads) {
-    const int i = x % len;
-    const int g = (x / len) & 3;
-    const int j = blockIdx.x % groups * q.units + x / len / 4;
-    float v = 0.0f;
-    if (j < d.H) {
-      const int col = g * d.H + j;
-      if (i < d.E) v = q.w.w_ih_e[(size_t)i * G + col];
-      else if (i < d.E + d.D) v = q.w.w_ih_c[(size_t)(i - d.E) * G + col];
-      else v = q.w.w_hh[(size_t)(i - d.E - d.D) * G + col];
-    }
-    s.wg[x] = v;
-  }
-  for (int x = tid; x < 4 * q.units; x += kThreads) {
-    const int j = blockIdx.x % groups * q.units + x / 4;
-    s.bg[x] = j < d.H ? q.w.b_lstm[(x & 3) * d.H + j] : 0.0f;
-  }
-  for (int a = tid; a < d.A; a += kThreads) s.wfull[a] = q.w.w_full[a];
-}
-
-// Phase H: the h-products of h_in [bsz, H] for every row, tile by tile.
-// Writes dec and gp for the next step and, with `logits`, each row's best
-// (value, index) over the CTA's logit columns into cand_v/cand_i[:, cta].
-// A thread takes kHRows rows x 4 columns, 4 steps of H at a time; when the
-// tile has fewer such items than the CTA has threads, S adjacent lanes
-// split the H sum of an item and meet by shuffles in a fixed order.
-__device__ void hproducts_phase(const Params& q, const Smem& s,
-                                const Scratch& x, const float* h_in,
-                                int bsz, bool logits) {
-  const StepDims& d = q.d;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const long nc = (long)d.A + d.D + q.vocab;
-  const long c0 = (long)blockIdx.x * nc / q.ctas;
-  const int width = (int)((long)(blockIdx.x + 1) * nc / q.ctas - c0);
-  const int ncg = q.h_cols / 4;
-  const int ldh = d.H + 4;  // padded rows of the h tile
-  const float4* wh4 = reinterpret_cast<const float4*>(s.wh);
-  for (int r0 = 0; r0 < bsz; r0 += q.h_rows) {
-    const int rt = min(q.h_rows, bsz - r0);
-    const int rt4 = (rt + kHRows - 1) / kHRows * kHRows;
-    // coalesced 16-byte loads into padded rows
-    const int n4 = rt4 * d.H / 4;
-#pragma unroll 4
-    for (int y = tid; y < n4; y += kThreads) {
-      const int rr = y / (d.H / 4);
-      *reinterpret_cast<float4*>(s.ht + rr * ldh + 4 * (y % (d.H / 4))) =
-          rr < rt ? __ldcg(reinterpret_cast<const float4*>(
-                        h_in + (size_t)(r0 + rr) * d.H) + y % (d.H / 4))
-                  : make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-    __syncthreads();
-    const int items = (rt4 / kHRows) * ncg;
-    int S = 1;
-    while (S < 32 && 2 * S * items <= kThreads && 8 * S <= d.H) S *= 2;
-    for (int z0 = 0; z0 < items * S; z0 += kThreads) {
-      const int z = z0 + tid;
-      const int item = z / S;
-      const int part = z % S;
-      const bool active = item < items;
-      const int rg = active ? item / ncg : 0;
-      const int cg = active ? item % ncg : 0;
-      float acc[kHRows][4];
-#pragma unroll
-      for (int a = 0; a < kHRows; ++a)
-        acc[a][0] = acc[a][1] = acc[a][2] = acc[a][3] = 0.0f;
-      if (active) {
-        const float* hrow = s.ht + kHRows * rg * ldh;
-#pragma unroll 2
-        for (int i = 4 * part; i < d.H; i += 4 * S) {
-          float4 w[4];
-#pragma unroll
-          for (int m = 0; m < 4; ++m) w[m] = wh4[(i + m) * ncg + cg];
-#pragma unroll
-          for (int a = 0; a < kHRows; ++a) {
-            const float4 h4 =
-                *reinterpret_cast<const float4*>(hrow + a * ldh + i);
-            const float hv[4] = {h4.x, h4.y, h4.z, h4.w};
-#pragma unroll
-            for (int m = 0; m < 4; ++m) {  // one FMA per product
-              acc[a][0] = fmaf(hv[m], w[m].x, acc[a][0]);
-              acc[a][1] = fmaf(hv[m], w[m].y, acc[a][1]);
-              acc[a][2] = fmaf(hv[m], w[m].z, acc[a][2]);
-              acc[a][3] = fmaf(hv[m], w[m].w, acc[a][3]);
-            }
-          }
-        }
-      }
-      for (int o = S / 2; o > 0; o >>= 1) {
-#pragma unroll
-        for (int a = 0; a < kHRows; ++a)
-#pragma unroll
-          for (int b = 0; b < 4; ++b)
-            acc[a][b] += __shfl_xor_sync(0xffffffffu, acc[a][b], o);
-      }
-      if (!active || part != 0) continue;
-      float best[kHRows];
-      int best_i[kHRows];
-#pragma unroll
-      for (int a = 0; a < kHRows; ++a) {
-        best[a] = -INFINITY;
-        best_i[a] = INT_MAX;
-      }
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const int c = 4 * cg + b;
-        if (c >= width) break;
-        const long gc = c0 + c;
-        const float bias = s.bh[c];
-        if (gc < d.A) {
-#pragma unroll
-          for (int a = 0; a < kHRows; ++a) {
-            const int r = kHRows * rg + a;
-            if (r < rt) x.dec[(size_t)(r0 + r) * d.A + gc] = acc[a][b] + bias;
-          }
-        } else if (gc < d.A + d.D) {
-          const int j = (int)(gc - d.A);
-#pragma unroll
-          for (int a = 0; a < kHRows; ++a) {
-            const int r = kHRows * rg + a;
-            if (r < rt) x.gp[(size_t)(r0 + r) * d.D + j] = acc[a][b] + bias;
-          }
-        } else if (logits) {
-          const int v = (int)(gc - d.A - d.D);
-          // columns in increasing order: a strict > keeps the lowest index
-#pragma unroll
-          for (int a = 0; a < kHRows; ++a) {
-            const float val = acc[a][b] + bias;
-            if (val > best[a] || best_i[a] == INT_MAX) {
-              best[a] = val;
-              best_i[a] = v;
-            }
-          }
-        }
-      }
-      if (logits) {
-#pragma unroll
-        for (int a = 0; a < kHRows; ++a) {
-          s.cv[(kHRows * rg + a) * ncg + cg] = best[a];
-          s.ci[(kHRows * rg + a) * ncg + cg] = best_i[a];
-        }
-      }
-    }
-    __syncthreads();
-    if (logits) {
-      for (int rr = warp; rr < rt; rr += kWarps) {
-        float v = -INFINITY;
-        int vi = INT_MAX;
-        for (int cg = lane; cg < ncg; cg += 32) {
-          const float cv = s.cv[rr * ncg + cg];
-          const int ci = s.ci[rr * ncg + cg];
-          if (beats(cv, ci, v, vi)) {
-            v = cv;
-            vi = ci;
-          }
-        }
-        warp_best(v, vi);
-        if (lane == 0) {
-          x.cand_v[(size_t)(r0 + rr) * q.ctas + blockIdx.x] = v;
-          x.cand_i[(size_t)(r0 + rr) * q.ctas + blockIdx.x] = vi;
-        }
-      }
-      __syncthreads();
-    }
-  }
 }
 
 // The token of step t for the CTA's rows (r % ctas == cta): the best of the
@@ -611,151 +289,6 @@ __device__ void attention_phase(const Params& q, const Smem& s,
   }
 }
 
-// Rows of one gate-product segment for every unit the CTA owns:
-// acc[u][k][g] += x_k[i] w[u][g][i] for i in [lo, hi), a lane taking 4
-// adjacent i: one 16-byte load per row, and one per unit and gate plane
-// (adjacent lanes on adjacent 16 bytes: no bank conflict).
-__device__ __forceinline__ void gate_segment(
-    const float* __restrict__ wg, int len, int units, int lo, int hi,
-    int lane, const float* const (&src)[kGRows], int rows,
-    float (&acc)[kGUnits][kGRows][4]) {
-#pragma unroll 2
-  for (int i = lo + 4 * lane; i < hi; i += 128) {
-    float4 xv[kGRows];
-#pragma unroll
-    for (int k = 0; k < kGRows; ++k)
-      xv[k] = k < rows ? __ldcg(reinterpret_cast<const float4*>(src[k] + i - lo))
-                       : make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-    for (int u = 0; u < kGUnits; ++u) {
-      if (u >= units) break;
-#pragma unroll
-      for (int g = 0; g < 4; ++g) {
-        const float4 w =
-            *reinterpret_cast<const float4*>(wg + (u * 4 + g) * len + i);
-#pragma unroll
-        for (int k = 0; k < kGRows; ++k) {  // one FMA per product
-          float a = fmaf(xv[k].x, w.x, acc[u][k][g]);
-          a = fmaf(xv[k].y, w.y, a);
-          a = fmaf(xv[k].z, w.z, a);
-          acc[u][k][g] = fmaf(xv[k].w, w.w, a);
-        }
-      }
-    }
-  }
-}
-
-// Phase G: the gates of the CTA's hidden units for its part of the rows,
-// then the LSTM tail. CTA p takes the units of group p % groups (units
-// per CTA, groups = ceil(H / units)) for rows part p / groups of
-// max(1, ctas / groups) parts, so each row's input [emb | gated | h] is
-// read by `groups` CTAs. A warp takes kGRows rows over a slice of the
-// input (in the order gated, h, emb, so the token load is in flight under
-// the first two) for all the units at once; with few rows, several warps
-// share a row group and their partial sums are added in warp order.
-__device__ void gates_phase(const Params& q, const Smem& s,
-                            const Scratch& x, const float* h_in,
-                            const float* c_in, float* h_out, int bsz) {
-  const StepDims& d = q.d;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int len = d.E + d.D + d.H;
-  const int groups = (d.H + q.units - 1) / q.units;
-  const int parts = max(1, q.ctas / groups);
-  if ((int)blockIdx.x >= groups * parts) return;  // the whole CTA
-  const int j0 = (blockIdx.x % groups) * q.units;
-  const int nu = min(q.units, d.H - j0);
-  const int part = blockIdx.x / groups;
-  const int r_lo = part * bsz / parts;
-  const int nrows = (part + 1) * bsz / parts - r_lo;
-  const int ng = (nrows + kGRows - 1) / kGRows;
-  const int wpg = max(1, kWarps / max(ng, 1));           // warps per group
-  const int gpp = kWarps / wpg;                          // groups per pass
-  const int seg = ((len + wpg - 1) / wpg + 3) / 4 * 4;  // slice per warp
-  for (int base = 0; base < ng; base += gpp) {
-    // the tail's threads, one per (row, unit) of the pass, fetch c now, so
-    // the loads overlap the products
-    const int ty = tid < gpp * kGRows * nu ? tid : -1;
-    const int tu = tid % nu;
-    const int tk = tid / nu;  // row of the pass: group tk / kGRows
-    const int trow = (base + tk / kGRows) * kGRows + tk % kGRows;
-    const bool tail = ty >= 0 && base + tk / kGRows < ng && trow < nrows;
-    const float c_prev =
-        tail ? __ldcg(c_in + (size_t)(r_lo + trow) * d.H + j0 + tu) : 0.0f;
-    const int gi = base + warp / wpg;
-    if (warp < gpp * wpg && gi < ng) {
-      const int i0 = (warp % wpg) * seg;
-      const int i1 = min(len, i0 + seg);
-      const int rows = min(kGRows, nrows - gi * kGRows);  // the real ones
-      int row[kGRows], tok[kGRows];
-      const float* src[kGRows];
-#pragma unroll
-      for (int k = 0; k < kGRows; ++k) {
-        row[k] = r_lo + min(gi * kGRows + k, nrows - 1);
-        tok[k] = __ldcg(x.tok + row[k]);
-      }
-      float acc[kGUnits][kGRows][4];
-#pragma unroll
-      for (int u = 0; u < kGUnits; ++u)
-#pragma unroll
-        for (int k = 0; k < kGRows; ++k)
-          acc[u][k][0] = acc[u][k][1] = acc[u][k][2] = acc[u][k][3] = 0.0f;
-      int lo = max(i0, d.E), hi = min(i1, d.E + d.D);
-#pragma unroll
-      for (int k = 0; k < kGRows; ++k)
-        src[k] = x.gated + (size_t)row[k] * d.D + (lo - d.E);
-      if (lo < hi) gate_segment(s.wg, len, nu, lo, hi, lane, src, rows, acc);
-      lo = max(i0, d.E + d.D);
-      hi = i1;
-#pragma unroll
-      for (int k = 0; k < kGRows; ++k)
-        src[k] = h_in + (size_t)row[k] * d.H + (lo - d.E - d.D);
-      if (lo < hi) gate_segment(s.wg, len, nu, lo, hi, lane, src, rows, acc);
-      lo = i0;
-      hi = min(i1, d.E);
-#pragma unroll
-      for (int k = 0; k < kGRows; ++k)
-        src[k] = q.embed + (size_t)tok[k] * d.E + lo;
-      if (lo < hi) gate_segment(s.wg, len, nu, lo, hi, lane, src, rows, acc);
-#pragma unroll
-      for (int u = 0; u < kGUnits; ++u) {
-        if (u >= nu) break;
-#pragma unroll
-        for (int k = 0; k < kGRows; ++k)
-#pragma unroll
-          for (int g = 0; g < 4; ++g) {
-            const float v = warp_sum(acc[u][k][g]);
-            if (lane == 0)
-              s.part[((warp * kGUnits + u) * kGRows + k) * 4 + g] = v;
-          }
-      }
-    }
-    __syncthreads();
-    if (tail) {
-      const int gl = tk / kGRows;
-      float gate[4];
-#pragma unroll
-      for (int g = 0; g < 4; ++g) {
-        float acc = 0.0f;
-        for (int sl = 0; sl < wpg; ++sl)
-          acc += s.part[(((gl * wpg + sl) * kGUnits + tu) * kGRows +
-                         tk % kGRows) * 4 + g];
-        gate[g] = acc + s.bg[4 * tu + g];
-      }
-      const float ig = sigmoid_f32(gate[0]);
-      const float fg = sigmoid_f32(gate[1]);
-      const float gg = tanhf(gate[2]);
-      const float og = sigmoid_f32(gate[3]);
-      const float c_new = fg * c_prev + ig * gg;
-      const size_t at = (size_t)(r_lo + trow) * d.H + j0 + tu;
-      x.c[at] = c_new;
-      h_out[at] = og * tanhf(c_new);
-    }
-    __syncthreads();
-  }
-}
-
 template <typename FT>
 __global__ void __launch_bounds__(kThreads, 1)
 greedy_tiled_kernel(const Params q) {
@@ -772,7 +305,8 @@ greedy_tiled_kernel(const Params q) {
     x.done[r] = 0;
   }
   __syncthreads();  // load_slices' writes, before the first tile
-  hproducts_phase(q, s, x, q.h0, bsz, false);
+  const HOut out{x.dec, x.gp, x.cand_v, x.cand_i, nullptr};
+  hproducts_phase<false>(q, s, out, q.h0, bsz, false);
   grid_sync(q);
   for (int t = 0; t < q.max_length; ++t) {
     if (t > 0) resolve_rows(q, x, bsz, q.tokens, t - 1);
@@ -792,9 +326,10 @@ greedy_tiled_kernel(const Params q) {
     const float* h_in = t == 0 ? q.h0 : x.h + (size_t)((t - 1) & 1) * bsz * d.H;
     const float* c_in = t == 0 ? q.c0 : x.c;
     float* h_out = x.h + (size_t)(t & 1) * bsz * d.H;
-    gates_phase(q, s, x, h_in, c_in, h_out, bsz);
+    gates_phase<false>(q, s, x.gated, x.tok, nullptr, h_in, c_in, h_out, x.c,
+                       bsz);
     grid_sync(q);
-    hproducts_phase(q, s, x, h_out, bsz, true);
+    hproducts_phase<false>(q, s, out, h_out, bsz, true);
     grid_sync(q);
   }
   resolve_rows(q, x, bsz, q.tokens, q.max_length - 1);
@@ -837,13 +372,14 @@ int max_ctas(int smem) {
 }
 
 }  // namespace greedy
+}  // namespace seq
 }  // namespace dcap
 
 // The number of CTAs that can be co-resident at `smem` bytes of dynamic
 // shared memory (blocks per SM x SMs), or minus a cudaError_t.
 extern "C" int dcap_greedy_max_ctas(int feat_bf16, int smem) {
-  return feat_bf16 ? dcap::greedy::max_ctas<__nv_bfloat16>(smem)
-                   : dcap::greedy::max_ctas<float>(smem);
+  return feat_bf16 ? dcap::seq::greedy::max_ctas<__nv_bfloat16>(smem)
+                   : dcap::seq::greedy::max_ctas<float>(smem);
 }
 
 extern "C" int dcap_greedy_decode(
@@ -856,7 +392,7 @@ extern "C" int dcap_greedy_decode(
     int* iscr, int batch, int k, int d, int a, int e, int hdim, int vocab,
     int max_length, int start_id, int end_id, int ctas, int h_cols,
     int units, int a_chunk, int h_rows, int smem, void* stream) {
-  dcap::greedy::Params q;
+  dcap::seq::greedy::Params q;
   q.feat = feat;
   q.proj = proj;
   q.h0 = h0;
@@ -882,7 +418,7 @@ extern "C" int dcap_greedy_decode(
   q.h_rows = h_rows;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      feat_bf16 ? dcap::greedy::launch<__nv_bfloat16>(q, smem, st)
-                : dcap::greedy::launch<float>(q, smem, st);
+      feat_bf16 ? dcap::seq::greedy::launch<__nv_bfloat16>(q, smem, st)
+                : dcap::seq::greedy::launch<float>(q, smem, st);
   return static_cast<int>(err);
 }

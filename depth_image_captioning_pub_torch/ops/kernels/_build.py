@@ -26,7 +26,7 @@ PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC = PKG_DIR / "csrc"
 SOURCES = ("decode_step.cu", "decode_seq.cu", "vit_attention.cu",
            "nic_seq.cu", "beam_seq.cu")
-HEADERS = ("decode_step.cuh",)
+HEADERS = ("decode_step.cuh", "decode_phases.cuh")
 BUILD_ROOT = PKG_DIR.parent / "build" / "dcap_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -41,7 +41,8 @@ _SIGNATURES = {
     "dcap_greedy_max_ctas": [_I, _I],
     "dcap_vit_attention": [_P] * 4 + [_I] * 5 + [ctypes.c_float, _P],
     "dcap_nic_greedy_decode": [_P] * 17 + [_I] * 6 + [_P],
-    "dcap_beam_decode": [_P, _I] + [_P] * 20 + [_I] * 11 + [_P],
+    "dcap_beam_decode": [_P, _I] + [_P] * 22 + [_I] * 17 + [_P],
+    "dcap_beam_max_ctas": [_I] * 3,
 }
 
 _lock = threading.Lock()

@@ -10,23 +10,28 @@ whose state is gathered from their parents. The search stops once every
 beam is finished; the records of the skipped steps are <end> with identity
 parents, which is what running them would give.
 
-``fused_beam_decode`` launches ``csrc/beam_seq.cu`` (one CTA per image with
-all W of its beams, the whole search in one launch, W = 2..5) for CUDA
-tensors and ``fused_beam_decode_plain`` for CPU tensors. Both return the
-per-step records (``BeamSeqOutputs``); ``reconstruct_history`` and
-``select_best`` turn them into the best caption, in plain PyTorch.
+``fused_beam_decode`` launches ``csrc/beam_seq.cu`` for CUDA tensors: the
+whole search (W = 2..5) in one cooperative launch of one CTA per SM on the
+greedy kernel's phases (``csrc/decode_phases.cuh``), each CTA holding a
+column slice of the weights in shared memory for the whole launch, the
+beams' reorder a row map (``plan_beam`` sizes it; ``LAST_PLAN`` is the plan
+of the last launch). CPU tensors run ``fused_beam_decode_plain``. Both
+return the per-step records (``BeamSeqOutputs``); ``reconstruct_history``
+and ``select_best`` turn them into the best caption, in plain PyTorch.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from depth_image_captioning_pub_torch.ops import decode
 from depth_image_captioning_pub_torch.ops.kernels import _build
 from depth_image_captioning_pub_torch.ops.kernels.decode_seq import (
-    DecodeSeqWeights)
+    A_MIN, G_UNITS, SMEM_LIMIT, THREADS, TWO_UNITS_FROM,
+    DecodeSeqWeights, _sm_count)
 from depth_image_captioning_pub_torch.ops.kernels.decode_step import (
     FEATURE_DTYPES, check_float32, check_same_device, check_shape,
     check_step_weights, cuda_pointers, plain_step_params)
@@ -35,8 +40,12 @@ from depth_image_captioning_pub_torch.ops.lstm import lstm_cell
 LAUNCHES = 0   # kernel launches of dcap_beam_decode in this process
 
 BEAM_SIZES = (2, 3, 4, 5)        # the widths csrc/beam_seq.cu is built for
-THREADS = 512                    # kBeamThreads of csrc/beam_seq.cu
-SMEM_LIMIT = 232448              # bytes of shared memory a block may use
+STATIC_SMEM = 1024   # bytes kept free for the kernel's static shared arrays
+BEAM_H_ROWS = 4      # kBeamHRows: the h tile's rows are a multiple of it
+H_TILE_MAX = 128     # most rows of an h tile (the threads' fill sets it)
+# The rest of the envelope is the greedy kernel's (threads, units by rows,
+# attention items of at least A_MIN feature columns): the beam kernel runs
+# its phases.
 
 
 class BeamSeqOutputs(NamedTuple):
@@ -45,11 +54,117 @@ class BeamSeqOutputs(NamedTuple):
     scores: torch.Tensor    # [B, W] f32: final cumulative log-probs
 
 
-def smem_bytes(k: int, d: int, a: int, e: int, h: int, beam: int) -> int:
-    """The kernel's dynamic shared memory (``beam_smem_floats``)."""
-    floats = (beam * (2 * h + e + a + k + 2 * d + 4 * h)
-              + THREADS // 32 * beam + beam * 4 * THREADS)
-    return 4 * floats
+class BeamPlan(NamedTuple):
+    """How ``csrc/beam_seq.cu`` splits the search over ``ctas`` CTAs."""
+
+    ctas: int
+    rows: int         # beam rows R = B * W
+    h_slices: Tuple[Tuple[int, int], ...]  # per CTA: [c0, c1) of the
+    #                       h-product columns [W_dec | W_fb | W_out]
+    h_cols: int       # the widest slice, padded to a multiple of 4
+    units: int        # hidden units per CTA of the gate products
+    g_groups: int     # unit groups: CTA p takes group p % g_groups ...
+    g_parts: int      # ... for row part p // g_groups of g_parts
+    a_chunk: int      # feature columns per attention item (image, chunk)
+    h_rows: int       # rows of h per h-product tile
+    smem_bytes: int
+    scratch_floats: int
+    scratch_ints: int
+
+
+LAST_PLAN: Optional[BeamPlan] = None   # the plan of the last launch
+
+
+def smem_floats(k: int, d: int, a: int, e: int, h: int, beam: int,
+                h_cols: int, units: int, h_rows: int) -> int:
+    """Shared memory of one CTA in floats (``smem_floats`` of the .cu)."""
+    return (h * h_cols + units * (e + d + h) * 4 + h_rows * (h + 4)
+            + 2 * THREADS * beam + a + beam * a + h_cols + 4 * units
+            + 2 * h_rows * (h_cols // 4) + beam * k)
+
+
+@functools.lru_cache(maxsize=256)
+def plan_beam(bsz: int, beam: int, k: int, d: int, a: int, e: int, h: int,
+              v: int, ctas: int) -> BeamPlan:
+    """Split the beam search of ``bsz`` images x ``beam`` beams over
+    ``ctas`` CTAs.
+
+    As the greedy kernel's ``plan`` over the R = bsz * beam beam rows: CTA
+    p holds columns [p*N/ctas, (p+1)*N/ctas) of the N = A + D + V
+    h-product columns and the gate weights of ``units`` hidden units (two
+    from ``TWO_UNITS_FROM`` rows on, else one, where they fit), for the
+    rows of part p // g_groups. Attention items are (image, chunk of
+    ``a_chunk`` feature columns), about ``ctas`` of them in all, each for
+    the image's W beams. The h-product row tile holds as many rows as give
+    each thread one item of BEAM_H_ROWS rows x 4 columns (at most
+    ``H_TILE_MAX``), and shrinks until the CTA fits in 227 KB of shared
+    memory less ``STATIC_SMEM``; raises ValueError when even the smallest
+    does not.
+    """
+    if min(bsz, k, d, a, e, h, v, ctas) < 1:
+        raise ValueError(f"beam kernel needs positive sizes, got B={bsz} "
+                         f"K={k} D={d} A={a} E={e} H={h} V={v} "
+                         f"ctas={ctas}")
+    if beam not in BEAM_SIZES:
+        raise ValueError(f"the beam kernel is built for beam sizes "
+                         f"{BEAM_SIZES}, got {beam}")
+    if d % 8 or e % 8 or h % 8 or a % 4:
+        raise ValueError(f"the beam kernel reads 16 or 32 bytes at a time: "
+                         f"D={d}, E={e} and H={h} must be multiples of 8, "
+                         f"A={a} a multiple of 4")
+    rows = bsz * beam
+    n = a + d + v
+    h_slices = tuple((p * n // ctas, (p + 1) * n // ctas)
+                     for p in range(ctas))
+    h_cols = -(-max(c1 - c0 for c0, c1 in h_slices) // 4) * 4
+    least = -(-h // ctas)       # every unit needs a CTA
+    if least > G_UNITS:
+        raise ValueError(f"beam kernel: H={h} hidden units over {ctas} "
+                         f"CTAs needs {least} units per CTA, above the "
+                         f"{G_UNITS} a CTA can hold")
+    choices = [u for u in ((2, 1) if rows >= TWO_UNITS_FROM else (1, 2))
+               if u >= least]
+    chunks = max(1, min(ctas // bsz, d // A_MIN))
+    a_chunk = min(d, (-(-d // chunks) + 7) // 8 * 8)
+    # an h tile of as many rows as give every thread a (rows x 4 columns)
+    # item: the beam kernel has 5x the greedy kernel's rows to spread
+    fill = max(1, THREADS // (h_cols // 4)) * BEAM_H_ROWS
+    tile = -(-min(rows, H_TILE_MAX, fill) // BEAM_H_ROWS) * BEAM_H_ROWS
+    limit = SMEM_LIMIT - STATIC_SMEM
+
+    def need_bytes(u, t):
+        return 4 * smem_floats(k, d, a, e, h, beam, h_cols, u, t)
+
+    fits = [u for u in choices if need_bytes(u, tile) <= limit]
+    units = fits[0] if fits else choices[-1]
+    while need_bytes(units, tile) > limit and tile > BEAM_H_ROWS:
+        tile -= BEAM_H_ROWS
+    need = need_bytes(units, tile)
+    if need > limit:
+        raise ValueError(
+            f"beam kernel at W={beam} K={k} D={d} A={a} E={e} H={h} V={v} "
+            f"over {ctas} CTAs needs {need} bytes of shared memory per CTA "
+            f"({units} hidden unit(s) of {e + d + h} x 4 gate weights, "
+            f"{h_cols} h-product columns of {h}), above the {limit} bytes "
+            f"a block may use beside its static arrays")
+    groups = -(-h // units)
+    cands = bsz * max(1, min(ctas // bsz, v)) * beam   # T1's top-W per item
+    return BeamPlan(
+        ctas=ctas, rows=rows, h_slices=h_slices, h_cols=h_cols, units=units,
+        g_groups=groups, g_parts=max(1, ctas // groups), a_chunk=a_chunk,
+        h_rows=tile, smem_bytes=need,
+        scratch_floats=rows * (2 * d + a + 4 * h + 2 * ctas) + cands,
+        scratch_ints=2 + 3 * rows + cands)
+
+
+@functools.lru_cache(maxsize=64)
+def _max_ctas(index: int, bf16: int, beam: int, smem: int) -> int:
+    """CTAs of the W=``beam`` kernel that can be co-resident on the current
+    card ``index`` at ``smem`` bytes of shared memory each."""
+    fits = _build.load().dcap_beam_max_ctas(bf16, beam, smem)
+    if fits < 0:
+        _build.check_launch(-fits, "dcap_beam_max_ctas")
+    return fits
 
 
 def fused_beam_decode_plain(features, features_proj, h0, c0,
@@ -107,7 +222,7 @@ def fused_beam_decode(features: torch.Tensor, features_proj: torch.Tensor,
     [B,H] float32, all per image (the search tiles the beams itself). CPU
     tensors run the plain version; CUDA tensors launch the kernel or raise.
     """
-    global LAUNCHES
+    global LAUNCHES, LAST_PLAN
     if features.dim() != 3 or features.shape[0] < 1:
         raise ValueError(f"features must be [B>=1, K, D], got "
                          f"{tuple(features.shape)}")
@@ -146,29 +261,41 @@ def fused_beam_decode(features: torch.Tensor, features_proj: torch.Tensor,
     if beam_size not in BEAM_SIZES:
         raise ValueError(f"the beam kernel is built for beam sizes "
                          f"{BEAM_SIZES}, got {beam_size}")
-    need = smem_bytes(k, d, a, e, hdim, beam_size)
-    if need > SMEM_LIMIT:
-        raise ValueError(f"beam_size={beam_size} at K={k}, D={d}, A={a}, "
-                         f"E={e}, H={hdim} needs {need} bytes of shared "
-                         f"memory per block, more than {SMEM_LIMIT}")
     ptrs = cuda_pointers([("features", features)] + named)
+    for name, t in (("features", features), ("features_proj", features_proj),
+                    ("h0", h0), ("embed", w.embed)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
     lib = _build.load()
+    bf16 = int(features.dtype == torch.bfloat16)
     dev = features.device
-    logits = torch.empty((bsz, beam_size, vocab), dtype=torch.float32,
-                         device=dev)
-    tokens = torch.empty((bsz, beam_size, max_length), dtype=torch.int32,
-                         device=dev)
-    parents = torch.empty_like(tokens)
-    scores = torch.empty((bsz, beam_size), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
+        index = torch.cuda.current_device()
+        p = plan_beam(bsz, beam_size, k, d, a, e, hdim, vocab,
+                      _sm_count(index))
+        while (fits := _max_ctas(index, bf16, beam_size,
+                                 p.smem_bytes)) < p.ctas:
+            p = plan_beam(bsz, beam_size, k, d, a, e, hdim, vocab, fits)
+        logits = torch.empty((bsz, beam_size, vocab), dtype=torch.float32,
+                             device=dev)
+        tokens = torch.empty((bsz, beam_size, max_length), dtype=torch.int32,
+                             device=dev)
+        parents = torch.empty_like(tokens)
+        scores = torch.empty((bsz, beam_size), dtype=torch.float32,
+                             device=dev)
+        fscr = torch.empty((p.scratch_floats,), dtype=torch.float32,
+                           device=dev)
+        iscr = torch.empty((p.scratch_ints,), dtype=torch.int32, device=dev)
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.dcap_beam_decode(
-            ptrs[0], int(features.dtype == torch.bfloat16), *ptrs[1:],
-            logits.data_ptr(), tokens.data_ptr(), parents.data_ptr(),
-            scores.data_ptr(), bsz, k, d, a, e, hdim, vocab, beam_size,
-            max_length, start_id, end_id, stream)
+            ptrs[0], bf16, *ptrs[1:], logits.data_ptr(), tokens.data_ptr(),
+            parents.data_ptr(), scores.data_ptr(), fscr.data_ptr(),
+            iscr.data_ptr(), bsz, k, d, a, e, hdim, vocab, beam_size,
+            max_length, start_id, end_id, p.ctas, p.h_cols, p.units,
+            p.a_chunk, p.h_rows, p.smem_bytes, stream)
     _build.check_launch(err, "dcap_beam_decode")
     LAUNCHES += 1
+    LAST_PLAN = p
     return BeamSeqOutputs(tokens, parents, scores)
 
 

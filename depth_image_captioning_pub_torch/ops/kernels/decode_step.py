@@ -11,9 +11,8 @@ Counterpart of the JAX ``ops/pallas/decode_step.py``. One step computes
   h',c'  = LSTM tail                                [B, H]
 
 ``fused_decode_core`` launches ``csrc/decode_step.cu`` (one CTA per image
-row; the step itself is the device function in ``csrc/decode_step.cuh``,
-which the beam-search kernel of ``beam_seq`` also runs) for CUDA
-tensors and ``fused_decode_core_plain`` for CPU tensors. Features may be
+row; the step itself is the device function in ``csrc/decode_step.cuh``)
+for CUDA tensors and ``fused_decode_core_plain`` for CPU tensors. Features may be
 float32 or bfloat16 (upcast exactly as they are read); everything else is
 float32, and alpha comes back float32.
 """

@@ -243,8 +243,8 @@ def test_beam_kernel_wrapper_checks():
     with pytest.raises(TypeError, match="float32"):
         beam_seq.fused_beam_decode(f.double(), proj, state.h, state.c, w,
                                    beam_size=3)
-    assert beam_seq.smem_bytes(196, 2048, 128, 128, 128, 5) <= \
-        beam_seq.SMEM_LIMIT
+    plan = beam_seq.plan_beam(64, 5, 196, 2048, 128, 128, 128, 9956, 132)
+    assert plan.smem_bytes <= beam_seq.SMEM_LIMIT - beam_seq.STATIC_SMEM
 
 
 # ---- base-soft beam captioning end to end ----------------------------------

@@ -14,8 +14,8 @@ near-tie argmax may flip and the flip cascades along its row) and are
 equal when the <end> bias ends every row at step 0; two calls of the
 greedy kernel give bit-identical tokens (fixed sum orders). The same holds for the
 NIC greedy kernel (K3; exact when one token's bias is raised by 100) and
-for the beam kernel (K4): best tokens agree on >= 99% and the final scores
-within 1e-3 (log-probabilities summed over up to 30 steps, each from sums
+for the beam kernel (K4): best tokens and (token, parent) records agree on
+>= 99% and the final scores within 1e-3 (log-probabilities summed over up to 30 steps, each from sums
 in another order); records are exact when <end> is forced and when a
 zeroed vocab head makes every token tie (the tie order alone decides). ViT attention (K5):
 in f32, atol 1e-5 (sums in another order); in bf16 (the tensor-core
@@ -368,7 +368,8 @@ def test_nic_kernel_rejects_bad_input(cuda):
 
 BEAM_SHAPES = {"B1": (1,) + SHAPES["main"][1:],
                "odd": (5, 49, 64, 32, 24, 32, 41),       # odd B and V
-               "main": (64,) + SHAPES["main"][1:]}
+               "main": (64,) + SHAPES["main"][1:],
+               "concat": (16,) + SHAPES["concat"][1:]}   # mdepth-* D=2080
 
 
 def _beam_inputs(shape, dev, seed, storage=torch.bfloat16):
@@ -454,8 +455,130 @@ def test_beam_kernel_rejects_outside_envelope(cuda):
         _run_beam(beam_seq.fused_beam_decode, f, proj.cpu(), state, w, 3)
     with pytest.raises(TypeError, match="float32"):
         _run_beam(beam_seq.fused_beam_decode, f.half(), proj, state, w, 3)
-    # D=8192: the beams' context and gate rows alone need 320 KB
-    dec, f, proj, state = _beam_inputs((1, 4, 8192, 8, 8, 8, 16), cuda, 1)
+    # D=16384: one hidden unit's gate weights alone need 264 KB
+    dec, f, proj, state = _beam_inputs((1, 4, 16384, 8, 8, 8, 16), cuda, 1)
     with pytest.raises(ValueError, match="shared memory"):
         _run_beam(beam_seq.fused_beam_decode, f, proj, state,
                   dec.seq_weights(), 5)
+    dec, f, proj, state = _beam_inputs((2, 9, 60, 8, 8, 8, 16), cuda, 1)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        _run_beam(beam_seq.fused_beam_decode, f, proj, state,
+                  dec.seq_weights(), 3)
+
+
+def _beam_agrees(got, want):
+    """Best tokens and records agree on >= 99%, scores within 1e-3."""
+    best_got = beam_seq.select_best(got, END)[0]
+    best_want = beam_seq.select_best(want, END)[0]
+    assert (best_got == best_want).float().mean().item() >= 0.99
+    for g, x in ((got.tokens, want.tokens), (got.parents, want.parents)):
+        assert (g == x).float().mean().item() >= 0.99
+    torch.testing.assert_close(got.scores, want.scores, atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("bsz", [1, 5, 16, 64, 130])
+@pytest.mark.parametrize("beam", [2, 3, 4, 5])
+def test_beam_kernel_batch_sizes(cuda, bsz, beam):
+    """The persistent kernel from one image to more images than SMs."""
+    shape = (bsz,) + SHAPES["main"][1:]
+    dec, f, proj, state = _beam_inputs(shape, cuda, seed=bsz + beam)
+    with torch.inference_mode():
+        w = dec.seq_weights()
+        before = beam_seq.LAUNCHES
+        got = _run_beam(beam_seq.fused_beam_decode, f, proj, state, w, beam)
+        torch.cuda.synchronize()
+        assert beam_seq.LAUNCHES == before + 1
+        assert beam_seq.LAST_PLAN.rows == bsz * beam
+        want = _run_beam(beam_seq.fused_beam_decode_plain, f, proj, state, w,
+                         beam)
+    assert got.tokens.shape == want.tokens.shape == (bsz, beam, 30)
+    _beam_agrees(got, want)
+
+
+def _steps_per_image(out):
+    """The step after which each image's beams had all finished (the
+    records' replay), or the length when they never did."""
+    tok = out.tokens.cpu().numpy()
+    par = out.parents.cpu().numpy().astype(np.int64)
+    fin = np.zeros(tok.shape[:2], bool)
+    steps = np.full(tok.shape[0], tok.shape[2])
+    for t in range(tok.shape[2]):
+        fin = np.take_along_axis(fin, par[:, :, t], 1) | (tok[:, :, t] == END)
+        steps = np.where(fin.all(1) & (steps == tok.shape[2]), t + 1, steps)
+    return steps, tok, par
+
+
+def test_beam_kernel_images_end_at_different_steps(cuda):
+    """With <end>'s head column scaled and its bias raised, images finish
+    at different steps and all before the last, so the grid leaves the
+    loop early: every record after an image's last step is <end> with an
+    identity parent."""
+    dec, f, proj, state = _beam_inputs((64,) + SHAPES["main"][1:], cuda,
+                                       seed=5)
+    with torch.inference_mode():
+        dec.out_w[:, END] *= 10.0
+        dec.out_b[END] += 0.6
+        w = dec.seq_weights()
+        got = _run_beam(beam_seq.fused_beam_decode, f, proj, state, w, 3)
+        want = _run_beam(beam_seq.fused_beam_decode_plain, f, proj, state, w,
+                         3)
+    _beam_agrees(got, want)
+    steps, tok, par = _steps_per_image(got)
+    assert len(set(steps.tolist())) >= 2 and steps.max() < 30, steps
+    for b, t in enumerate(steps):
+        assert np.all(tok[b, :, t:] == END)
+        assert np.all(par[b, :, t:] == np.arange(3)[:, None])
+
+
+def test_beam_kernel_repeats_bit_identical(cuda):
+    """Fixed sum orders and no float atomics: two calls, the same records
+    and scores."""
+    dec, f, proj, state = _beam_inputs((64,) + SHAPES["main"][1:], cuda,
+                                       seed=6)
+    with torch.inference_mode():
+        w = dec.seq_weights()
+        first = _run_beam(beam_seq.fused_beam_decode, f, proj, state, w, 5)
+        again = _run_beam(beam_seq.fused_beam_decode, f, proj, state, w, 5)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+def test_beam_sample_ignores_tf32_flags(cuda):
+    """beam_sample pins TF32 off for its f32 products: with both flags on
+    first, the tokens and scores equal those of a call with them off."""
+    dec, feats = _decoder((16,) + SHAPES["main"][1:], cuda, seed=8)
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        got = dec.beam_sample(feats, 2, END, beam_size=5, max_length=30)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        want = dec.beam_sample(feats, 2, END, beam_size=5, max_length=30)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_depth_soft_beam_sample_on_card_matches_cpu(cuda):
+    """Depth-soft beam search: bf16 RGB and depth annotation vectors added
+    in bf16 (add fusion), K4 on the card against the same decoder's plain
+    path on the CPU."""
+    bsz, k, d, a, e, h, v = (8,) + SHAPES["main"][1:]
+    dec = AttentionDecoder(v, dim_attention=a, dim_embedding=e,
+                           dim_encoder=d, dim_decoder=h, fusion="add",
+                           device=cuda)
+    dec.reset_parameters(torch.Generator().manual_seed(9))
+    rng = np.random.default_rng(9)
+    rgb, depth = (torch.from_numpy(np.abs(rng.standard_normal(
+        (bsz, k, d))).astype(np.float32)).to(cuda, torch.bfloat16)
+        for _ in range(2))
+    before = beam_seq.LAUNCHES
+    got, got_s = dec.beam_sample(rgb, 2, END, depth, beam_size=5)
+    assert beam_seq.LAUNCHES == before + 1
+    want, want_s = dec.cpu().beam_sample(rgb.cpu(), 2, END, depth.cpu(),
+                                         beam_size=5)
+    assert (got.cpu() == want).float().mean().item() >= 0.99
+    torch.testing.assert_close(got_s.cpu(), want_s, atol=1e-3, rtol=0)

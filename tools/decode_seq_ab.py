@@ -62,7 +62,7 @@ OLD_ARGS = [_P, _I] + [_P] * 17 + [_I] * 10 + [_P]
 TRACE_PRELUDE = """\
 // SM-clock stamps, [1 + barriers, 2, ctas] int64 past the int scratch's
 // carve, then the marks, [barriers, 4, ctas]
-__device__ inline long long* trace_stamps(const Params& q) {
+__device__ inline long long* trace_stamps(const PhaseParams& q) {
   return reinterpret_cast<long long*>(
       q.iscr + ((2 + (long)q.batch * (q.ctas + 2) + 1) & ~1L));
 }
@@ -89,9 +89,9 @@ TRACE_INSERTS = (
      "  if (threadIdx.x == 0) {\n"
      "    trace_stamps(q)[blockIdx.x] = clock64();\n"
      "    t_slot = 0;\n  }\n"),
-    ("    const int items = (rt4 / kHRows) * ncg;",
+    ("    const int items = (rt4 / kHR) * ncg;",
      "    if (r0 == 0) TRACE_MARK(q, 0);\n"),
-    ("    if (logits) {\n      for (int rr = warp;",
+    ("    if (cands) {\n      for (int rr = warp;",
      "    if (r0 == 0) TRACE_MARK(q, 1);\n"),
     ("    for (int k0 = 0; k0 < d.K; k0 += kThreads / parts) {",
      "    if (item == blockIdx.x) TRACE_MARK(q, 0);\n"),
@@ -104,7 +104,8 @@ TRACE_INSERTS = (
     ("#pragma unroll\n      for (int u = 0; u < kGUnits; ++u) {\n"
      "        if (u >= nu) break;",
      "      if (warp == 0 && base == 0) TRACE_MARK(q, 3);\n"),
-    ("    if (tail) {", "    if (base == 0) TRACE_MARK(q, 0);\n"),
+    ("    if (tail) {\n      const int gl",
+     "    if (base == 0) TRACE_MARK(q, 0);\n"),
 )
 # The marks of each phase, in TRACE_MARK's numbering
 MARKS = {"set-up (slices, H on h0)": ("h staged", "products"),
@@ -112,6 +113,14 @@ MARKS = {"set-up (slices, H on h0)": ("h staged", "products"),
          "G gates": ("products", "warp 0: gated part", "warp 0: h part",
                      "warp 0: emb part"),
          "H h-products": ("h staged", "products")}
+
+
+def inline_phases(text):
+    """The source with decode_phases.cuh written in place of its include:
+    the phases, the constants and the trace anchors in one file."""
+    header = (CSRC / "decode_phases.cuh").read_text()
+    return text.replace('#include "decode_phases.cuh"\n',
+                        header.replace("#pragma once\n", ""), 1)
 
 
 def variant_source(text, values):
@@ -316,7 +325,7 @@ def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
-    text = SRC.read_text()
+    text = inline_phases(SRC.read_text())
     specs = [tuple(int(x) for x in v.split(",")) for v in args.variants]
     sources = [(f"t{t}_h{hr}_g{gr}", variant_source(text, (t, hr, gr)))
                for t, hr, gr in specs]
@@ -350,11 +359,11 @@ def main():
             want = fused_greedy_decode_plain(f, proj, h0, c0, w,
                                              max_length=MAX_LEN,
                                              start_id=START, end_id=END)
-            agree = {}
+            agree, toks = {}, {}
             for name, kern in kernels.items():
-                got, _ = kern(case)
+                toks[name], _ = kern(case)
                 torch.cuda.synchronize()
-                agree[name] = (got == want).float().mean().item()
+                agree[name] = (toks[name] == want).float().mean().item()
             times = {name: [] for name in kernels}
             order = list(kernels) + list(kernels)[::-1]
             for name in order + order:
@@ -368,13 +377,16 @@ def main():
             breakdown[bsz]["sm_mhz"] = mhz
         for name in kernels:
             ok = agree[name] >= 0.99
+            same = torch.equal(toks[name], toks[first])
             results.setdefault(name, {})[f"B={bsz}"] = {
                 "ms": min(times[name]), "ms_all": times[name],
-                "token_agreement": agree[name], "ok": ok}
+                "token_agreement": agree[name], "ok": ok,
+                "same_tokens_as_first": same}
             print(f"[ab] B={bsz} {name}: {min(times[name]):.4f} ms (runs "
                   f"{', '.join(f'{t:.4f}' for t in times[name])}); token "
-                  f"agreement {agree[name]:.4f} {'ok' if ok else 'WRONG'} "
-                  f"[{smi}]", flush=True)
+                  f"agreement {agree[name]:.4f} {'ok' if ok else 'WRONG'}; "
+                  f"tokens {'=' if same else '!='} {first}'s [{smi}]",
+                  flush=True)
         b = breakdown[bsz]
         print(f"[trace] B={bsz} ({first}, no <end>, SM clock {mhz:.0f} MHz): "
               + "; ".join(f"{k} {v['total']:.1f} us (" + ", ".join(
