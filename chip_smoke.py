@@ -55,9 +55,12 @@ the script exits non-zero:
    Phase 6 also times ``F.scaled_dot_product_attention`` on the same q and
    k/v sliced to n_valid, laid out [B, 12, N, 64]: a yardstick for K5's
    table row, not a path of the port.
-8. NIC greedy kernel (K3) vs its plain version at full width (B=64,
-   E=300, H=128, 2 layers, V=9956, 30 steps): token agreement >= 0.99, and
-   exact equality with one token's bias raised by 100;
+8. NIC greedy kernel (K3: one cooperative launch, one CTA per SM, on the
+   greedy kernel's phases) vs its plain version at full width (B = 1, 16
+   and 64, E=300, H=128, 2 layers, V=9956, 30 steps): token agreement >=
+   0.99, exact equality with one token's bias raised by 100, two calls
+   bit-identical, at each B; times, the bound, and in the log line the
+   launch's plan (``nic_seq.LAST_PLAN``) and ptxas' registers/spills;
 9. NIC path: ``CaptionPipeline`` over a seeded random-weight ``nic``
    captioner at full width (ResNet-152 bf16 at 224x224, V=9956, buckets
    1/16/64) answers requests of 1, 16 and 100 images; K3's counter grows by
@@ -87,8 +90,8 @@ version's, the least time the card could take for the same work
 operations over 67 TFLOP/s f32, or 989 TFLOP/s bf16 for K5, from this
 run's inputs) and the time of one PyTorch call computing the same function
 where there is one (``library_ms``: SDPA for K5; no single PyTorch call
-computes a whole decode loop, so K1-K4 have none); K2, K4 and K5 also
-carry ``ms_by_shape``. The last line is
+computes a whole decode loop, so K1-K4 have none); K2, K3, K4 and K5
+also carry ``ms_by_shape``. The last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -102,7 +105,7 @@ import numpy as np
 B, K, D, A, E, H = 64, 196, 2048, 128, 128, 128
 VOCAB = 9956
 MAX_LEN = 30
-SEQ_BATCHES = (1, 16, 64)   # K2 at the main path's chunk sizes
+SEQ_BATCHES = (1, 16, 64)   # K2, K3, K4 at the main path's chunk sizes
 STEP_ATOL = 1e-4
 MIN_AGREEMENT = 0.99
 SCORE_ATOL = 1e-3   # beam scores: 30 f32 log-softmax terms summed
@@ -802,6 +805,9 @@ def phase_depth_path(smi):
 
 
 def phase_nic_kernel(smi):
+    """K3 at B = 1, 16 and 64 (the main path's chunk sizes) against its
+    plain version: token agreement, exact with one token forced,
+    bit-identical repeats, times, the bound and the launch's plan."""
     import torch
     from depth_image_captioning_pub_torch.models.nic import NICDecoder
     from depth_image_captioning_pub_torch.ops.kernels import nic_seq
@@ -809,51 +815,74 @@ def phase_nic_kernel(smi):
     dec = NICDecoder(VOCAB, dim_embedding=NIC_E, dim_hidden=H,
                      num_layers=NIC_LAYERS, device=dev)
     dec.reset_parameters(torch.Generator().manual_seed(8))
-    x0 = torch.from_numpy(np.random.default_rng(8).standard_normal(
+    x64 = torch.from_numpy(np.random.default_rng(8).standard_normal(
         (B, NIC_E)).astype(np.float32)).to(dev)
-    with torch.inference_mode():
-        w = dec.seq_weights()
-
-        def run(fn, weights):
-            return fn(x0, weights, max_length=MAX_LEN)
-
-        got = run(nic_seq.fused_nic_greedy_decode, w)
-        torch.cuda.synchronize()
-        want = run(nic_seq.fused_nic_greedy_decode_plain, w)
-        agree = (got == want).float().mean().item()
-        distinct = len({tuple(r) for r in got.tolist()})
-        if agree < MIN_AGREEMENT:
-            raise RuntimeError(f"NIC token agreement {agree} < "
-                               f"{MIN_AGREEMENT}")
-        ms = cuda_ms(lambda: run(nic_seq.fused_nic_greedy_decode, w), 10)
-        plain_ms = cuda_ms(
-            lambda: run(nic_seq.fused_nic_greedy_decode_plain, w), 10)
-        b_out = w.b_out.clone()
-        b_out[0, 7] += 100.0
-        w_tok = w._replace(b_out=b_out)
-        got_tok = run(nic_seq.fused_nic_greedy_decode, w_tok)
-        torch.cuda.synchronize()
-        want_tok = run(nic_seq.fused_nic_greedy_decode_plain, w_tok)
-        err = (got_tok - want_tok).abs().max().item()
-        if err != 0 or not bool((got_tok == 7).all()):
-            raise RuntimeError("NIC kernel with one token forced differs "
-                               "from the plain version")
+    for line in ptxas_report("nic_greedy_kernel").values():
+        log("nic_seq", f"ptxas: {line}")
     layer_macs = sum((NIC_E if li == 0 else H) * 4 * H + H * 4 * H
                      for li in range(NIC_LAYERS))
-    rows = B * MAX_LEN
-    bound_ms, bound_by = bound(
-        nbytes(x0, *w.layer_mats, w.w_out, w.b_out, got) + rows * NIC_E * 4,
-        rows * 2 * (layer_macs + H * VOCAB), F32_FLOPS)
-    log("nic_seq", f"B={B} E={NIC_E} H={H} layers={NIC_LAYERS} V={VOCAB} "
-        f"L={MAX_LEN}: token agreement {agree:.4f} (min {MIN_AGREEMENT}), "
-        f"{distinct} distinct rows; one-token-forced run exact; kernel "
-        f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
-        f"({bound_by}) [{smi}]; source {NIC_SRC}, replaces {NIC_TPU}")
+    by_shape, tok_err = {}, 0.0
+    for bsz in SEQ_BATCHES:
+        x0 = x64[:bsz].contiguous()
+        with torch.inference_mode():
+            w = dec.seq_weights()
+
+            def run(fn, weights):
+                return fn(x0, weights, max_length=MAX_LEN)
+
+            got = run(nic_seq.fused_nic_greedy_decode, w)
+            torch.cuda.synchronize()
+            plan = nic_seq.LAST_PLAN      # the plan of that launch
+            again = run(nic_seq.fused_nic_greedy_decode, w)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise RuntimeError(f"two NIC kernel calls differ at B={bsz}")
+            want = run(nic_seq.fused_nic_greedy_decode_plain, w)
+            agree = (got == want).float().mean().item()
+            distinct = len({tuple(r) for r in got.tolist()})
+            if agree < MIN_AGREEMENT:
+                raise RuntimeError(f"NIC token agreement {agree} < "
+                                   f"{MIN_AGREEMENT} at B={bsz}")
+            ms = cuda_ms(lambda: run(nic_seq.fused_nic_greedy_decode, w), 10)
+            plain_ms = cuda_ms(
+                lambda: run(nic_seq.fused_nic_greedy_decode_plain, w), 10)
+            b_out = w.b_out.clone()
+            b_out[0, 7] += 100.0
+            w_tok = w._replace(b_out=b_out)
+            got_tok = run(nic_seq.fused_nic_greedy_decode, w_tok)
+            torch.cuda.synchronize()
+            want_tok = run(nic_seq.fused_nic_greedy_decode_plain, w_tok)
+            err = (got_tok - want_tok).abs().max().item()
+            tok_err = max(tok_err, err)
+            if err != 0 or not bool((got_tok == 7).all()):
+                raise RuntimeError(f"NIC kernel with one token forced "
+                                   f"differs from the plain version at "
+                                   f"B={bsz}")
+        rows = bsz * MAX_LEN
+        bound_ms, bound_by = bound(
+            nbytes(x0, *w.layer_mats, w.w_out, w.b_out, got)
+            + rows * NIC_E * 4, rows * 2 * (layer_macs + H * VOCAB),
+            F32_FLOPS)
+        by_shape[f"B={bsz}"] = {
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "token_agreement": agree}
+        log("nic_seq", f"B={bsz} E={NIC_E} H={H} layers={NIC_LAYERS} "
+            f"V={VOCAB} L={MAX_LEN}: token agreement {agree:.4f} (min "
+            f"{MIN_AGREEMENT}), {distinct} distinct rows; one-token-forced "
+            f"run exact; two calls bit-identical; kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}); one "
+            f"cooperative launch of {plan.ctas} CTAs x {nic_seq.THREADS} "
+            f"threads, {plan.smem_bytes} B shared memory each "
+            f"({plan.h_cols} head columns, {plan.units} hidden unit(s) per "
+            f"layer, h tile {plan.h_rows} rows) [{smi}]")
+    main = by_shape[f"B={B}"]
+    log("nic_seq", f"source {NIC_SRC}, replaces {NIC_TPU}")
     return {"name": "nic_seq", "route": "cuda", "source": NIC_SRC,
-            "replaces": NIC_TPU, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None,
-            "token_agreement": agree}
+            "replaces": NIC_TPU, "max_abs_err": tok_err, "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": None,
+            "token_agreement": main["token_agreement"],
+            "ms_by_shape": by_shape}
 
 
 def phase_nic_path(smi):

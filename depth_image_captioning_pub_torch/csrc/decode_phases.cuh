@@ -1,7 +1,8 @@
 // The phases of the persistent whole-sequence decode kernels: the greedy
-// kernel (decode_seq.cu) and the beam-search kernel (beam_seq.cu) run them
-// in one cooperative launch of one CTA per SM, with grid-wide barriers
-// between them.
+// kernel (decode_seq.cu), the beam-search kernel (beam_seq.cu) and the NIC
+// greedy kernel (nic_seq.cu: its own slice loader and a gate phase per
+// LSTM layer on gate_segment) run them in one cooperative launch of one
+// CTA per SM, with grid-wide barriers between them.
 //
 // Each CTA loads, once per launch and straight from the weight tensors, a
 // column slice of two weight groups (load_slices):
@@ -20,6 +21,7 @@
 //   hproducts_phase  the h-products of h': dec and gp for the next step, and
 //                    the vocab columns as per-CTA (value, index) candidates
 //                    (greedy) or as full logits rows (beam search)
+//   best_candidate   a row's token from the CTAs' candidates
 //
 // A row map `src` (beam search) names the row whose h and c a row reads:
 // the beams' reorder is an indirection, not a copy. Without one a row reads
@@ -155,6 +157,40 @@ __device__ __forceinline__ void warp_best(float& v, int& i) {
       i = oi;
     }
   }
+}
+
+// Row r's best (value, index) over the CTAs' head candidates cand_v/cand_i
+// [rows, ctas], merged by one warp in a fixed order: every lane gets the
+// index, and every warp that merges the row gets the same one. A lane loads
+// up to 8 candidates before it compares, so the loads are in flight
+// together.
+__device__ __forceinline__ int best_candidate(const float* cand_v,
+                                              const int* cand_i, int ctas,
+                                              int r) {
+  constexpr int kPerLane = 8;
+  const int lane = threadIdx.x & 31;
+  float v = -INFINITY;
+  int vi = INT_MAX;
+  for (int p0 = 0; p0 < ctas; p0 += 32 * kPerLane) {
+    float cv[kPerLane];
+    int ci[kPerLane];
+#pragma unroll
+    for (int m = 0; m < kPerLane; ++m) {
+      const int p = p0 + 32 * m + lane;
+      const bool in = p < ctas;
+      cv[m] = in ? __ldcg(cand_v + (size_t)r * ctas + p) : -INFINITY;
+      ci[m] = in ? __ldcg(cand_i + (size_t)r * ctas + p) : INT_MAX;
+    }
+#pragma unroll
+    for (int m = 0; m < kPerLane; ++m) {
+      if (beats(cv[m], ci[m], v, vi)) {
+        v = cv[m];
+        vi = ci[m];
+      }
+    }
+  }
+  warp_best(v, vi);
+  return vi;
 }
 
 template <bool kMax>

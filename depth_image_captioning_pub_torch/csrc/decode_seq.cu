@@ -122,35 +122,13 @@ __device__ inline Scratch carve_scratch(const Params& q) {
 }
 
 // The token of step t for the CTA's rows (r % ctas == cta): the best of the
-// CTAs' candidates; a row that is done emits end_id. A lane loads up to 8
-// candidates before it compares, so the loads are in flight together.
+// CTAs' candidates (best_candidate); a row that is done emits end_id.
 __device__ void resolve_rows(const Params& q, const Scratch& x, int bsz,
                              int* tokens, int t) {
-  constexpr int kPerLane = 8;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   for (int r = blockIdx.x + warp * q.ctas; r < bsz; r += kWarps * q.ctas) {
-    float v = -INFINITY;
-    int vi = INT_MAX;
-    for (int p0 = 0; p0 < q.ctas; p0 += 32 * kPerLane) {
-      float cv[kPerLane];
-      int ci[kPerLane];
-#pragma unroll
-      for (int m = 0; m < kPerLane; ++m) {
-        const int p = p0 + 32 * m + lane;
-        const bool in = p < q.ctas;
-        cv[m] = in ? __ldcg(x.cand_v + (size_t)r * q.ctas + p) : -INFINITY;
-        ci[m] = in ? __ldcg(x.cand_i + (size_t)r * q.ctas + p) : INT_MAX;
-      }
-#pragma unroll
-      for (int m = 0; m < kPerLane; ++m) {
-        if (beats(cv[m], ci[m], v, vi)) {
-          v = cv[m];
-          vi = ci[m];
-        }
-      }
-    }
-    warp_best(v, vi);
+    int vi = best_candidate(x.cand_v, x.cand_i, q.ctas, r);
     if (lane == 0) {
       int tok = vi;
       if (q.end_id >= 0) {

@@ -40,7 +40,8 @@ _SIGNATURES = {
     "dcap_greedy_decode": [_P, _I] + [_P] * 19 + [_I] * 16 + [_P],
     "dcap_greedy_max_ctas": [_I, _I],
     "dcap_vit_attention": [_P] * 4 + [_I] * 5 + [ctypes.c_float, _P],
-    "dcap_nic_greedy_decode": [_P] * 17 + [_I] * 6 + [_P],
+    "dcap_nic_greedy_decode": [_P] * 19 + [_I] * 11 + [_P],
+    "dcap_nic_max_ctas": [_I],
     "dcap_beam_decode": [_P, _I] + [_P] * 22 + [_I] * 17 + [_P],
     "dcap_beam_max_ctas": [_I] * 3,
 }

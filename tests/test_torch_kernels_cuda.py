@@ -318,7 +318,11 @@ def test_vit_attention_rejects_outside_envelope(cuda):
 NIC_SHAPES = {"B1": (1, 300, 128, 2, 9956),      # B, E, H, layers, V
               "odd": (7, 37, 32, 2, 41),         # odd E and V
               "one_layer": (5, 24, 16, 1, 40),
-              "main": (64, 300, 128, 2, 9956)}
+              "main": (64, 300, 128, 2, 9956),
+              "B16": (16, 300, 128, 2, 9956),
+              "B130": (130, 300, 128, 2, 9956),  # more rows than CTAs
+              "four_layers": (16, 300, 128, 4, 9956),
+              "odd_h": (9, 30, 30, 3, 77)}       # E and H zero-padded
 
 
 def _nic(shape, dev, seed=0):
@@ -340,6 +344,10 @@ def test_nic_kernel_matches_plain(cuda, shape):
         got = nic_seq.fused_nic_greedy_decode(x0, w, max_length=30)
         torch.cuda.synchronize()
         assert nic_seq.LAUNCHES == before + 1
+        # one CTA per SM, all co-resident
+        plan = nic_seq.LAST_PLAN
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        assert plan.ctas == min(sms, nic_seq._max_ctas(0, plan.smem_bytes))
         want = nic_seq.fused_nic_greedy_decode_plain(x0, w, max_length=30)
         assert got.dtype == torch.int32 and got.shape == want.shape
         assert (got == want).float().mean().item() >= 0.99
@@ -350,6 +358,43 @@ def test_nic_kernel_matches_plain(cuda, shape):
         want = nic_seq.fused_nic_greedy_decode_plain(x0, w_tok,
                                                      max_length=30)
     assert torch.equal(got, want) and bool((got == 3).all())
+
+
+def test_nic_kernel_repeats_bit_identical(cuda):
+    """Fixed sum orders and no float atomics: two calls, the same tokens."""
+    dec, x0 = _nic(NIC_SHAPES["main"], cuda, seed=6)
+    with torch.inference_mode():
+        w = dec.seq_weights()
+        first = nic_seq.fused_nic_greedy_decode(x0, w, max_length=30)
+        again = nic_seq.fused_nic_greedy_decode(x0, w, max_length=30)
+    assert torch.equal(first, again)
+
+
+def test_nic_greedy_sample_ignores_tf32_flags(cuda):
+    """With both TF32 flags on, NICDecoder.greedy_sample (the kernel) gives
+    the tokens of a call with them off, and agrees with the plain version
+    run with them off."""
+    dec, x0 = _nic(NIC_SHAPES["B16"], cuda, seed=7)
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        before = nic_seq.LAUNCHES
+        with torch.inference_mode():
+            got = dec.greedy_sample(x0, max_length=30)
+        assert nic_seq.LAUNCHES == before + 1
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        with torch.inference_mode():
+            want = dec.greedy_sample(x0, max_length=30)
+            plain = nic_seq.fused_nic_greedy_decode_plain(
+                x0, dec.seq_weights(), max_length=30)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+    assert torch.equal(got, want)
+    assert (got == plain).float().mean().item() >= 0.99
 
 
 def test_nic_kernel_rejects_bad_input(cuda):
