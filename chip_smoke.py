@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""GPU smoke run of the PyTorch port's four main paths: base-soft,
-depth-soft and NIC greedy captioning, and base-soft beam-5 captioning.
+"""GPU smoke run of the PyTorch port's five main paths: base-soft,
+depth-soft and NIC greedy captioning, base-soft beam-5 captioning and
+base-soft stochastic (nucleus) captioning.
 
 Run from the root of a checkout, on a machine with one CUDA card (written
 for an NVIDIA H100):
@@ -14,9 +15,15 @@ the script exits non-zero:
    off for matmuls and convolutions;
 2. build: the CUDA kernels from ``depth_image_captioning_pub_torch/csrc``
    with nvcc for sm_90a (ptxas register/spill report printed);
-3. decode_step kernel vs its plain version at full width (B=64, K=196,
-   D=2048 bf16 features, A=E=H=128): max abs error <= 1e-4 on h', c',
-   alpha (f32 sums in another order);
+3. decode_step kernel (K1: one cooperative launch, one CTA per SM, on the
+   shared decode phases) vs its plain version at full width (K=196,
+   D=2048, A=E=H=128) at B = 1, 16 and 64 with bf16 and f32 features: max
+   abs error <= 1e-4 on h', c', alpha (f32 sums in another order), two
+   calls bit-identical; times (bf16: the kernel's own, from launches
+   queued behind a spin kernel, and the rate of calls through the
+   wrapper, which the host sets) and the bound at each B, and in the log
+   line the launch's plan (``decode_step.LAST_PLAN``) and ptxas'
+   registers/spills;
 4. greedy decode kernel (K2: one cooperative launch, one CTA per SM,
    weights resident in shared memory) vs its plain version at B = 1, 16
    and 64 (V=9956, 30 steps, <end> set): token agreement >= 0.99 at each
@@ -79,19 +86,27 @@ the script exits non-zero:
    captioner at full width answers requests of 1, 16 and 64 images; K4's
    counter grows by one per chunk, K2's does not, no plain version runs;
    the 16-image request is compared with a run through the plain version.
+12. sampling path: ``CaptionPipeline(sample=True, temperature=1.0,
+   top_p=0.9, seed=0)`` over the base-soft captioner at full width answers
+   requests of 1, 16 and 64 images; K1's counter grows by ``max_length``
+   per chunk, K2's and K4's do not, no plain version runs; on the
+   16-image request's features the tokens through K1 are compared with a
+   run through the plain step on the same noise (agreement >= 0.99,
+   alphas' max abs error), and the top_k=1 draws with K2's greedy tokens
+   without <end> (>= 0.99); the time split of one chunk at each bucket
+   (encoder, set-up, K1 x 30, head + filter + draw x 30, the program).
 
-Each path (phases 5, 7, 9, 11) runs with every launch counter set to 0
-just before it and read just after. The line before the last is a JSON
+Each path (phases 5, 7, 9, 11, 12) runs with every launch counter set to
+0 just before it and read just after. The line before the last is a JSON
 object with the five ported kernels (K1 step, K2 greedy, K3 NIC greedy, K4
-beam, K5 ViT attention): launches per path (K1 has none: no path runs the
-per-step kernel), error, time beside the plain
+beam, K5 ViT attention): launches per path, error, time beside the plain
 version's, the least time the card could take for the same work
 (``bound_ms``: the larger of the bytes moved over 3.35 TB/s and the
 operations over 67 TFLOP/s f32, or 989 TFLOP/s bf16 for K5, from this
 run's inputs) and the time of one PyTorch call computing the same function
 where there is one (``library_ms``: SDPA for K5; no single PyTorch call
-computes a whole decode loop, so K1-K4 have none); K2, K3, K4 and K5
-also carry ``ms_by_shape``. The last line is
+computes a whole decode loop or step, so K1-K4 have none); every kernel
+also carries ``ms_by_shape``. The last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -105,7 +120,7 @@ import numpy as np
 B, K, D, A, E, H = 64, 196, 2048, 128, 128, 128
 VOCAB = 9956
 MAX_LEN = 30
-SEQ_BATCHES = (1, 16, 64)   # K2, K3, K4 at the main path's chunk sizes
+SEQ_BATCHES = (1, 16, 64)   # K1-K4 at the main path's chunk sizes
 STEP_ATOL = 1e-4
 MIN_AGREEMENT = 0.99
 SCORE_ATOL = 1e-3   # beam scores: 30 f32 log-softmax terms summed
@@ -127,7 +142,9 @@ BEAM = 5
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 F32_FLOPS = 67e12              # H100 SXM f32, CUDA cores (TF32 off)
 BF16_FLOPS = 989e12            # H100 SXM bf16 tensor cores, dense
-PATHS = ("base-soft", "depth-soft", "nic", "base-soft-beam5")
+PATHS = ("base-soft", "depth-soft", "nic", "base-soft-beam5",
+         "base-soft-sample")
+TOP_P = 0.9          # the sampling path's nucleus
 
 
 def log(phase, msg):
@@ -146,6 +163,30 @@ def cuda_ms(fn, iters):
         fn()
     stop.record()
     torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def queued_ms(fn, iters, spin_cycles=20_000_000):
+    """Mean device time of fn() over iters calls queued behind a spin
+    kernel (~10 ms), so that the card runs them back to back whatever the
+    host's launch rate: a short kernel's own time, where ``cuda_ms``
+    gives the rate at which the host can call it."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(spin_cycles)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    if host_ms > 0.8 * spin_cycles / 2.0e6:      # the spin at 2 GHz
+        raise RuntimeError(f"the host took {host_ms:.2f} ms to queue "
+                           f"{iters} calls: longer than the spin")
     return start.elapsed_time(stop) / iters
 
 
@@ -188,7 +229,8 @@ class PlainCalls:
     """Within the block, every plain version of the kernels counts its
     calls in ``calls`` (the wrappers look them up by module name)."""
 
-    NAMES = {"decode_seq": "fused_greedy_decode_plain",
+    NAMES = {"decode_step": "fused_decode_core_plain",
+             "decode_seq": "fused_greedy_decode_plain",
              "nic_seq": "fused_nic_greedy_decode_plain",
              "beam_seq": "fused_beam_decode_plain",
              "vit_attention": "fused_attention_plain"}
@@ -276,6 +318,9 @@ def phase_build():
 
 
 def phase_step(smi):
+    """K1 at B = 1, 16 and 64 (the sampling path's chunk sizes) against
+    its plain version, bf16 and f32 features: error, bit-identical
+    repeats, times, the bound and the launch's plan."""
     import torch
     from depth_image_captioning_pub_torch.models.initializers import (
         torch_linear_kernel)
@@ -290,34 +335,71 @@ def phase_step(smi):
     w = decode_step.pack_weights(u(H, A), u(A), u(A), u(1), u(H, D), u(D),
                                  u(E + D, 4 * H), u(H, 4 * H), u(4 * H),
                                  u(4 * H), dim_embedding=E)
-    feats = torch.from_numpy(np.abs(rng.standard_normal((B, K, D)))
-                             .astype(np.float32)).to(dev, torch.bfloat16)
-    proj = torch.from_numpy(rng.standard_normal((B, K, A)).astype(
+    feats64 = torch.from_numpy(np.abs(rng.standard_normal((B, K, D)))
+                               .astype(np.float32)).to(dev)
+    proj64 = torch.from_numpy(rng.standard_normal((B, K, A)).astype(
         np.float32) * 0.5).to(dev)
-    emb, h, c = (torch.from_numpy(rng.standard_normal((B, n)).astype(
+    emb64, h64, c64 = (torch.from_numpy(rng.standard_normal((B, n)).astype(
         np.float32) * 0.5).to(dev) for n in (E, H, H))
-    args = (feats, proj, emb, h, c, w)
-    got = decode_step.fused_decode_core(*args)
-    torch.cuda.synchronize()
-    want = decode_step.fused_decode_core_plain(*args)
-    err = max((g - x).abs().max().item() for g, x in zip(got, want))
-    if not all(torch.isfinite(g).all() for g in got):
-        raise RuntimeError("decode_step kernel produced non-finite values")
-    if err > STEP_ATOL:
-        raise RuntimeError(f"decode_step max abs err {err} > {STEP_ATOL}")
-    ms = cuda_ms(lambda: decode_step.fused_decode_core(*args), 50)
-    plain_ms = cuda_ms(lambda: decode_step.fused_decode_core_plain(*args),
-                       50)
-    bound_ms, bound_by = bound(nbytes(feats, proj, emb, h, c, *w, *got),
-                               B * step_flops(K, D, A, E, H), F32_FLOPS)
-    log("decode_step", f"B={B} K={K} D={D} bf16 A=E=H={H}: max abs err "
-        f"{err:.3e} (tol {STEP_ATOL}); kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) [{smi}]; "
-        f"source {STEP_SRC}, replaces {STEP_TPU}")
+    for args, line in ptxas_report("step_kernel").items():
+        log("decode_step", f"ptxas, "
+            f"{'bf16' if 'bfloat16' in args else 'f32'} features: {line}")
+    by_shape, worst = {}, 0.0
+    for bsz in SEQ_BATCHES:
+        rows = [t[:bsz].contiguous() for t in (proj64, emb64, h64, c64)]
+        errs = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            feats = feats64[:bsz].to(dtype).contiguous()
+            args = (feats, *rows, w)
+            got = decode_step.fused_decode_core(*args)
+            torch.cuda.synchronize()
+            plan = decode_step.LAST_PLAN      # the plan of that launch
+            again = decode_step.fused_decode_core(*args)
+            torch.cuda.synchronize()
+            if not all(torch.equal(g, a) for g, a in zip(got, again)):
+                raise RuntimeError(f"two decode_step calls differ at "
+                                   f"B={bsz}")
+            want = decode_step.fused_decode_core_plain(*args)
+            if not all(torch.isfinite(g).all() for g in got):
+                raise RuntimeError("decode_step kernel produced non-finite "
+                                   "values")
+            err = max((g - x).abs().max().item() for g, x in zip(got, want))
+            if err > STEP_ATOL:
+                raise RuntimeError(f"decode_step max abs err {err} > "
+                                   f"{STEP_ATOL} at B={bsz}, {dtype}")
+            errs[dtype] = err
+            worst = max(worst, err)
+        # times on the path's bf16 features: the kernel's own (queued
+        # launches) and the wrapper's call rate
+        ms = queued_ms(lambda: decode_step.fused_decode_core(*args), 50)
+        call_ms = cuda_ms(lambda: decode_step.fused_decode_core(*args), 50)
+        plain_ms = cuda_ms(
+            lambda: decode_step.fused_decode_core_plain(*args), 50)
+        bound_ms, bound_by = bound(nbytes(*args[:5], *w, *got),
+                                   bsz * step_flops(K, D, A, E, H),
+                                   F32_FLOPS)
+        by_shape[f"B={bsz}"] = {
+            "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "max_abs_err": max(errs.values())}
+        log("decode_step", f"B={bsz} K={K} D={D} A=E=H={H}: max abs err "
+            f"bf16 {errs[torch.bfloat16]:.3e}, f32 "
+            f"{errs[torch.float32]:.3e} (tol {STEP_ATOL}); two calls "
+            f"bit-identical; kernel {ms:.4f} ms (launches queued; "
+            f"{call_ms:.4f} ms a call through the wrapper), plain "
+            f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) "
+            f"(bf16); one cooperative "
+            f"launch of {plan.ctas} CTAs x {decode_step.THREADS} threads, "
+            f"{plan.smem_bytes} B shared memory each ({plan.h_cols} "
+            f"h-product columns, {plan.units} hidden unit(s), h tile "
+            f"{plan.h_rows} rows, attention chunk {plan.a_chunk}) [{smi}]")
+    main = by_shape[f"B={B}"]
+    log("decode_step", f"source {STEP_SRC}, replaces {STEP_TPU}")
     return {"name": "decode_step", "route": "cuda", "source": STEP_SRC,
-            "replaces": STEP_TPU, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None}
+            "replaces": STEP_TPU, "max_abs_err": worst, "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "library_ms": None,
+            "ms_by_shape": by_shape}
 
 
 def phase_seq(smi):
@@ -1121,11 +1203,127 @@ def phase_beam_path(smi, cap):
     return launches
 
 
+def phase_sample_path(smi, cap):
+    """The base-soft captioner with nucleus sampling: requests of 1, 16
+    and 64 images through the pipeline, K1's launches, the kernel loop
+    against the plain step on the same noise, top_k=1 against K2, and one
+    chunk's time split at each bucket."""
+    import torch
+    from depth_image_captioning_pub_torch.cli import (
+        SPECIAL, placeholder_vocab)
+    from depth_image_captioning_pub_torch.engine.evaluate import (
+        make_caption_fn)
+    from depth_image_captioning_pub_torch.models import decoder as dec_mod
+    from depth_image_captioning_pub_torch.ops.attention import (
+        project_features)
+    from depth_image_captioning_pub_torch.ops.decode import (
+        filtered_logits, gumbel_argmax, gumbel_noise)
+    from depth_image_captioning_pub_torch.ops.image_ops import (
+        imagenet_normalize, to_unit_float)
+    from depth_image_captioning_pub_torch.ops.kernels import decode_step
+    from depth_image_captioning_pub_torch.pipeline import CaptionPipeline
+    dev = torch.device("cuda")
+    w2i, i2w = placeholder_vocab(VOCAB)
+    start_id = w2i[SPECIAL.start]
+    sampling = {"temperature": 1.0, "top_k": 0, "top_p": TOP_P}
+    pipe = CaptionPipeline(cap, w2i, i2w, max_length=MAX_LEN,
+                           batch_buckets=(1, 16, 64), sample=True, seed=0,
+                           temperature=1.0, top_p=TOP_P)
+    images = np.random.default_rng(12).integers(
+        0, 256, (81, 224, 224, 3), dtype=np.uint8)
+    requests = [images[:1], images[1:17], images[17:81]]
+    for size in (1, 16, 64):          # warm-up: one call per bucket
+        pipe.caption_tokens(images[:size])
+    outputs, launches = run_requests(pipe, requests, smi, "sample")
+    chunks = sum(-(-len(r) // pipe.batch_size) for r in requests)
+    want = dict.fromkeys(launches, 0)
+    want["decode_step"] = MAX_LEN * chunks
+    if launches != want:
+        raise RuntimeError(f"sampling launches {launches}, expected {want} "
+                           f"for {chunks} chunks")
+    distinct = len({tuple(r) for r in outputs[2].tolist()})
+
+    # the 16-image request's features: K1's loop against the plain step's
+    # on the same noise; top_k=1 against K2's greedy tokens
+    dec = cap.decoder
+    with torch.inference_mode():
+        x = torch.from_numpy(requests[1]).to(dev)
+        feats = cap.encoder(imagenet_normalize(to_unit_float(x)))
+        gen = torch.Generator(device=dev).manual_seed(12)
+        noise = [gumbel_noise((len(x), VOCAB), gen) for _ in range(MAX_LEN)]
+        kw = dict(sampling, max_length=MAX_LEN, noise=lambda t: noise[t])
+        got, alphas = dec.stochastic_sample(feats, start_id, None, **kw)
+        dec_mod.fused_decode_core = decode_step.fused_decode_core_plain
+        try:
+            ref, ref_alphas = dec.stochastic_sample(feats, start_id, None,
+                                                    **kw)
+        finally:
+            dec_mod.fused_decode_core = decode_step.fused_decode_core
+        top1, _ = dec.stochastic_sample(feats, start_id, gen,
+                                        max_length=MAX_LEN, top_k=1)
+        greedy = dec.greedy_sample(feats, start_id, max_length=MAX_LEN)
+    agree = (got == ref).float().mean().item()
+    # alphas agree while the rows' tokens do: compare up to a row's first
+    # differing token
+    same = (got == ref).int().cumprod(dim=1).bool()
+    alpha_err = ((alphas - ref_alphas).abs().amax(-1) * same).max().item()
+    agree1 = (top1 == greedy).float().mean().item()
+    if not (bool(torch.isfinite(alphas).all())
+            and (alphas.sum(-1) - 1).abs().max().item() < 1e-4):
+        raise RuntimeError("sampled alphas are not softmax rows")
+    log("sample", f"16-image request's features: K1 loop vs plain step on "
+        f"the same noise: token agreement {agree:.4f} (min "
+        f"{MIN_AGREEMENT}), alphas max abs err {alpha_err:.3e} over the "
+        f"steps before a row's first differing token; top_k=1 vs K2 greedy "
+        f"without <end>: {agree1:.4f}; {distinct} distinct captions of 64")
+    if min(agree, agree1) < MIN_AGREEMENT:
+        raise RuntimeError(f"sampling agreement {agree} / top_k=1 vs "
+                           f"greedy {agree1} < {MIN_AGREEMENT}")
+    for c in pipe(list(requests[1][:2])):
+        log("sample", f"caption: {c!r}")
+    log("sample", f"launches {launches} for {chunks} chunks; plain calls 0")
+
+    # time split of one chunk at each bucket, each stage timed alone
+    program = make_caption_fn(cap, start_id, MAX_LEN, sampling=sampling,
+                              generator=gen)
+    with torch.inference_mode():
+        for bsz in (1, 16, 64):
+            ev = Events()
+            x = torch.from_numpy(images[:bsz]).to(dev)
+            f = ev.ms("encoder", lambda: cap.encoder(
+                imagenet_normalize(to_unit_float(x))))
+
+            def setup():
+                proj = project_features(dec.att_params(), f,
+                                        compute_dtype=torch.float32)
+                return proj, dec.init_state(f), dec.seq_weights()
+
+            proj, state, w = ev.ms("decoder set-up", setup)
+            emb = w.embed[torch.full((bsz,), start_id, device=dev)]
+            ev.ms(f"K1 x{MAX_LEN}", lambda: [decode_step.fused_decode_core(
+                f, proj, emb, state.h, state.c, w.step)
+                for _ in range(MAX_LEN)])
+
+            def head():
+                tok = gumbel_argmax(filtered_logits(
+                    state.h @ w.w_out + w.b_out, **sampling),
+                    gumbel_noise((bsz, VOCAB), gen))
+                return w.embed[tok.long()]
+
+            ev.ms(f"head + filter + draw + embedding x{MAX_LEN}",
+                  lambda: [head() for _ in range(MAX_LEN)])
+            ev.ms("caption program", lambda: program(x))
+            log("sample", f"{bsz}-image chunk split (device ms, each stage "
+                "timed alone): " + ", ".join(
+                    f"{k} {v:.2f}" for k, v in ev.times.items())
+                + f" [{smi}]")
+    return launches
+
+
 def main():
     smi = phase_env()
     import torch
     phase_build()
-    # the step kernel is checked and timed, but no main path launches it
     step = phase_step(smi)
     seq = phase_seq(smi)
     base, base_cap = phase_main_path(smi)
@@ -1135,7 +1333,8 @@ def main():
     nic = phase_nic_path(smi)
     beam_k = phase_beam_kernel(smi)
     beam = phase_beam_path(smi, base_cap)
-    by_path = dict(zip(PATHS, (base, depth, nic, beam)))
+    sample = phase_sample_path(smi, base_cap)
+    by_path = dict(zip(PATHS, (base, depth, nic, beam, sample)))
     kernels = [step, seq, nic_k, beam_k, vit]
     for entry in kernels:
         counts = {path: c[entry["name"]] for path, c in by_path.items()}

@@ -3,12 +3,15 @@
     python -m depth_image_captioning_pub_torch.cli caption \\
         --images batch.npy [--kind depth-soft] [--weights params.npz] \\
         [--vocab word_to_id.pkl] [--device cpu] [--batch-buckets 1,16,64] \\
-        [--beam 5 [--length-penalty 0.7]]
+        [--beam 5 [--length-penalty 0.7]] \\
+        [--sample [--temperature 0.8] [--top-k 40] [--top-p 0.9]]
 
 ``--images`` is a uint8 ``.npy`` array [N, H, W, 3] (or [H, W, 3]);
 ``--random N`` captions N seeded random images instead. ``--kind`` is
 ``base-soft`` (default), ``depth-soft`` or ``nic``. ``--beam N`` (N > 1)
 captions with beam search, ranked by score / length**``--length-penalty``.
+``--sample`` draws captions from the filtered distribution
+(``--temperature``, ``--top-k``, ``--top-p``; ``--seed`` seeds the draws).
 It runs on the CUDA card; ``--device cpu`` runs the plain PyTorch versions
 of the kernels on the CPU instead. Weights come from an ``.npz``
 that ``utils/jax_bridge.load_npz`` reads (the JAX package's parameter
@@ -100,7 +103,10 @@ def build_pipeline(args: argparse.Namespace):
                            batch_buckets=args.batch_buckets,
                            image_hw=(args.image_size, args.image_size),
                            beam_size=args.beam,
-                           length_penalty=args.length_penalty)
+                           length_penalty=args.length_penalty,
+                           sample=args.sample, temperature=args.temperature,
+                           top_k=args.top_k, top_p=args.top_p,
+                           seed=args.seed)
 
 
 def caption(args: argparse.Namespace) -> List[str]:
@@ -142,6 +148,13 @@ def main(argv: Optional[List[str]] = None) -> None:
                    help="beam width; 1 (default) is greedy decode")
     c.add_argument("--length-penalty", type=float, default=0.0,
                    help="GNMT alpha for ranking beams (0: log-prob)")
+    c.add_argument("--sample", action="store_true",
+                   help="stochastic decoding instead of greedy argmax")
+    c.add_argument("--temperature", type=float, default=1.0)
+    c.add_argument("--top-k", type=int, default=0,
+                   help="keep the k most likely tokens (0 = off)")
+    c.add_argument("--top-p", type=float, default=1.0,
+                   help="nucleus mass to keep (1.0 = off)")
     args = p.parse_args(argv)
     for line in caption(args):
         sys.stdout.write(line + "\n")

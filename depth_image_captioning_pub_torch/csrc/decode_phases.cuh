@@ -1,14 +1,16 @@
-// The phases of the persistent whole-sequence decode kernels: the greedy
-// kernel (decode_seq.cu), the beam-search kernel (beam_seq.cu) and the NIC
-// greedy kernel (nic_seq.cu: its own slice loader and a gate phase per
-// LSTM layer on gate_segment) run them in one cooperative launch of one
-// CTA per SM, with grid-wide barriers between them.
+// The phases of the persistent decode kernels: the one-step kernel
+// (decode_step.cu), the greedy kernel (decode_seq.cu), the beam-search
+// kernel (beam_seq.cu) and the NIC greedy kernel (nic_seq.cu: its own
+// slice loader and a gate phase per LSTM layer on gate_segment) run them in
+// one cooperative launch of one CTA per SM, with grid-wide barriers between
+// them.
 //
 // Each CTA loads, once per launch and straight from the weight tensors, a
 // column slice of two weight groups (load_slices):
 //
 //   h-products     [W_dec | W_fb | W_out], H x (A + D + V), input h:
-//                  92 of the 12,132 columns per CTA at the main shape
+//                  92 of the 12,132 columns per CTA at the main shape (the
+//                  one-step kernel has no W_out: V = 0)
 //   gate products  [W_ih_e; W_ih_c; W_hh], E + D + H rows, input
 //                  [emb | gated | h]: the 4 columns (i, f, g, o) of 1 or 2
 //                  whole hidden units, so the LSTM tail stays in the CTA
@@ -16,6 +18,8 @@
 // and from then on reads each weight element from shared memory once per
 // step for all the rows it serves:
 //
+//   attention_phase  (row, D-chunk) items: scores, softmax, the gated
+//                    context (the greedy and the one-step kernel's)
 //   gates_phase      the gates of the CTA's hidden units for its part of the
 //                    rows, then the LSTM tail
 //   hproducts_phase  the h-products of h': dec and gp for the next step, and
@@ -258,6 +262,135 @@ __device__ inline void load_slices(const PhaseParams& q, const Smem& s) {
     s.bg[x] = j < d.H ? q.w.b_lstm[(x & 3) * d.H + j] : 0.0f;
   }
   for (int a = tid; a < d.A; a += kThreads) s.wfull[a] = q.w.w_full[a];
+}
+
+// Phase A: (row, D-chunk) items over the CTAs, on phase H's dec_in [B, A]
+// and gp_in [B, D]: each item computes its row's scores over K, an f32
+// softmax, the context over its chunk of D (features upcast exactly) and
+// gated = sigmoid(gp) * ctx into gated [B, D]. With alpha_out, the item of
+// each row's first chunk also writes the row's softmax weights [B, K].
+template <typename FT>
+__device__ void attention_phase(const PhaseParams& q, const Smem& s,
+                                const float* dec_in, const float* gp_in,
+                                float* gated, float* alpha_out,
+                                const FT* feat, const float* proj, int bsz) {
+  const StepDims& d = q.d;
+  const int tid = threadIdx.x;
+  const int chunks = (d.D + q.a_chunk - 1) / q.a_chunk;
+  const float b_full = q.w.b_full[0];
+  // scores: `parts` adjacent lanes per region, each over every parts-th
+  // float4 of A, summed by shuffles in a fixed order
+  int parts = 1;
+  while (parts < 32 && 2 * parts * d.K <= kThreads) parts *= 2;
+  const int a4 = d.A / 4;
+  const float4* dec4 = reinterpret_cast<const float4*>(s.dec);
+  const float4* wf4 = reinterpret_cast<const float4*>(s.wfull);
+  for (int item = blockIdx.x; item < bsz * chunks; item += q.ctas) {
+    const int r = item / chunks;
+    const int d0 = (item % chunks) * q.a_chunk;
+    const int wd = min(q.a_chunk, d.D - d0);
+    for (int a = tid; a < d.A; a += kThreads)
+      s.dec[a] = __ldcg(dec_in + (size_t)r * d.A + a);
+    __syncthreads();
+    for (int k0 = 0; k0 < d.K; k0 += kThreads / parts) {
+      const int k = k0 + tid / parts;
+      const int part = tid % parts;
+      float acc = 0.0f;
+      if (k < d.K) {
+        const float4* pk =
+            reinterpret_cast<const float4*>(proj + ((size_t)r * d.K + k) * d.A);
+#pragma unroll 8
+        for (int a = part; a < a4; a += parts) {
+          const float4 p = pk[a];
+          const float4 dv = dec4[a];
+          const float4 wv = wf4[a];
+          acc += fmaxf(p.x + dv.x, 0.0f) * wv.x;
+          acc += fmaxf(p.y + dv.y, 0.0f) * wv.y;
+          acc += fmaxf(p.z + dv.z, 0.0f) * wv.z;
+          acc += fmaxf(p.w + dv.w, 0.0f) * wv.w;
+        }
+      }
+      for (int o = parts / 2; o > 0; o >>= 1)
+        acc += __shfl_xor_sync(0xffffffffu, acc, o);
+      if (k < d.K && part == 0) s.alpha[k] = acc + b_full;
+    }
+    __syncthreads();
+    // softmax over K in f32
+    float m = -INFINITY;
+    for (int k = tid; k < d.K; k += kThreads) m = fmaxf(m, s.alpha[k]);
+    m = block_reduce<true>(m, s.red);
+    float sum = 0.0f;
+    for (int k = tid; k < d.K; k += kThreads) {
+      const float ex = expf(s.alpha[k] - m);
+      s.alpha[k] = ex;
+      sum += ex;
+    }
+    sum = block_reduce<false>(sum, s.red);
+    for (int k = tid; k < d.K; k += kThreads) {
+      const float al = s.alpha[k] / sum;
+      s.alpha[k] = al;
+      if (alpha_out != nullptr && d0 == 0)
+        alpha_out[(size_t)r * d.K + k] = al;
+    }
+    __syncthreads();
+    // ctx over the chunk: 16 bytes of adjacent columns per thread (kVec);
+    // with fewer column groups than threads, K is cut into slices whose
+    // partial sums meet in a fixed pairwise tree
+    constexpr int kVec = 16 / sizeof(FT);
+    const int groups = wd / kVec;
+    const int slices = groups >= kThreads ? 1 : kThreads / groups;
+    const int rows = (d.K + slices - 1) / slices;
+    const FT* fr = feat + (size_t)r * d.K * d.D + d0;
+    const float* gpr = gp_in + (size_t)r * d.D + d0;
+    float* out = gated + (size_t)r * d.D + d0;
+    for (int g = tid % groups, sl = tid / groups; sl < slices && g < groups;
+         g += (slices == 1 ? kThreads : groups)) {
+      const int k0 = slices == 1 ? 0 : sl * rows;
+      const int k1 = slices == 1 ? d.K : min(d.K, k0 + rows);
+      float acc[kVec];
+#pragma unroll
+      for (int c = 0; c < kVec; ++c) acc[c] = 0.0f;
+      const FT* col = fr + kVec * g;
+#pragma unroll 8
+      for (int k = k0; k < k1; ++k) {
+        const float al = s.alpha[k];
+        float f[kVec];
+        load16(col + (size_t)k * d.D, f);
+#pragma unroll
+        for (int c = 0; c < kVec; ++c) acc[c] += al * f[c];
+      }
+      if (slices == 1) {
+#pragma unroll
+        for (int c = 0; c < kVec; c += 4) {
+          const float4 gp =
+              __ldcg(reinterpret_cast<const float4*>(gpr + kVec * g + c));
+          *reinterpret_cast<float4*>(out + kVec * g + c) = make_float4(
+              sigmoid_f32(gp.x) * acc[c], sigmoid_f32(gp.y) * acc[c + 1],
+              sigmoid_f32(gp.z) * acc[c + 2], sigmoid_f32(gp.w) * acc[c + 3]);
+        }
+      } else {
+        float* dst = s.part + (size_t)sl * wd + kVec * g;
+#pragma unroll
+        for (int c = 0; c < kVec; c += 4)
+          *reinterpret_cast<float4*>(dst + c) =
+              make_float4(acc[c], acc[c + 1], acc[c + 2], acc[c + 3]);
+        break;  // a sliced thread owns one column group
+      }
+    }
+    if (slices > 1) {
+      __syncthreads();
+      for (int st = 1 << (31 - __clz(slices - 1)); st > 0; st >>= 1) {
+        for (int y = tid; y < st * wd; y += kThreads) {
+          const int sl = y / wd;
+          if (sl + st < slices) s.part[y] += s.part[y + st * wd];
+        }
+        __syncthreads();
+      }
+      for (int j = tid; j < wd; j += kThreads)
+        out[j] = sigmoid_f32(__ldcg(gpr + j)) * s.part[j];
+    }
+    __syncthreads();
+  }
 }
 
 // Phase H: the h-products of h_in [bsz, H] for every row, tile by tile.

@@ -1,13 +1,14 @@
 """Batched caption generation (counterpart of the JAX
-``engine/evaluate.py``): NIC, base-soft and depth-soft, greedy or beam
-search, on one device, no caches.
+``engine/evaluate.py``): NIC, base-soft and depth-soft, greedy, beam
+search or stochastic sampling, on one device, no caches.
 
 The hot path is ``make_caption_fn``: uint8 NHWC images -> /255 on the
 device, then (a) ImageNet normalization -> frozen RGB encoder and, for a
 depth kind, (b) ``depth_fn`` (the DPT: standardized depth maps) -> depth
 encoder; the decoder adds (b) to (a) and runs the whole-sequence greedy
-kernel or the whole-search beam kernel -> token IDs. NIC's encoder is the
-backbone, a global pool and the projection to the LSTM's input.
+kernel, the whole-search beam kernel or the sampling loop of one-step
+kernels -> token IDs. NIC's encoder is the backbone, a global pool and the
+projection to the LSTM's input.
 """
 
 from __future__ import annotations
@@ -28,7 +29,9 @@ from depth_image_captioning_pub_torch.ops.image_ops import (
 def make_caption_fn(cap: Captioner, start_id: int, max_length: int = 30,
                     depth_fn: Optional[Callable] = None,
                     end_id: Optional[int] = None, beam_size: int = 1,
-                    length_penalty: float = 0.0
+                    length_penalty: float = 0.0,
+                    sampling: Optional[Dict] = None,
+                    generator: Optional[torch.Generator] = None
                     ) -> Callable[[torch.Tensor], torch.Tensor]:
     """fn(images [B,H,W,3] uint8 on the captioner's device) -> tokens
     [B, max_length] int32 on that device. ``depth_fn`` (required by depth
@@ -39,12 +42,23 @@ def make_caption_fn(cap: Captioner, start_id: int, max_length: int = 30,
 
     ``beam_size > 1`` switches to batched beam search (it needs
     ``end_id``), ranked by score / length**``length_penalty``.
+
+    ``sampling`` ({"temperature", "top_k", "top_p"}, defaults 1.0, 0, 1.0)
+    switches to stochastic sampling (temperature / top-k / nucleus, always
+    ``max_length`` steps), drawing from ``generator``: each call advances
+    it, so calls give fresh captions, deterministic per its seed.
     """
     if beam_size > 1 and end_id is None:
         raise ValueError("beam search needs end_id (<end> token)")
+    if sampling is not None:
+        if beam_size > 1:
+            raise ValueError("stochastic sampling is a greedy-loop variant "
+                             "(no beam search)")
+        if generator is None:
+            raise ValueError("stochastic sampling needs a generator")
     encoder = cap.encoder_apply()
     depth_encoder = cap.depth_encoder_apply()
-    sample = cap.sample_apply()
+    sample = cap.sample_apply(sampling)
     if depth_encoder is not None and depth_fn is None:
         raise ValueError(f"{cap.spec.kind} needs depth_fn")
 
@@ -57,6 +71,8 @@ def make_caption_fn(cap: Captioner, start_id: int, max_length: int = 30,
                     feats, end_id, beam_size=beam_size,
                     max_length=max_length, length_penalty=length_penalty,
                     early_exit=True)[0]
+            if sampling is not None:
+                return sample(feats, generator, max_length=max_length)
             return sample(feats, max_length=max_length)
         return nic_caption_fn
 
@@ -71,6 +87,9 @@ def make_caption_fn(cap: Captioner, start_id: int, max_length: int = 30,
             return cap.decoder.beam_sample(
                 feats, start_id, end_id, dep, beam_size=beam_size,
                 max_length=max_length, length_penalty=length_penalty)[0]
+        if sampling is not None:
+            return sample(feats, start_id, generator, dep,
+                          max_length=max_length)[0]
         return sample(feats, start_id, dep, max_length=max_length,
                       end_id=end_id)
 

@@ -13,7 +13,8 @@ ported (ROADMAP.md).
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Sequence
+import functools
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
 import torch.nn as nn
@@ -164,11 +165,18 @@ class Captioner(nn.Module):
         for kinds without depth."""
         return self.depth_module
 
-    def sample_apply(self) -> Callable[..., torch.Tensor]:
+    def sample_apply(self, sampling: Optional[Dict] = None
+                     ) -> Callable[..., torch.Tensor]:
         """Greedy decode: (features, start_id, depth_features=None, *,
         max_length, end_id) -> tokens [B, L]; for NIC (features, *,
-        max_length) -> tokens [B, L]."""
-        return self.decoder.greedy_sample
+        max_length) -> tokens [B, L]. With ``sampling`` (``temperature``,
+        ``top_k``, ``top_p``) the stochastic sampler with those settings:
+        (features, start_id, generator, depth_features=None, *,
+        max_length) -> (tokens [B, L], alphas [B, L, K]); for NIC
+        (features, generator, *, max_length) -> tokens [B, L]."""
+        if sampling is None:
+            return self.decoder.greedy_sample
+        return functools.partial(self.decoder.stochastic_sample, **sampling)
 
 
 def build_captioner(kind: str, vocab_size: int,

@@ -10,14 +10,17 @@ bridge from the JAX parameter tree is a name-for-name copy and
 Greedy decode runs the whole-sequence kernel of
 ``ops/kernels/decode_seq.py`` (``csrc/decode_seq.cu`` on a CUDA device,
 its plain PyTorch version on the CPU), beam search the whole-search kernel
-of ``ops/kernels/beam_seq.py`` (``csrc/beam_seq.cu``). Encoder features may
-stay bf16 in device memory: the projection, the initial state and the
-kernels upcast them exactly, and all decoder arithmetic is f32.
+of ``ops/kernels/beam_seq.py`` (``csrc/beam_seq.cu``), and stochastic
+sampling a Python loop of one-step kernels (``ops/kernels/decode_step.py``,
+``csrc/decode_step.cu``), each followed by the vocab head, the filters and
+the draw of ``ops/decode.py``. Encoder features may stay bf16 in device
+memory: the projection, the initial state and the kernels upcast them
+exactly, and all decoder arithmetic is f32.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -26,12 +29,14 @@ from depth_image_captioning_pub_torch.models.initializers import (
     torch_bias, torch_linear_kernel, uniform_pm)
 from depth_image_captioning_pub_torch.ops.attention import (
     AttentionParams, project_features)
+from depth_image_captioning_pub_torch.ops.decode import (
+    filtered_logits, gumbel_argmax, gumbel_noise)
 from depth_image_captioning_pub_torch.ops.kernels.beam_seq import (
     fused_beam_decode, select_best)
 from depth_image_captioning_pub_torch.ops.kernels.decode_seq import (
     DecodeSeqWeights, fused_greedy_decode)
 from depth_image_captioning_pub_torch.ops.kernels.decode_step import (
-    pack_weights)
+    fused_decode_core, pack_weights)
 from depth_image_captioning_pub_torch.ops.precision import full_f32
 
 
@@ -148,6 +153,53 @@ class AttentionDecoder(nn.Module):
             features.contiguous(), proj, state.h, state.c,
             self.seq_weights(), max_length=max_length, start_id=start_id,
             end_id=-1 if end_id is None else end_id)
+
+    @torch.no_grad()
+    @full_f32()   # the f32 projection, h0/c0 and head products
+    def stochastic_sample(
+            self, features: torch.Tensor, start_id: int,
+            generator: Optional[torch.Generator],
+            depth_features: Optional[torch.Tensor] = None, *,
+            max_length: int = 30, temperature: float = 1.0, top_k: int = 0,
+            top_p: float = 1.0,
+            noise: Optional[Callable[[int], torch.Tensor]] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Batched temperature / top-k / nucleus sampling: (tokens [B,
+        max_length] int32, alphas [B, max_length, K] f32).
+
+        Set-up as ``greedy_sample``, then ``max_length`` steps (no early
+        exit, as the JAX scan), each: the embedding of the previous token,
+        one step kernel (``fused_decode_core``: h', c', alpha), the vocab
+        head, ``filtered_logits`` and a Gumbel-argmax draw. The noise of
+        step t is ``noise(t)`` [B, V] when given (the tests feed the JAX
+        package's draws), else drawn from ``generator``.
+        Deterministic per generator state; top_k=1 gives greedy argmax.
+        """
+        features = self.fuse(features, depth_features).contiguous()
+        proj = project_features(self.att_params(), features,
+                                compute_dtype=torch.float32)
+        h, c = self.init_state(features)
+        w = self.seq_weights()
+        bsz, k = features.shape[:2]
+        tokens = torch.empty((bsz, max_length), dtype=torch.int32,
+                             device=features.device)
+        alphas = torch.empty((bsz, max_length, k), dtype=torch.float32,
+                             device=features.device)
+        prev = torch.full((bsz,), start_id, dtype=torch.int64,
+                          device=features.device)
+        for t in range(max_length):
+            h, c, alpha = fused_decode_core(features, proj, w.embed[prev],
+                                            h, c, w.step)
+            filt = filtered_logits(h @ w.w_out + w.b_out,
+                                   temperature=temperature, top_k=top_k,
+                                   top_p=top_p)
+            z = (noise(t) if noise is not None
+                 else gumbel_noise(filt.shape, generator))
+            token = gumbel_argmax(filt, z)
+            tokens[:, t] = token
+            alphas[:, t] = alpha
+            prev = token.long()
+        return tokens, alphas
 
     @torch.no_grad()
     @full_f32()

@@ -7,14 +7,15 @@ Parameters keep the JAX names and [in, out] layout (``embed``,
 the bridge from the JAX tree is a name-for-name copy. Greedy decode runs
 the whole-sequence kernel of ``ops/kernels/nic_seq.py``
 (``csrc/nic_seq.cu`` on a CUDA device, its plain version on the CPU); beam
-search runs the generic search of ``ops/decode.py``. The image embedding
+search runs the generic search of ``ops/decode.py``, and stochastic
+sampling a loop of plain ops with its filters and draw. The image embedding
 takes the place of a token at step 0, so step 0 usually predicts <start>,
 which the detokenizer skips.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -22,7 +23,8 @@ import torch.nn as nn
 from depth_image_captioning_pub_torch.models.initializers import (
     normal, torch_bias, torch_linear_kernel)
 from depth_image_captioning_pub_torch.ops.decode import (
-    beam_search, log_softmax, tile_for_beams)
+    beam_search, filtered_logits, gumbel_argmax, gumbel_noise, log_softmax,
+    tile_for_beams)
 from depth_image_captioning_pub_torch.ops.kernels.nic_seq import (
     NICSeqWeights, fused_nic_greedy_decode, pack_nic_weights)
 from depth_image_captioning_pub_torch.ops.precision import full_f32
@@ -83,6 +85,40 @@ class NICDecoder(nn.Module):
         return fused_nic_greedy_decode(
             features.to(torch.float32).contiguous(), self.seq_weights(),
             max_length=max_length)
+
+    @torch.no_grad()
+    @full_f32()   # the f32 LSTM and head products, without TF32
+    def stochastic_sample(
+            self, features: torch.Tensor,
+            generator: Optional[torch.Generator], *, max_length: int = 30,
+            temperature: float = 1.0, top_k: int = 0, top_p: float = 1.0,
+            noise: Optional[Callable[[int], torch.Tensor]] = None
+            ) -> torch.Tensor:
+        """Batched temperature / top-k / nucleus sampling of image
+        embeddings [B, E]: tokens [B, max_length] int32, always
+        ``max_length`` steps. Step 0 feeds the image embedding, each later
+        step the previous token's embedding; the draw is as
+        ``AttentionDecoder.stochastic_sample``'s (``noise(t)`` or
+        ``generator``)."""
+        bsz = features.shape[0]
+        zeros = torch.zeros((self.num_layers, bsz, self.dim_hidden),
+                            dtype=torch.float32, device=features.device)
+        hs, cs = zeros, zeros.clone()
+        lstm = self.lstm()
+        x = features.to(torch.float32)
+        tokens = torch.empty((bsz, max_length), dtype=torch.int32,
+                             device=features.device)
+        for t in range(max_length):
+            out, hs, cs = stacked_lstm_step(lstm, x, hs, cs)
+            filt = filtered_logits(out @ self.out_w + self.out_b,
+                                   temperature=temperature, top_k=top_k,
+                                   top_p=top_p)
+            z = (noise(t) if noise is not None
+                 else gumbel_noise(filt.shape, generator))
+            token = gumbel_argmax(filt, z)
+            tokens[:, t] = token
+            x = self.embed[token.long()]
+        return tokens
 
     @torch.no_grad()
     @full_f32()   # the f32 LSTM and head products, without TF32

@@ -1,4 +1,5 @@
-"""Batched beam search (counterpart of the JAX ``ops/decode.py``).
+"""Batched beam search and the filters and draw of stochastic sampling
+(counterpart of the JAX ``ops/decode.py``).
 
 Generic over models through ``step_fn(state, tokens, t) -> (state,
 logprobs)``: every tensor of ``state`` (a dict) and ``tokens``/``logprobs``
@@ -15,11 +16,16 @@ Two points hold the search to the JAX package's:
   descending sort gives it, ``torch.topk`` promises no order among ties);
 * the length penalty measures a beam that never emitted ``<end>`` as
   length 1 (the argmax of an all-False row is 0), as the JAX package does.
+
+Stochastic sampling draws each token as ``gumbel_argmax(filtered_logits(
+logits), noise)``: ``argmax(filt + noise)`` over Gumbel noise is what
+``jax.random.categorical`` computes. The two frameworks' generators give
+different numbers, so the tests feed both sides the JAX package's noise.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Sequence, Tuple
 
 import torch
 
@@ -33,6 +39,55 @@ def log_softmax(x: torch.Tensor) -> torch.Tensor:
     JAX package's order of operations."""
     shifted = x - x.amax(dim=-1, keepdim=True)
     return shifted - torch.log(torch.exp(shifted).sum(dim=-1, keepdim=True))
+
+
+def filtered_logits(logits: torch.Tensor, *, temperature: float = 1.0,
+                    top_k: int = 0, top_p: float = 1.0) -> torch.Tensor:
+    """Temperature, then top-k, then top-p (nucleus) filtering: f32 logits
+    [..., V] with every token outside the kept set at -inf.
+
+    The temperature is floored at 1e-6. Top-k keeps every value >= the
+    k-th largest (ties at the cut are all kept); top-p keeps, on the
+    tempered distribution sorted once before top-k, the tokens whose
+    exclusive cumulative probability is < top_p (the argmax always), again
+    by threshold. top_k=0 and top_p=1.0 turn their filters off.
+    """
+    logits = logits.to(torch.float32)
+    if temperature != 1.0:
+        # the op rounds the divisor to f32: f32(max(t, 1e-6)) is the JAX
+        # package's max(f32(t), f32(1e-6))
+        logits = logits / max(float(temperature), 1e-6)
+    v = logits.shape[-1]
+    if not ((top_k and top_k < v) or top_p < 1.0):
+        return logits
+    desc = torch.sort(logits, dim=-1, descending=True).values
+    if top_k and top_k < v:
+        kth = desc[..., top_k - 1:top_k]
+        logits = logits.masked_fill(logits < kth, float("-inf"))
+    if top_p < 1.0:
+        probs = torch.softmax(desc, dim=-1)
+        cum_excl = torch.cumsum(probs, dim=-1) - probs
+        keep = cum_excl < top_p          # always keeps the argmax
+        min_kept = torch.where(keep, desc, float("inf")).amin(
+            dim=-1, keepdim=True)
+        logits = logits.masked_fill(logits < min_kept, float("-inf"))
+    return logits
+
+
+def gumbel_noise(shape: Sequence[int], generator: torch.Generator
+                 ) -> torch.Tensor:
+    """Standard Gumbel noise -log(-log(u)), u uniform in [tiny, 1), f32,
+    drawn from ``generator`` on the generator's device."""
+    u = torch.rand(tuple(shape), generator=generator,
+                   device=generator.device, dtype=torch.float32)
+    u = u.clamp_(min=torch.finfo(torch.float32).tiny)
+    return -torch.log(-torch.log(u))
+
+
+def gumbel_argmax(filt: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+    """The draw from softmax(filt): argmax(filt + noise) over the last dim,
+    the lowest index on ties, as int32."""
+    return torch.argmax(filt + noise, dim=-1).to(torch.int32)
 
 
 def top_w(total: torch.Tensor, beam_size: int

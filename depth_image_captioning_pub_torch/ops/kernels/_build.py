@@ -36,7 +36,8 @@ _I = ctypes.c_int
 # argument lists of the C entry points, pointers and the stream as void*
 # (a ctypes int would cut a 64-bit pointer)
 _SIGNATURES = {
-    "dcap_decode_step": [_P, _I] + [_P] * 17 + [_I] * 6 + [_P],
+    "dcap_decode_step": [_P, _I] + [_P] * 19 + [_I] * 12 + [_P],
+    "dcap_step_max_ctas": [_I, _I],
     "dcap_greedy_decode": [_P, _I] + [_P] * 19 + [_I] * 16 + [_P],
     "dcap_greedy_max_ctas": [_I, _I],
     "dcap_vit_attention": [_P] * 4 + [_I] * 5 + [ctypes.c_float, _P],

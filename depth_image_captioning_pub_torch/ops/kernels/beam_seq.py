@@ -3,12 +3,13 @@ version, and the selection of the best beam.
 
 Counterpart of the JAX ``ops/pallas/beam_seq.py``, with the search of
 ``ops/decode.beam_search``: beam 0 alone is live at step 0; each step runs
-the attention-LSTM step of ``decode_step`` for the B·W beams, the vocab
-head and a log-softmax; finished beams may only continue with <end> at zero
-cost; the flat top-W over W·V (``lax.top_k``'s order) picks the new beams,
-whose state is gathered from their parents. The search stops once every
-beam is finished; the records of the skipped steps are <end> with identity
-parents, which is what running them would give.
+the attention-LSTM step (``decode_step``'s function, as phases of the one
+launch) for the B·W beams, the vocab head and a log-softmax; finished
+beams may only continue with <end> at zero cost; the flat top-W over W·V
+(``lax.top_k``'s order) picks the new beams, whose state is gathered from
+their parents. The search stops once every beam is finished; the records
+of the skipped steps are <end> with identity parents, which is what
+running them would give.
 
 ``fused_beam_decode`` launches ``csrc/beam_seq.cu`` for CUDA tensors: the
 whole search (W = 2..5) in one cooperative launch of one CTA per SM on the
@@ -30,10 +31,10 @@ import torch
 from depth_image_captioning_pub_torch.ops import decode
 from depth_image_captioning_pub_torch.ops.kernels import _build
 from depth_image_captioning_pub_torch.ops.kernels.decode_seq import (
-    A_MIN, G_UNITS, SMEM_LIMIT, THREADS, TWO_UNITS_FROM,
-    DecodeSeqWeights, _sm_count)
+    DecodeSeqWeights)
 from depth_image_captioning_pub_torch.ops.kernels.decode_step import (
-    FEATURE_DTYPES, check_float32, check_same_device, check_shape,
+    A_MIN, FEATURE_DTYPES, G_UNITS, SMEM_LIMIT, THREADS, TWO_UNITS_FROM,
+    _sm_count, check_float32, check_same_device, check_shape,
     check_step_weights, cuda_pointers, plain_step_params)
 from depth_image_captioning_pub_torch.ops.lstm import lstm_cell
 

@@ -2,7 +2,8 @@
 version.
 
 Counterpart of the JAX ``ops/pallas/decode_seq.py``. Every step runs the
-attention-LSTM step of ``decode_step``, then the vocab head
+attention-LSTM step (``decode_step``'s function, here as phases of the
+one launch: ``csrc/decode_phases.cuh``), then the vocab head
 ``h' @ w_out + b_out``, an argmax (lowest index on equal values) and the
 embedding of the chosen token; the output is the token matrix [B, L].
 
@@ -26,23 +27,12 @@ import torch
 
 from depth_image_captioning_pub_torch.ops.kernels import _build
 from depth_image_captioning_pub_torch.ops.kernels.decode_step import (
-    FEATURE_DTYPES, DecodeStepWeights, attention_lstm_step, check_float32,
-    check_same_device, check_shape, check_step_weights, cuda_pointers,
-    plain_step_params)
+    A_MIN, FEATURE_DTYPES, G_UNITS, H_ROWS, H_TILE_MAX, SMEM_LIMIT, THREADS,
+    TWO_UNITS_FROM, DecodeStepWeights, _sm_count, attention_lstm_step,
+    check_float32, check_same_device, check_shape, check_step_weights,
+    cuda_pointers, plain_step_params)
 
 LAUNCHES = 0   # kernel launches of dcap_greedy_decode in this process
-
-# csrc/decode_seq.cu's build constants: threads per CTA and the rows of a
-# thread's h-product tile (the tile's row count is a multiple of it)
-THREADS = 512
-H_ROWS = 4
-G_UNITS = 2           # kGUnits: the most hidden units a CTA holds
-SMEM_LIMIT = 232448   # shared memory a block may use on sm_90 (227 KB)
-H_TILE_MAX = 64       # rows of h staged at once for the h-products
-A_MIN = 128           # fewest feature columns of an attention item: each
-#                       item recomputes its row's scores over K x A
-TWO_UNITS_FROM = 32   # rows from which a CTA takes two hidden units
-
 
 class GreedyPlan(NamedTuple):
     """How ``csrc/decode_seq.cu`` splits the work over ``ctas`` CTAs."""
@@ -135,11 +125,6 @@ def plan(bsz: int, k: int, d: int, a: int, e: int, h: int, v: int,
         h_rows=tile, smem_bytes=need,
         scratch_floats=bsz * (2 * d + a + 3 * h + ctas),
         scratch_ints=2 + bsz * (ctas + 2))
-
-
-@functools.lru_cache(maxsize=16)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 @functools.lru_cache(maxsize=64)

@@ -1,4 +1,5 @@
-"""Fused attention-LSTM decode step: CUDA kernel wrapper and plain version.
+"""Fused attention-LSTM decode step: CUDA kernel wrapper, planner and plain
+version.
 
 Counterpart of the JAX ``ops/pallas/decode_step.py``. One step computes
 
@@ -10,16 +11,23 @@ Counterpart of the JAX ``ops/pallas/decode_step.py``. One step computes
   gates  = emb @ w_ih_e + (gate*ctx) @ w_ih_c + h @ w_hh + b
   h',c'  = LSTM tail                                [B, H]
 
-``fused_decode_core`` launches ``csrc/decode_step.cu`` (one CTA per image
-row; the step itself is the device function in ``csrc/decode_step.cuh``)
-for CUDA tensors and ``fused_decode_core_plain`` for CPU tensors. Features may be
-float32 or bfloat16 (upcast exactly as they are read); everything else is
-float32, and alpha comes back float32.
+``fused_decode_core`` launches ``csrc/decode_step.cu`` for CUDA tensors:
+one cooperative launch of one CTA per SM on the phases of
+``csrc/decode_phases.cuh`` (the h-products, the attention, the gates), each
+CTA holding a column slice of the step's weights in shared memory
+(``plan_step`` sizes it; ``LAST_PLAN`` is the plan of the last launch).
+CPU tensors run ``fused_decode_core_plain``. Features may be float32 or
+bfloat16 (upcast exactly as they are read); everything else is float32,
+and alpha comes back float32. Any batch size B >= 1 is taken as it is.
+
+The module also holds what the kernels on those phases share: their build
+constants, the weight layout and the argument checks.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence, Tuple
+import functools
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -31,6 +39,23 @@ from depth_image_captioning_pub_torch.ops.lstm import LSTMCellParams, lstm_cell
 LAUNCHES = 0   # kernel launches of dcap_decode_step in this process
 
 FEATURE_DTYPES = (torch.float32, torch.bfloat16)
+
+# csrc/decode_phases.cuh's build constants, shared by the kernels on its
+# phases: threads per CTA and the rows of a thread's h-product tile (the
+# tile's row count is a multiple of it)
+THREADS = 512
+H_ROWS = 4
+G_UNITS = 2           # kGUnits: the most hidden units a CTA holds
+SMEM_LIMIT = 232448   # shared memory a block may use on sm_90 (227 KB)
+H_TILE_MAX = 64       # rows of h staged at once for the h-products
+A_MIN = 128           # fewest feature columns of an attention item: each
+#                       item recomputes its row's scores over K x A
+TWO_UNITS_FROM = 32   # rows from which a CTA takes two hidden units
+#                       (the whole-sequence kernels)
+STEP_TWO_UNITS_FROM = 128   # the same for the step kernel: its gate slice
+#                       is loaded on every launch, a gather of one 32-byte
+#                       sector per element (tools/decode_step_ab.py: one
+#                       unit faster at B = 1-64, two at 128)
 
 
 class DecodeStepWeights(NamedTuple):
@@ -60,6 +85,109 @@ def pack_weights(att_w_dec, att_b_dec, att_w_full, att_b_full, f_beta_w,
         w_fb=f_beta_w, b_fb=f_beta_b[None, :],
         w_ih_e=lstm_w_ih[:dim_embedding], w_ih_c=lstm_w_ih[dim_embedding:],
         w_hh=lstm_w_hh, b_lstm=(lstm_b_ih + lstm_b_hh)[None, :])
+
+
+class StepPlan(NamedTuple):
+    """How ``csrc/decode_step.cu`` splits one step over ``ctas`` CTAs."""
+
+    ctas: int
+    h_slices: Tuple[Tuple[int, int], ...]  # per CTA: [c0, c1) of the
+    #                       h-product columns [W_dec | W_fb]
+    h_cols: int       # the widest slice, padded to a multiple of 4
+    units: int        # hidden units per CTA of the gate products
+    g_groups: int     # unit groups: CTA p takes group p % g_groups ...
+    g_parts: int      # ... for row part p // g_groups of g_parts
+    a_chunk: int      # feature columns per attention item
+    h_rows: int       # rows of h per h-product tile
+    smem_bytes: int
+    scratch_floats: int
+    scratch_ints: int
+
+
+LAST_PLAN: Optional[StepPlan] = None   # the plan of the last launch
+
+
+def step_smem_floats(k: int, d: int, a: int, e: int, h: int, h_cols: int,
+                     units: int, h_rows: int) -> int:
+    """Shared memory of one CTA in floats (``smem_floats`` of the .cu)."""
+    return (h * h_cols + units * (e + d + h) * 4 + h_rows * (h + 4)
+            + 8 * THREADS + h_cols + 4 * units + 2 * a + k + THREADS // 32)
+
+
+@functools.lru_cache(maxsize=256)
+def plan_step(bsz: int, k: int, d: int, a: int, e: int, h: int,
+              ctas: int) -> StepPlan:
+    """Split one step of ``bsz`` rows over ``ctas`` CTAs.
+
+    CTA p holds columns [p*N/ctas, (p+1)*N/ctas) of the N = A + D
+    h-product columns [W_dec | W_fb] and the gate weights of ``units``
+    hidden units: those of group p % g_groups (g_groups = ceil(H /
+    units)), for the rows of part p // g_groups of g_parts = max(1, ctas
+    // g_groups). Two units per CTA from ``STEP_TWO_UNITS_FROM`` rows on,
+    else one: each launch loads the slice anew, and a second unit doubles
+    that load. Attention items are (row, chunk of ``a_chunk`` feature
+    columns), about ``ctas`` of them in all. The h-product row tile
+    shrinks until the CTA fits in 227 KB of shared memory; raises
+    ValueError when even the smallest does not.
+    """
+    if min(bsz, k, d, a, e, h, ctas) < 1:
+        raise ValueError(f"decode step needs positive sizes, got B={bsz} "
+                         f"K={k} D={d} A={a} E={e} H={h} ctas={ctas}")
+    if d % 8 or e % 8 or h % 8 or a % 4:
+        raise ValueError(f"the step kernel reads 16 or 32 bytes at a time: "
+                         f"D={d}, E={e} and H={h} must be multiples of 8, "
+                         f"A={a} a multiple of 4")
+    n = a + d
+    h_slices = tuple((p * n // ctas, (p + 1) * n // ctas)
+                     for p in range(ctas))
+    h_cols = -(-max(c1 - c0 for c0, c1 in h_slices) // 4) * 4
+    least = -(-h // ctas)       # every unit needs a CTA
+    if least > G_UNITS:
+        raise ValueError(f"step kernel: H={h} hidden units over {ctas} "
+                         f"CTAs needs {least} units per CTA, above the "
+                         f"{G_UNITS} a CTA can hold")
+    choices = [u for u in ((2, 1) if bsz >= STEP_TWO_UNITS_FROM else (1, 2))
+               if u >= least]
+    chunks = max(1, min(ctas // bsz, d // A_MIN))
+    a_chunk = min(d, (-(-d // chunks) + 7) // 8 * 8)
+    tile = -(-min(bsz, H_TILE_MAX) // H_ROWS) * H_ROWS
+
+    def need_bytes(u, t):
+        return 4 * step_smem_floats(k, d, a, e, h, h_cols, u, t)
+
+    fits = [u for u in choices if need_bytes(u, tile) <= SMEM_LIMIT]
+    units = fits[0] if fits else choices[-1]
+    while need_bytes(units, tile) > SMEM_LIMIT and tile > H_ROWS:
+        tile -= H_ROWS
+    need = need_bytes(units, tile)
+    if need > SMEM_LIMIT:
+        raise ValueError(
+            f"step kernel at K={k} D={d} A={a} E={e} H={h} over {ctas} "
+            f"CTAs needs {need} bytes of shared memory per CTA ({units} "
+            f"hidden unit(s) of {e + d + h} x 4 gate weights, {h_cols} "
+            f"h-product columns of {h}), above the {SMEM_LIMIT}-byte limit "
+            f"of a block")
+    groups = -(-h // units)
+    return StepPlan(
+        ctas=ctas, h_slices=h_slices, h_cols=h_cols, units=units,
+        g_groups=groups, g_parts=max(1, ctas // groups), a_chunk=a_chunk,
+        h_rows=tile, smem_bytes=need, scratch_floats=bsz * (2 * d + a),
+        scratch_ints=2 + bsz)
+
+
+@functools.lru_cache(maxsize=16)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=64)
+def _max_ctas(index: int, bf16: int, smem: int) -> int:
+    """CTAs of the step kernel that can be co-resident on the current card
+    ``index`` at ``smem`` bytes of shared memory each."""
+    fits = _build.load().dcap_step_max_ctas(bf16, smem)
+    if fits < 0:
+        _build.check_launch(-fits, "dcap_step_max_ctas")
+    return fits
 
 
 class PlainStepParams(NamedTuple):
@@ -150,7 +278,7 @@ def fused_decode_core(features: torch.Tensor, features_proj: torch.Tensor,
     alpha [B,K]). CPU tensors run the plain version; CUDA tensors launch
     the kernel or raise.
     """
-    global LAUNCHES
+    global LAUNCHES, LAST_PLAN
     if features.dim() != 3 or features.shape[0] < 1:
         raise ValueError(f"features must be [B>=1, K, D], got "
                          f"{tuple(features.shape)}")
@@ -175,16 +303,32 @@ def fused_decode_core(features: torch.Tensor, features_proj: torch.Tensor,
         raise ValueError(f"no kernel for device {features.device}")
 
     ptrs = cuda_pointers([("features", features)] + named)
+    for name, t in (("features", features), ("features_proj", features_proj),
+                    ("emb", emb), ("h", h)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
     lib = _build.load()
-    h_out = torch.empty_like(h)
-    c_out = torch.empty_like(c)
-    alpha = torch.empty((bsz, k), dtype=torch.float32, device=features.device)
+    bf16 = int(features.dtype == torch.bfloat16)
     with torch.cuda.device(features.device):
+        index = torch.cuda.current_device()
+        p = plan_step(bsz, k, d, a, e, hdim, _sm_count(index))
+        while (fits := _max_ctas(index, bf16, p.smem_bytes)) < p.ctas:
+            p = plan_step(bsz, k, d, a, e, hdim, fits)
+        h_out = torch.empty_like(h)
+        c_out = torch.empty_like(c)
+        alpha = torch.empty((bsz, k), dtype=torch.float32,
+                            device=features.device)
+        fscr = torch.empty((p.scratch_floats,), dtype=torch.float32,
+                           device=features.device)
+        iscr = torch.empty((p.scratch_ints,), dtype=torch.int32,
+                           device=features.device)
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.dcap_decode_step(
-            ptrs[0], int(features.dtype == torch.bfloat16), *ptrs[1:],
-            h_out.data_ptr(), c_out.data_ptr(), alpha.data_ptr(),
-            bsz, k, d, a, e, hdim, stream)
+            ptrs[0], bf16, *ptrs[1:], h_out.data_ptr(), c_out.data_ptr(),
+            alpha.data_ptr(), fscr.data_ptr(), iscr.data_ptr(), bsz, k, d,
+            a, e, hdim, p.ctas, p.h_cols, p.units, p.a_chunk, p.h_rows,
+            p.smem_bytes, stream)
     _build.check_launch(err, "dcap_decode_step")
     LAUNCHES += 1
+    LAST_PLAN = p
     return h_out, c_out, alpha

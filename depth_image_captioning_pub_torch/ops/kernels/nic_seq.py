@@ -29,9 +29,8 @@ import torch
 import torch.nn.functional as F
 
 from depth_image_captioning_pub_torch.ops.kernels import _build
-from depth_image_captioning_pub_torch.ops.kernels.decode_seq import (
-    G_UNITS, H_ROWS, H_TILE_MAX, SMEM_LIMIT, THREADS, _sm_count)
 from depth_image_captioning_pub_torch.ops.kernels.decode_step import (
+    G_UNITS, H_ROWS, H_TILE_MAX, SMEM_LIMIT, THREADS, _sm_count,
     check_float32, check_same_device, check_shape, cuda_pointers)
 from depth_image_captioning_pub_torch.ops.lstm import (
     LSTMCellParams, StackedLSTMParams, stacked_lstm_step)

@@ -11,9 +11,13 @@
                            batch_buckets=(1, 16, 64))
     pipe(images_uint8)                              # -> list of captions
 
-``kind`` may also be ``"nic"``, and ``CaptionPipeline(...,
-beam_size=5, length_penalty=0.7)`` captions with beam search. A depth kind
-also needs the DPT that makes its depth maps:
+``kind`` may also be ``"nic"``. ``CaptionPipeline(..., beam_size=5,
+length_penalty=0.7)`` captions with beam search, and ``CaptionPipeline(
+..., sample=True, temperature=0.8, top_k=0, top_p=0.9, seed=0)`` with
+stochastic sampling: the pipeline keeps one ``torch.Generator`` on the
+captioner's device, seeded from ``seed``, and every chunk draws from it,
+so repeated calls give fresh captions, deterministic per seed. A depth
+kind also needs the DPT that makes its depth maps:
 
     est = DPTDepthEstimator(device="cuda")          # models/dpt.py
     est.init(torch.Generator().manual_seed(0))      # or dpt_params_from_jax
@@ -27,9 +31,9 @@ rows are dropped before detokenization, so captions do not depend on the
 bucket. Chunk i+1 is dispatched before the host waits for chunk i's tokens.
 
 Parameters live in the captioner's modules on its device. Loading from an
-experiment directory, stochastic sampling, several devices and hot reload
-wait for later slices (ROADMAP.md), as does decoding JPEG paths: images
-are uint8 [H, W, 3] arrays at ``image_hw``.
+experiment directory, several devices and hot reload wait for later
+slices (ROADMAP.md), as does decoding JPEG paths: images are uint8 [H, W,
+3] arrays at ``image_hw``.
 """
 
 from __future__ import annotations
@@ -46,14 +50,17 @@ from depth_image_captioning_pub_torch.engine.evaluate import make_caption_fn
 
 class CaptionPipeline:
     """Batched captioning over one captioner (nic, base-soft, or
-    depth-soft with its ``depth_fn``): greedy, or beam search when
-    ``beam_size > 1``."""
+    depth-soft with its ``depth_fn``): greedy, beam search when
+    ``beam_size > 1``, or stochastic sampling when ``sample`` (greedy
+    ignores ``seed``; beam search with ``sample`` raises)."""
 
     def __init__(self, cap, word_to_id: Dict[str, int],
                  id_to_word: Dict[int, str], *, depth_fn=None,
                  max_length: int = 30, batch_buckets=(64,),
                  image_hw=(224, 224), beam_size: int = 1,
-                 length_penalty: float = 0.0):
+                 length_penalty: float = 0.0, sample: bool = False,
+                 temperature: float = 1.0, top_k: int = 0,
+                 top_p: float = 1.0, seed: int = 0):
         self.cap = cap
         self.device = cap.device
         self.max_length = int(max_length)
@@ -63,11 +70,19 @@ class CaptionPipeline:
             raise ValueError(f"bad batch_buckets {batch_buckets}")
         self.batch_size = self.batch_buckets[-1]   # the chunk size
         self.image_hw = tuple(image_hw)
+        self.sample = bool(sample)
+        self.generator = None
+        if self.sample:
+            self.generator = torch.Generator(device=self.device)
+            self.generator.manual_seed(int(seed))
         self._fn = make_caption_fn(
             cap, start_id=word_to_id[SPECIAL.start],
             max_length=self.max_length, depth_fn=depth_fn,
             end_id=word_to_id.get(SPECIAL.end), beam_size=beam_size,
-            length_penalty=length_penalty)
+            length_penalty=length_penalty,
+            sampling=({"temperature": temperature, "top_k": top_k,
+                       "top_p": top_p} if self.sample else None),
+            generator=self.generator)
 
     def caption_tokens(self, arrays: np.ndarray) -> np.ndarray:
         """[N,H,W,3] uint8 -> [N, max_length] int32 token IDs."""

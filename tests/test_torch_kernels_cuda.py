@@ -9,7 +9,10 @@ JAX, so it also runs on a GPU machine without JAX:
 (``--noconftest``: tests/conftest.py sets up JAX for the other tests.)
 
 Tolerances: atol 1e-4 on h', c', alpha for the step (f32 sums in another
-order than cuBLAS's); greedy tokens agree on >= 99% of positions (a
+order than cuBLAS's), and two calls of the step bit-identical; sampled
+tokens through the step agree with those through its plain version on
+the same noise on >= 99% of positions (a near-tie of logits + noise may
+flip a draw); greedy tokens agree on >= 99% of positions (a
 near-tie argmax may flip and the flip cascades along its row) and are
 equal when the <end> bias ends every row at step 0; two calls of the
 greedy kernel give bit-identical tokens (fixed sum orders). The same holds for the
@@ -61,26 +64,125 @@ def _decoder(shape, dev, seed=0):
     return dec, feats
 
 
-@pytest.mark.parametrize("shape", sorted(SHAPES))
-@pytest.mark.parametrize("storage", ["float32", "bfloat16"])
-def test_step_kernel_matches_plain(cuda, shape, storage):
-    dec, feats = _decoder(SHAPES[shape], cuda)
-    bsz, e, h = feats.shape[0], dec.dim_embedding, dec.att_w_dec.shape[0]
-    f = feats.to(getattr(torch, storage))
-    rng = np.random.default_rng(1)
+def _step_inputs(dec, f, seed=1):
+    bsz, e, h = f.shape[0], dec.dim_embedding, dec.att_w_dec.shape[0]
+    rng = np.random.default_rng(seed)
     emb, hh, cc = (torch.from_numpy(rng.standard_normal((bsz, n)).astype(
-        np.float32)).to(cuda) for n in (e, h, h))
+        np.float32)).to(f.device) for n in (e, h, h))
     with torch.inference_mode():
         proj = project_features(dec.att_params(), f,
                                 compute_dtype=torch.float32)
-        w = dec.seq_weights().step
+    return f, proj, emb, hh, cc, dec.seq_weights().step
+
+
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+@pytest.mark.parametrize("storage", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bsz", [1, 3, 16, 64, 130])
+def test_step_kernel_matches_plain(cuda, shape, storage, bsz):
+    """K1 from one row to more rows than SMs, at D=2048 and D=2080, f32
+    and bf16 features: h', c', alpha within 1e-4 of the plain version; a
+    second call bit-identical; the launch's plan recorded."""
+    dec, feats = _decoder((bsz,) + SHAPES[shape][1:], cuda, seed=bsz)
+    args = _step_inputs(dec, feats.to(getattr(torch, storage)))
+    with torch.inference_mode():
         before = decode_step.LAUNCHES
-        got = decode_step.fused_decode_core(f, proj, emb, hh, cc, w)
+        got = decode_step.fused_decode_core(*args)
         torch.cuda.synchronize()
         assert decode_step.LAUNCHES == before + 1
-        want = decode_step.fused_decode_core_plain(f, proj, emb, hh, cc, w)
-    for g, x in zip(got, want):
+        plan = decode_step.LAST_PLAN
+        again = decode_step.fused_decode_core(*args)
+        want = decode_step.fused_decode_core_plain(*args)
+    index = torch.cuda.current_device()
+    fits = decode_step._max_ctas(index, int(storage == "bfloat16"),
+                                 plan.smem_bytes)
+    assert plan.ctas == min(decode_step._sm_count(index), fits)
+    for g, a, x in zip(got, again, want):
+        assert g.shape == x.shape and g.dtype == torch.float32
+        assert torch.equal(g, a)
         torch.testing.assert_close(g, x, atol=1e-4, rtol=0)
+
+
+def test_step_kernel_ignores_tf32_flags(cuda):
+    """The kernel computes in f32 whatever the TF32 flags say, and the
+    sampling loop pins them off for its products: with both flags on, the
+    step and the sampled tokens equal those with both off."""
+    dec, feats = _decoder((16,) + SHAPES["main"][1:], cuda, seed=12)
+    f = feats.to(torch.bfloat16)
+    args = _step_inputs(dec, f)
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    out = {}
+    try:
+        for flag in (True, False):
+            torch.backends.cuda.matmul.allow_tf32 = flag
+            torch.backends.cudnn.allow_tf32 = flag
+            with torch.inference_mode():
+                step = decode_step.fused_decode_core(*args)
+                toks, _ = dec.stochastic_sample(
+                    f, 2, torch.Generator(device=cuda).manual_seed(0),
+                    max_length=30, top_p=0.9)
+            assert (torch.backends.cuda.matmul.allow_tf32,
+                    torch.backends.cudnn.allow_tf32) == (flag, flag)
+            out[flag] = (step, toks)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+    for a, b in zip(out[True][0], out[False][0]):
+        assert torch.equal(a, b)
+    assert torch.equal(out[True][1], out[False][1])
+
+
+def test_step_kernel_rejects_outside_envelope(cuda):
+    dec, feats = _decoder((2, 9, 60, 8, 8, 8, 16), cuda)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        decode_step.fused_decode_core(*_step_inputs(dec, feats))
+    dec, feats = _decoder((1, 4, 16384, 8, 8, 8, 16), cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        decode_step.fused_decode_core(*_step_inputs(dec, feats))
+
+
+@pytest.mark.parametrize("shape", ["main", "concat"])
+@pytest.mark.parametrize("bsz", [1, 16, 64])
+def test_sampled_tokens_match_plain_step(cuda, shape, bsz, monkeypatch):
+    """stochastic_sample through K1 against the same loop through the
+    plain step, on the same noise: >= 99% of tokens agree (a draw can flip
+    on a near-tie of filt + noise, and the flip cascades along its row);
+    30 launches of K1, none of K2."""
+    from depth_image_captioning_pub_torch.models import decoder as dec_mod
+    dec, feats = _decoder((bsz,) + SHAPES[shape][1:], cuda, seed=20 + bsz)
+    f = feats.to(torch.bfloat16)
+    gen = torch.Generator(device=cuda).manual_seed(bsz)
+    noise = [torch.empty((bsz, dec.vocab_size), device=cuda).exponential_(
+        generator=gen).log_().neg_() for _ in range(30)]
+    kw = dict(max_length=30, temperature=1.0, top_p=0.9,
+              noise=lambda t: noise[t])
+    with torch.inference_mode():
+        before = (decode_step.LAUNCHES, decode_seq.LAUNCHES)
+        got, alphas = dec.stochastic_sample(f, 2, None, **kw)
+        assert (decode_step.LAUNCHES, decode_seq.LAUNCHES) == (
+            before[0] + 30, before[1])
+        monkeypatch.setattr(dec_mod, "fused_decode_core",
+                            decode_step.fused_decode_core_plain)
+        want, want_alphas = dec.stochastic_sample(f, 2, None, **kw)
+    assert got.shape == (bsz, 30) and alphas.shape == (bsz, 30, f.shape[1])
+    assert (got == want).float().mean().item() >= 0.99
+    assert torch.allclose(alphas.sum(-1), torch.ones_like(alphas[..., 0]),
+                          atol=1e-5)
+
+
+@pytest.mark.parametrize("bsz", [1, 16, 64])
+def test_greedy_kernel_equals_step_loop_top1(cuda, bsz):
+    """K2 and the K1 loop run the same attention phase: greedy tokens
+    without <end> equal the top_k=1 draws of the sampling loop on >= 99%
+    of positions."""
+    dec, feats = _decoder((bsz,) + SHAPES["main"][1:], cuda, seed=30 + bsz)
+    f = feats.to(torch.bfloat16)
+    with torch.inference_mode():
+        greedy = dec.greedy_sample(f, 2, max_length=30)
+        top1, _ = dec.stochastic_sample(
+            f, 2, torch.Generator(device=cuda).manual_seed(0),
+            max_length=30, top_k=1)
+    assert (greedy == top1).float().mean().item() >= 0.99
 
 
 @pytest.mark.parametrize("shape", sorted(SHAPES))
