@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""GPU smoke run of the PyTorch port's five main paths: base-soft,
-depth-soft and NIC greedy captioning, base-soft beam-5 captioning and
-base-soft stochastic (nucleus) captioning.
+"""GPU smoke run of the PyTorch port's main paths: base-soft,
+depth-soft and NIC greedy captioning, base-soft beam-5 captioning,
+base-soft stochastic (nucleus) captioning and the scored evaluation of
+base-soft checkpoint sets.
 
 Run from the root of a checkout, on a machine with one CUDA card (written
 for an NVIDIA H100):
@@ -95,8 +96,22 @@ the script exits non-zero:
    alphas' max abs error), and the top_k=1 draws with K2's greedy tokens
    without <end> (>= 0.99); the time split of one chunk at each bucket
    (encoder, set-up, K1 x 30, head + filter + draw x 30, the program).
+13. score path: the base-soft captioner's weights (set 1) and two other
+   seeds' decoders (sets 2, 3) are written with ``params_to_jax`` and
+   ``save_component`` as three checkpoint sets in the JAX trainer's files
+   (``ConfigEval.base_soft_parameter_files``, in a temporary directory
+   under ``build/``); ``evaluate`` scores them through
+   ``load_eval_components`` over an in-memory set of 256 seeded 224x224
+   uint8 images with five placeholder-vocabulary references each (batch
+   64), then set 1 again with ``beam_size=5``. Each loaded captioner must
+   equal the written weights bit for bit; K2's counter must grow by 4 per
+   set and K4's by 4 on the beam run, with no plain version; set 1's
+   hypotheses must equal ``CaptionPipeline``'s captions of the same arrays
+   and differ from set 2's; the seven metrics must hold 3 finite values
+   each and the pickle must be written. Per set it prints the load,
+   caption and host scoring times and the scored images/s.
 
-Each path (phases 5, 7, 9, 11, 12) runs with every launch counter set to
+Each path (phases 5, 7, 9, 11, 12, 13) runs with every launch counter set to
 0 just before it and read just after. The line before the last is a JSON
 object with the five ported kernels (K1 step, K2 greedy, K3 NIC greedy, K4
 beam, K5 ViT attention): launches per path, error, time beside the plain
@@ -143,8 +158,9 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 F32_FLOPS = 67e12              # H100 SXM f32, CUDA cores (TF32 off)
 BF16_FLOPS = 989e12            # H100 SXM bf16 tensor cores, dense
 PATHS = ("base-soft", "depth-soft", "nic", "base-soft-beam5",
-         "base-soft-sample")
+         "base-soft-sample", "score")
 TOP_P = 0.9          # the sampling path's nucleus
+SCORE_IMAGES, SCORE_SETS, SCORE_BATCH = 256, 3, 64
 
 
 def log(phase, msg):
@@ -1320,6 +1336,216 @@ def phase_sample_path(smi, cap):
     return launches
 
 
+class ScoreImages:
+    """An in-memory evaluation set: seeded uint8 images and five
+    references each, drawn from the placeholder vocabulary's words (the
+    card's machine has no Pillow to read JPEGs)."""
+
+    def __init__(self, n, words, seed):
+        rng = np.random.default_rng(seed)
+        self.images = rng.integers(0, 256, (n, 224, 224, 3), dtype=np.uint8)
+        self.refs = [[" ".join(rng.choice(words, rng.integers(5, 15)))
+                      for _ in range(5)] for _ in range(n)]
+
+    def __len__(self):
+        return len(self.images)
+
+    def load_image(self, i):
+        return self.images[i]
+
+    def captions(self, i):
+        return self.refs[i]
+
+
+class SetTimes:
+    """Wraps the stages that ``engine/evaluate.evaluate`` calls per set to
+    time them (host clock; captioning ends with the tokens on the host)
+    and to check each loaded captioner against the written weights."""
+
+    def __init__(self, ev, cap, expected):
+        self.ev, self.cap, self.expected = ev, cap, expected
+        self.rows, self.hypos, self.saved = [], [], {}
+
+    def __enter__(self):
+        import torch
+        ev = self.ev
+        for name in ("params_from_jax", "generate_captions", "score",
+                     "load_textfiles"):
+            self.saved[name] = getattr(ev, name)
+
+        def loaded(cap, trainable, frozen, stats):
+            t0 = time.perf_counter()
+            self.saved["params_from_jax"](cap, trainable, frozen, stats)
+            torch.cuda.synchronize()
+            self.rows[-1]["copy"] = time.perf_counter() - t0
+            want = self.expected[len(self.rows)]
+            for name, t in cap.state_dict().items():
+                if not torch.equal(t, want[name]):
+                    raise RuntimeError(f"set {len(self.rows)}: {name} "
+                                       f"differs from the written weights")
+
+        def timed(key, fn):
+            def run(*args, **kwargs):
+                t0 = time.perf_counter()
+                out = fn(*args, **kwargs)
+                self.rows[-1][key] = time.perf_counter() - t0
+                return out
+            return run
+
+        def texts(refs, hypos):
+            self.hypos.append(list(hypos))
+            return self.saved["load_textfiles"](refs, hypos)
+
+        ev.params_from_jax = loaded
+        ev.generate_captions = timed("caption", self.saved[
+            "generate_captions"])
+        ev.score = timed("score", self.saved["score"])
+        ev.load_textfiles = texts
+        return self
+
+    def loader(self, fn):
+        """The checkpoint loader, timed: each call starts a set's row."""
+        def load(set_idx):
+            self.rows.append({})
+            t0 = time.perf_counter()
+            out = fn(set_idx)
+            self.rows[-1]["read"] = time.perf_counter() - t0
+            return out
+        return load
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.ev, name, fn)
+
+
+def phase_score_path(smi, cap):
+    """Scored evaluation of three base-soft checkpoint sets written in the
+    JAX trainer's files, then set 1 with beam search."""
+    import pickle
+    import tempfile
+    from pathlib import Path
+
+    import torch
+    from depth_image_captioning_pub_torch import cli
+    from depth_image_captioning_pub_torch.config import ConfigEval
+    from depth_image_captioning_pub_torch.engine import evaluate as ev
+    from depth_image_captioning_pub_torch.models.decoder import (
+        AttentionDecoder)
+    from depth_image_captioning_pub_torch.pipeline import CaptionPipeline
+    from depth_image_captioning_pub_torch.utils.checkpoint import (
+        save_component)
+    from depth_image_captioning_pub_torch.utils.jax_bridge import (
+        params_to_jax)
+    w2i, i2w = cli.placeholder_vocab(VOCAB)
+    data = ScoreImages(SCORE_IMAGES, [w for w in w2i if w.startswith("w")],
+                       seed=13)
+    # set 1 is phase 5's captioner: its captions through the pipeline
+    pipe = CaptionPipeline(cap, w2i, i2w, max_length=MAX_LEN,
+                           batch_buckets=(SCORE_BATCH,))
+    want1 = pipe(data.images)
+
+    trainable, frozen, _ = params_to_jax(cap)
+    decoders = {1: trainable["decoder"]}
+    for i in range(2, SCORE_SETS + 1):
+        dec = AttentionDecoder(VOCAB, device="cpu")
+        dec.reset_parameters(torch.Generator().manual_seed(100 + i))
+        decoders[i] = {k: v.numpy() for k, v in dec.state_dict().items()}
+    state = {k: v.clone() for k, v in cap.state_dict().items()}
+    expected = {}
+    for i, dec in decoders.items():
+        expected[i] = dict(state)
+        expected[i].update({f"decoder.{k}": torch.from_numpy(v).to(
+            state[f"decoder.{k}"].device) for k, v in dec.items()})
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build, prefix="score_sets_") as tmp:
+        cfg = ConfigEval()
+        cfg.batch_size, cfg.max_length = SCORE_BATCH, MAX_LEN
+        cfg.save_directory_soft = tmp
+        save_dir, files = cli.eval_tables(cfg, "soft", False, False)
+        t0 = time.perf_counter()
+        nbytes_written = 0
+        for i, dec in decoders.items():
+            for name, tree in zip(files[i], (frozen["encoder"], dec)):
+                path = save_component(f"{save_dir}/{name}", tree)
+                nbytes_written += Path(path).stat().st_size
+        log("score", f"wrote {SCORE_SETS} checkpoint sets "
+            f"({nbytes_written / 1e6:.1f} MB) in "
+            f"{time.perf_counter() - t0:.2f} s")
+
+        def loader(i):
+            return cli.load_eval_components(save_dir, files[i], cap)
+
+        pkl = f"{tmp}/coco_scores.pkl"
+        torch.cuda.synchronize()
+        reset_counts()
+        with PlainCalls() as plain, SetTimes(ev, cap, expected) as sets:
+            t0 = time.perf_counter()
+            scores = ev.evaluate("base-soft", "coco", cap,
+                                 sets.loader(loader), data, w2i, i2w, cfg,
+                                 num_sets=SCORE_SETS, scores_pickle=pkl,
+                                 quiet=True)
+            total = time.perf_counter() - t0
+        launches = read_counts()
+        with open(pkl, "rb") as f:
+            pickled = pickle.load(f)
+        reset_counts()
+        with PlainCalls() as beam_plain, SetTimes(ev, cap, expected) as beam:
+            t0 = time.perf_counter()
+            beam_scores = ev.evaluate("base-soft", "coco", cap,
+                                      beam.loader(loader), data, w2i, i2w,
+                                      cfg, num_sets=1, beam_size=BEAM,
+                                      quiet=True)
+            beam_total = time.perf_counter() - t0
+        beam_launches = read_counts()
+
+    chunks = -(-SCORE_IMAGES // SCORE_BATCH)
+    want = dict.fromkeys(launches, 0)
+    want["decode_seq"] = chunks * SCORE_SETS
+    if launches != want:
+        raise RuntimeError(f"score launches {launches}, expected {want}")
+    want = dict.fromkeys(beam_launches, 0)
+    want["beam_seq"] = chunks
+    if beam_launches != want:
+        raise RuntimeError(f"score beam launches {beam_launches}, expected "
+                           f"{want}")
+    if plain.calls or beam_plain.calls:
+        raise RuntimeError(f"plain versions ran on the score path: "
+                           f"{sorted(set(plain.calls + beam_plain.calls))}")
+    if sets.hypos[0] != want1:
+        bad = sum(a != b for a, b in zip(sets.hypos[0], want1))
+        raise RuntimeError(f"set 1's hypotheses differ from the pipeline's "
+                           f"captions on {bad} of {len(want1)} images")
+    if sets.hypos[0] == sets.hypos[1]:
+        raise RuntimeError("sets 1 and 2 gave the same hypotheses")
+    for result, n in ((scores, SCORE_SETS), (beam_scores, 1)):
+        if list(result) != list(ev.METRIC_KEYS) or not all(
+                len(v) == n and np.all(np.isfinite(v))
+                for v in result.values()):
+            raise RuntimeError(f"bad scores {result}")
+    if pickled != scores:
+        raise RuntimeError("the scores pickle differs from the scores")
+    for i, row in enumerate(sets.rows + beam.rows, 1):
+        tag = f"set {i}" if i <= SCORE_SETS else "set 1, beam 5"
+        t = row["read"] + row["copy"] + row["caption"] + row["score"]
+        log("score", f"{tag}: load {row['read'] + row['copy']:.3f} s (read "
+            f"{row['read']:.3f}, copy to the card {row['copy']:.3f}), "
+            f"caption {row['caption']:.3f} s, host scoring "
+            f"{row['score']:.3f} s; {SCORE_IMAGES / t:.1f} scored images/s "
+            f"[{smi}]")
+    log("score", f"{SCORE_SETS} sets of {SCORE_IMAGES} images in "
+        f"{total:.2f} s: {SCORE_SETS * SCORE_IMAGES / total:.1f} scored "
+        f"images/s end to end; beam 5, one set: {beam_total:.2f} s, "
+        f"{SCORE_IMAGES / beam_total:.1f} images/s [{smi}]")
+    log("score", "means over the sets: " + ", ".join(
+        f"{k} {np.mean(v):.4g}" for k, v in scores.items())
+        + f"; beam 5: CIDEr {beam_scores['CIDEr'][0]:.4g}")
+    log("score", f"launches {launches} and, beam, {beam_launches} for "
+        f"{chunks} chunks a set; loaded weights bit-equal to the written "
+        f"ones; set 1 = the pipeline's {len(want1)} captions; plain calls 0")
+    return {k: launches[k] + beam_launches[k] for k in launches}
+
+
 def main():
     smi = phase_env()
     import torch
@@ -1334,7 +1560,8 @@ def main():
     beam_k = phase_beam_kernel(smi)
     beam = phase_beam_path(smi, base_cap)
     sample = phase_sample_path(smi, base_cap)
-    by_path = dict(zip(PATHS, (base, depth, nic, beam, sample)))
+    score = phase_score_path(smi, base_cap)
+    by_path = dict(zip(PATHS, (base, depth, nic, beam, sample, score)))
     kernels = [step, seq, nic_k, beam_k, vit]
     for entry in kernels:
         counts = {path: c[entry["name"]] for path, c in by_path.items()}

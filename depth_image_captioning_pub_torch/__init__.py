@@ -3,16 +3,20 @@
 A second package beside ``depth_image_captioning_pub_tpu`` (the JAX/Pallas
 reference, which this package never imports, not even its modules that
 load no JAX: it keeps its own copies of what it uses, ``config``,
-``data.tokenizer``, ``data.vocab`` and ``data.pipeline``). Module paths
+``data.tokenizer``, ``data.vocab``, ``data.pipeline``, ``data.coco`` and
+``metrics``). Module paths
 and names mirror the JAX package's, so the counterpart of ``X`` there is
 ``X`` here. Entry points run on the CUDA card unless the caller asks for
 the CPU (``device="cpu"``, ``--device cpu``).
 
-The ported paths are NIC, base-soft and depth-soft captioning, greedy and
-beam search:
+The ported paths are NIC, base-soft and depth-soft captioning (greedy,
+beam search, sampling) and the scored evaluation of the JAX trainer's
+checkpoint sets:
 
 ``config``    ``ConfigTrain`` / ``ConfigEval``.
-``data``      special tokens, detokenizer, vocabulary, eval batches.
+``data``      special tokens, detokenizer, vocabulary, eval batches, the
+              COCO reader.
+``metrics``   BLEU-1..4, METEOR, ROUGE-L, CIDEr.
 ``ops``       image ops (incl. the DPT's resize/normalize/standardize),
               pooling, soft attention, LSTM cell and stacked step, beam
               search (``ops.decode``), and the CUDA kernels' Python
@@ -21,11 +25,16 @@ beam search:
 ``models``    ResNet-152 grid encoder, DPT-hybrid depth estimator, depth
               CNN encoder, attention decoder (add fusion), NIC decoder,
               captioner.
-``engine``    ``make_caption_fn`` / ``generate_captions``.
-``pipeline``  ``CaptionPipeline``: uint8 arrays in, captions out.
-``utils``     ``jax_bridge.params_from_jax`` / ``dpt_params_from_jax``:
-              load the JAX package's parameter trees.
+``engine``    ``make_caption_fn`` / ``generate_captions`` / ``evaluate``.
+``pipeline``  ``CaptionPipeline``: uint8 arrays in, captions out;
+              ``from_experiment`` loads a checkpoint set.
+``utils``     ``jax_bridge`` (``params_from_jax`` / ``params_to_jax`` /
+              ``dpt_params_from_jax``: the JAX package's parameter
+              trees), ``checkpoint`` and ``msgpack_codec`` (the JAX
+              trainer's flax msgpack files).
 ``cli``       ``python -m depth_image_captioning_pub_torch.cli caption``.
+``evaluation`` ``python -m depth_image_captioning_pub_torch.evaluation``:
+              score checkpoint sets.
 """
 
 __version__ = "0.1.0"

@@ -21,11 +21,19 @@ under ``frozen/dpt``, the DPT) or, without ``--weights``, are drawn from
 does. ``--tiny-dpt`` shrinks the DPT to the tests' size (64x64 input).
 Without ``--vocab`` a placeholder vocabulary of ``--vocab-size`` words is
 used, which is only good for seeded weights. Prints one caption per line.
+
+The module also holds what the scored evaluation
+(``depth_image_captioning_pub_torch.evaluation``) and
+``CaptionPipeline.from_experiment`` share with the JAX package's
+``cli.py``: the data and checkpoint tables of the reference's ``useData``
+switch and ``load_eval_components``, which reads one checkpoint set that
+the JAX trainer wrote.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 from typing import Dict, List, Optional, Tuple
 
@@ -50,12 +58,14 @@ def _ints(text: str) -> Tuple[int, ...]:
 
 
 def make_depth_fn(dpt_variables=None, *, tiny: bool = False,
-                  device="cuda", seed: int = 0):
+                  device="cuda", seed: int = 0,
+                  hint: str = "pass DPT weights under frozen/dpt of "
+                              "--weights"):
     """The bf16 DPT's standardized-depth function (counterpart of the JAX
     ``cli.make_depth_fn``). ``dpt_variables`` is the flax DPT tree
     ({"params": ...}); without it the weights are drawn from ``seed``, with
-    the JAX CLI's warning. ``tiny`` builds the tests' DPT (``dpt.TINY_DPT``
-    at 64x64)."""
+    the JAX CLI's warning (``hint`` says where weights would come from).
+    ``tiny`` builds the tests' DPT (``dpt.TINY_DPT`` at 64x64)."""
     from depth_image_captioning_pub_torch.models.dpt import (
         TINY_DPT, DPTDepthEstimator)
     from depth_image_captioning_pub_torch.utils.jax_bridge import (
@@ -65,11 +75,103 @@ def make_depth_fn(dpt_variables=None, *, tiny: bool = False,
     if dpt_variables is not None:
         dpt_params_from_jax(est, dpt_variables)
     else:
-        print("WARNING: no DPT weights found (pass DPT weights under "
-              "frozen/dpt of --weights); using random init — depth maps "
-              "will be noise", file=sys.stderr)
+        print(f"WARNING: no DPT weights found ({hint}); using random init "
+              f"— depth maps will be noise", file=sys.stderr)
         est.init(torch.Generator().manual_seed(seed))
     return est.depth_fn()
+
+
+def resnet_layers_from_env() -> Optional[Tuple[int, ...]]:
+    """$DCAP_RESNET_LAYERS="1,1,1,1" shrinks the backbone (tests, CPU
+    runs); unset -> ResNet-152."""
+    raw = os.environ.get("DCAP_RESNET_LAYERS")
+    return _ints(raw) if raw else None
+
+
+def eval_depth_fn(cfg, device="cuda"):
+    """The DPT of a scored depth evaluation: the Omnidata weights of
+    ``cfg.dpt_weights`` / $DPT_WEIGHTS are not readable yet, so without
+    them the DPT is drawn from seed 0 with the JAX warning;
+    $DCAP_TINY_DPT builds the tests' DPT."""
+    weights = cfg.dpt_weights or os.environ.get("DPT_WEIGHTS")
+    if weights and os.path.exists(weights):
+        raise NotImplementedError(
+            f"DPT weights {weights}: the Omnidata checkpoint loader is not "
+            f"yet ported (ROADMAP.md, Queue A item 7)")
+    return make_depth_fn(tiny=bool(os.environ.get("DCAP_TINY_DPT")),
+                         device=device,
+                         hint="set --dpt-weights or $DPT_WEIGHTS")
+
+
+def eval_data_selection(cfg: ConfigEval, use_data: str
+                        ) -> Tuple[str, str, str, Optional[str], bool]:
+    """(word_to_id_path, id_to_word_path, anno_file, index_file, use_ori)
+    per the reference's useData switch."""
+    if use_data == "coco":
+        return (cfg.word_to_id_file, cfg.id_to_word_file, cfg.val_anno_file,
+                cfg.index_dir, False)
+    if use_data == "rem_coco":
+        return (cfg.ori_word_to_id_file, cfg.ori_id_to_word_file,
+                cfg.remCOCO_ori_val_anno_file,
+                cfg.remCOCO_500_ori_index_dir, True)
+    if use_data == "rem_original":
+        return (cfg.ori_word_to_id_file, cfg.ori_id_to_word_file,
+                cfg.rem_ori_val_anno_file, None, True)
+    raise ValueError("input coco or rem_coco or rem_original")
+
+
+def eval_tables(cfg: ConfigEval, atten: str, use_ori: bool, depth: bool,
+                encoder: str = "cnn") -> Tuple[str, Dict[int, list]]:
+    """(save_directory, checkpoint-filename table) of one configuration;
+    ``encoder="mlp"`` selects the mdepth_* tables."""
+    if depth:
+        m = encoder == "mlp"
+        if atten == "soft":
+            return ((cfg.save_directory_Cdep_soft_ori,
+                     cfg.mdepth_soft_ori_parameter_files if m else
+                     cfg.depth_soft_ori_parameter_files) if use_ori else
+                    (cfg.save_directory_Cdep_soft,
+                     cfg.mdepth_soft_parameter_files if m else
+                     cfg.depth_soft_parameter_files))
+        return ((cfg.save_directory_Cdep_hard_ori,
+                 cfg.mdepth_hard_ori_parameter_files if m else
+                 cfg.depth_hard_ori_parameter_files) if use_ori else
+                (cfg.save_directory_Cdep_hard,
+                 cfg.mdepth_hard_parameter_files if m else
+                 cfg.depth_hard_parameter_files))
+    if atten == "soft":
+        return ((cfg.save_directory_soft_ori,
+                 cfg.base_soft_ori_parameter_files) if use_ori else
+                (cfg.save_directory_soft, cfg.base_soft_parameter_files))
+    return ((cfg.save_directory_hard_ori,
+             cfg.base_hard_ori_parameter_files) if use_ori else
+            (cfg.save_directory_hard, cfg.base_hard_parameter_files))
+
+
+def load_eval_components(save_directory: str, files, cap):
+    """One checkpoint set that the JAX trainer wrote: (frozen encoder,
+    trainable params, batch_stats), the trees ``params_from_jax`` takes
+    (with ``frozen={"encoder": ...}``). ``files`` is a row of a
+    ``*_parameter_files`` table: encoder, decoder and, for depth kinds,
+    the depth encoder's ``{"params", "batch_stats"}`` bundle; NIC's
+    projection is a file of its own, the encoder's name with "encoder"
+    replaced by "enc_linear"."""
+    from depth_image_captioning_pub_torch.utils.checkpoint import (
+        load_component)
+
+    def load(name):
+        return load_component(os.path.join(save_directory, name))
+
+    frozen_enc = load(files[0])
+    params = {"decoder": load(files[1])}
+    stats: Dict = {}
+    if cap.spec.is_nic:
+        params["enc_linear"] = load(files[0].replace("encoder", "enc_linear"))
+    elif cap.spec.uses_depth:
+        bundle = load(files[2])
+        params["depth_encoder"] = bundle["params"]
+        stats = bundle["batch_stats"]
+    return frozen_enc, params, stats
 
 
 def build_pipeline(args: argparse.Namespace):

@@ -1,5 +1,5 @@
-"""Batched caption generation (counterpart of the JAX
-``engine/evaluate.py``): NIC, base-soft and depth-soft, greedy, beam
+"""Batched caption generation and scored evaluation (counterpart of the
+JAX ``engine/evaluate.py``): NIC, base-soft and depth-soft, greedy, beam
 search or stochastic sampling, on one device, no caches.
 
 The hot path is ``make_caption_fn``: uint8 NHWC images -> /255 on the
@@ -9,21 +9,36 @@ encoder; the decoder adds (b) to (a) and runs the whole-sequence greedy
 kernel, the whole-search beam kernel or the sampling loop of one-step
 kernels -> token IDs. NIC's encoder is the backbone, a global pool and the
 projection to the LSTM's input.
+
+``evaluate`` scores checkpoint sets: for each, the trees from the loader
+go into the captioner's modules, ``generate_captions`` captions the
+dataset and the seven metrics of ``metrics.score`` are appended to their
+lists. The JAX package's caches of the frozen stages across sets are not
+ported; it documents them as bit-identical to a recompute, which is what
+each set runs here.
 """
 
 from __future__ import annotations
 
+import pickle
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from depth_image_captioning_pub_torch.config import ConfigEval
 from depth_image_captioning_pub_torch.data.pipeline import (
     Prefetcher, eval_batches)
-from depth_image_captioning_pub_torch.data.tokenizer import ids_to_caption
+from depth_image_captioning_pub_torch.data.tokenizer import (
+    SPECIAL, ids_to_caption)
+from depth_image_captioning_pub_torch.metrics import load_textfiles, score
 from depth_image_captioning_pub_torch.models.captioner import Captioner
 from depth_image_captioning_pub_torch.ops.image_ops import (
     imagenet_normalize, to_unit_float)
+from depth_image_captioning_pub_torch.utils.jax_bridge import params_from_jax
+
+METRIC_KEYS = ("Bleu_1", "Bleu_2", "Bleu_3", "Bleu_4", "METEOR", "ROUGE_L",
+               "CIDEr")
 
 
 def make_caption_fn(cap: Captioner, start_id: int, max_length: int = 30,
@@ -133,3 +148,45 @@ def generate_captions(caption_fn: Callable, dataset,
     for entry in pending:
         drain(entry)
     return hypos, refs
+
+
+def evaluate(kind: str, use_data: str, cap: Captioner,
+             checkpoint_loader: Callable[[int], Tuple],
+             dataset, word_to_id: Dict[str, int], id_to_word: Dict[int, str],
+             cfg: Optional[ConfigEval] = None,
+             depth_fn: Optional[Callable] = None, num_sets: int = 3,
+             scores_pickle: Optional[str] = None, beam_size: int = 1,
+             quiet: bool = False) -> Dict[str, List[float]]:
+    """Score ``num_sets`` checkpoint sets of one configuration (``kind``
+    and ``use_data`` name it, as in the JAX package); returns, and pickles
+    to ``scores_pickle``, {metric: [one score per set]}.
+
+    ``checkpoint_loader(set_index)`` (1-based) -> (frozen encoder,
+    trainable params, batch_stats) trees, e.g. ``cli.load_eval_components``.
+    Each set's trees are copied into ``cap`` (``params_from_jax``) and the
+    dataset is captioned on ``cap``'s device in ``cfg.batch_size`` batches
+    of at most ``cfg.max_length`` tokens: greedy decode with the <end>
+    exit (the greedy kernels), or beam search when ``beam_size > 1``.
+    Depth kinds need ``depth_fn``, as ``make_caption_fn`` does.
+    """
+    cfg = cfg or ConfigEval()
+    caption_fn = make_caption_fn(cap, word_to_id[SPECIAL.start],
+                                 cfg.max_length, depth_fn,
+                                 end_id=word_to_id[SPECIAL.end],
+                                 beam_size=beam_size)
+    scores: Dict[str, List[float]] = {k: [] for k in METRIC_KEYS}
+    for set_idx in range(1, num_sets + 1):
+        frozen_enc, params, batch_stats = checkpoint_loader(set_idx)
+        params_from_jax(cap, params, {"encoder": frozen_enc}, batch_stats)
+        hypos, refs = generate_captions(caption_fn, dataset, word_to_id,
+                                        id_to_word, cfg.batch_size,
+                                        cap.device)
+        result = score(*load_textfiles(refs, hypos))
+        if not quiet:
+            print(result)
+        for k, v in result.items():
+            scores[k].append(v)
+    if scores_pickle:
+        with open(scores_pickle, "wb") as f:
+            pickle.dump(scores, f)
+    return scores

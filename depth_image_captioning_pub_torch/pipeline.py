@@ -30,10 +30,15 @@ padded (with repeats of its rows) to the smallest bucket that fits; padding
 rows are dropped before detokenization, so captions do not depend on the
 bucket. Chunk i+1 is dispatched before the host waits for chunk i's tokens.
 
-Parameters live in the captioner's modules on its device. Loading from an
-experiment directory, several devices and hot reload wait for later
-slices (ROADMAP.md), as does decoding JPEG paths: images are uint8 [H, W,
-3] arrays at ``image_hw``.
+Parameters live in the captioner's modules on its device.
+``CaptionPipeline.from_experiment("base-soft", set_idx=1)`` builds the
+captioner and loads one checkpoint set that the JAX trainer wrote (the
+``exp_result/`` layout of ``ConfigEval``'s tables, ``cli.load_eval_
+components``); ``reload_weights`` swaps trees in place and
+``reload_from_experiment`` re-reads the same files. The decoders repack
+their kernel weights on every call, so a swap reaches the next chunk.
+Several devices wait for a later slice (ROADMAP.md), as does decoding
+JPEG paths: images are uint8 [H, W, 3] arrays at ``image_hw``.
 """
 
 from __future__ import annotations
@@ -63,6 +68,7 @@ class CaptionPipeline:
                  top_p: float = 1.0, seed: int = 0):
         self.cap = cap
         self.device = cap.device
+        self._experiment = None     # (save_dir, files) of from_experiment
         self.max_length = int(max_length)
         self.id_to_word = id_to_word
         self.batch_buckets = tuple(sorted({int(b) for b in batch_buckets}))
@@ -83,6 +89,70 @@ class CaptionPipeline:
             sampling=({"temperature": temperature, "top_k": top_k,
                        "top_p": top_p} if self.sample else None),
             generator=self.generator)
+
+    @classmethod
+    def from_experiment(cls, kind: str, use_data: str = "coco", cfg=None,
+                        set_idx: int = 1, device="cuda", **kwargs
+                        ) -> "CaptionPipeline":
+        """The pipeline over checkpoint set ``set_idx`` (1-based) of
+        ``kind`` that the evaluation would score: the vocabulary and the
+        ``exp_result/`` files of ``cfg`` (a ``ConfigEval``), on ``device``.
+        ``use_data="original"`` selects the original-dataset vocabulary and
+        tables. $DCAP_RESNET_LAYERS shrinks the backbone; a depth kind gets
+        ``cli.eval_depth_fn``'s DPT. ``kwargs`` go to the constructor."""
+        from depth_image_captioning_pub_torch import cli
+        from depth_image_captioning_pub_torch.config import ConfigEval
+        from depth_image_captioning_pub_torch.data.vocab import load_vocab
+        from depth_image_captioning_pub_torch.models.captioner import (
+            build_captioner)
+
+        cfg = cfg or ConfigEval()
+        base, atten = (kind.split("-") + ["soft"])[:2]
+        use_ori = use_data == "original"
+        word_to_id, id_to_word = load_vocab(
+            cfg.ori_word_to_id_file if use_ori else cfg.word_to_id_file)
+        cap = build_captioner(kind, len(word_to_id), cfg,
+                              resnet_layers=cli.resnet_layers_from_env(),
+                              device=device)
+        if kind == "nic":
+            save_dir, tables = cfg.save_directory_nic, cfg.nic_parameter_files
+        else:
+            save_dir, tables = cli.eval_tables(
+                cfg, atten, use_ori, base in ("depth", "mdepth"),
+                encoder="mlp" if base == "mdepth" else "cnn")
+        depth_fn = (cli.eval_depth_fn(cfg, device) if cap.spec.uses_depth
+                    else None)
+        pipe = cls(cap, word_to_id, id_to_word, depth_fn=depth_fn,
+                   max_length=cfg.max_length, **kwargs)
+        pipe._experiment = (save_dir, tables[set_idx])
+        pipe.reload_from_experiment()
+        return pipe
+
+    def reload_weights(self, trainable=None, frozen_enc=None,
+                       batch_stats=None) -> None:
+        """Copy the JAX package's trees into the captioner in place; a tree
+        left out keeps its current values. Not synchronized with a
+        concurrent call: the caller serializes a swap with inference."""
+        from depth_image_captioning_pub_torch.utils.jax_bridge import (
+            params_from_jax, params_to_jax)
+        if None in (trainable, frozen_enc, batch_stats):
+            cur_t, cur_f, cur_s = params_to_jax(self.cap)
+            trainable = cur_t if trainable is None else trainable
+            frozen_enc = cur_f["encoder"] if frozen_enc is None else frozen_enc
+            batch_stats = cur_s if batch_stats is None else batch_stats
+        params_from_jax(self.cap, trainable, {"encoder": frozen_enc},
+                        batch_stats)
+
+    def reload_from_experiment(self) -> None:
+        """Re-read the checkpoint files this pipeline was built from (after
+        training rewrote them) and swap the weights; the DPT is kept."""
+        if self._experiment is None:
+            raise RuntimeError("pipeline was not built by from_experiment; "
+                               "use reload_weights(...) directly")
+        from depth_image_captioning_pub_torch import cli
+        frozen_enc, trainable, stats = cli.load_eval_components(
+            *self._experiment, self.cap)
+        self.reload_weights(trainable, frozen_enc, stats)
 
     def caption_tokens(self, arrays: np.ndarray) -> np.ndarray:
         """[N,H,W,3] uint8 -> [N, max_length] int32 token IDs."""

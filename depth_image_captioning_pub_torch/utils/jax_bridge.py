@@ -27,7 +27,11 @@ GroupNorm, LayerNorm) becomes ``weight``, ``mean``/``var`` become
 ``running_mean``/``running_var``; other leaves (the DPT's ``cls_token`` and
 ``pos_embed``) keep their names. Decoder params keep their names and
 layout. The flax module names are the port's module names, and loading is
-strict: a missing or extra tensor raises.
+strict: a missing or extra tensor raises. ``params_to_jax`` is the inverse:
+the port's parameters back to the three trees, every leaf float32 (the
+JAX package's parameter dtype; bf16 conv weights convert exactly). A
+bfloat16 leaf read from a checkpoint (``msgpack_codec.BFloat16Bits``)
+loads bit for bit.
 
 ``save_npz``/``load_npz`` keep the three trees in one ``.npz`` file, keys
 being the tree paths joined with ``/`` under ``trainable/``, ``frozen/``
@@ -42,14 +46,25 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from depth_image_captioning_pub_torch.utils.msgpack_codec import (
+    BFloat16Bits, bf16_tensor)
+
 Tree = Dict[str, Any]
 
 _RENAME = {"scale": "weight", "mean": "running_mean", "var": "running_var"}
+_STATS = {"running_mean": "mean", "running_var": "var"}
+
+
+def _leaf(val) -> np.ndarray:
+    """A tree leaf as numpy; bfloat16 bits as their float32 values."""
+    if isinstance(val, BFloat16Bits):
+        return bf16_tensor(val).float().numpy()
+    return np.asarray(val)
 
 
 def _kernel_leaf(kernel) -> np.ndarray:
     """flax conv (HWIO) or Dense ([in, out]) kernel -> torch layout."""
-    k = np.asarray(kernel)
+    k = _leaf(kernel)
     k = k.transpose(3, 2, 0, 1) if k.ndim == 4 else k.T
     return np.ascontiguousarray(k)
 
@@ -72,7 +87,7 @@ def flax_state_dict(params: Tree, stats: Optional[Tree] = None,
             elif key == "kernel":
                 out[join("weight")] = _kernel_leaf(val)
             else:
-                out[join(_RENAME.get(key, key))] = np.asarray(val)
+                out[join(_RENAME.get(key, key))] = _leaf(val)
     return out
 
 
@@ -84,7 +99,7 @@ def encoder_state_dict(enc_vars: Tree) -> Dict[str, np.ndarray]:
 
 def _load(module: torch.nn.Module, arrays: Dict[str, np.ndarray]) -> None:
     module.load_state_dict(
-        {k: torch.from_numpy(np.array(v, dtype=np.float32))
+        {k: torch.from_numpy(np.array(_leaf(v), dtype=np.float32))
          for k, v in arrays.items()}, strict=True)
 
 
@@ -119,6 +134,53 @@ def params_from_jax(cap, trainable: Tree, frozen: Tree,
     if depth is not None:
         _load(depth, flax_state_dict(trainable["depth_encoder"],
                                      batch_stats))
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    return t.detach().to("cpu", torch.float32, copy=True).numpy()
+
+
+def flax_trees(module: torch.nn.Module) -> Tuple[Tree, Tree]:
+    """The inverse of ``flax_state_dict``: a module's state -> (params,
+    batch_stats) flax trees, float32."""
+    params: Tree = {}
+    stats: Tree = {}
+    for key, val in module.state_dict().items():
+        *path, name = key.split(".")
+        arr = _numpy(val)
+        tree = params
+        if name in _STATS:
+            tree, name = stats, _STATS[name]
+        elif name == "weight" and arr.ndim == 1:
+            name = "scale"
+        elif name == "weight":
+            arr = np.ascontiguousarray(arr.transpose(2, 3, 1, 0)
+                                       if arr.ndim == 4 else arr.T)
+            name = "kernel"
+        for part in path:
+            tree = tree.setdefault(part, {})
+        tree[name] = arr
+    return params, stats
+
+
+def params_to_jax(cap) -> Tuple[Tree, Tree, Tree]:
+    """``cap``'s parameters as the JAX package's (trainable, frozen,
+    batch_stats) trees: the inverse of ``params_from_jax``."""
+    decoder = {k: _numpy(v) for k, v in cap.decoder.state_dict().items()}
+    if cap.spec.is_nic:
+        enc_params, enc_stats = flax_trees(cap.backbone)
+        trainable = {"enc_linear": flax_trees(cap.projection)[0],
+                     "decoder": decoder}
+        return (trainable, {"encoder": {"params": enc_params,
+                                        "batch_stats": enc_stats}}, {})
+    enc_params, enc_stats = flax_trees(cap.encoder)
+    frozen = {"encoder": {"params": enc_params, "batch_stats": enc_stats}}
+    trainable: Tree = {"decoder": decoder}
+    batch_stats: Tree = {}
+    if cap.depth_module is not None:
+        trainable["depth_encoder"], batch_stats = flax_trees(
+            cap.depth_module)
+    return trainable, frozen, batch_stats
 
 
 def dpt_params_from_jax(dpt, dpt_variables: Tree) -> None:

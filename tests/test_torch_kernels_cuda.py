@@ -25,7 +25,11 @@ in f32, atol 1e-5 (sums in another order); in bf16 (the tensor-core
 route, at d = 32, 64, 128 and N from 1 to 2048), atol of one bf16 ulp of
 max|v| (2^-7 * max|v|; each output is a convex mix of v's rows, so
 |out| <= max|v|), because p and the output are rounded to bf16 and an f32
-sum in another order can round either way.
+sum in another order can round either way. A two-set scored evaluation
+(``engine/evaluate.evaluate`` over checkpoint files that
+``utils/checkpoint.save_component`` wrote) on the card agrees with the
+same run on the CPU on >= 99% of caption words, with finite scores (f32
+encoders: cuDNN and the CPU sum the convs in other orders).
 """
 
 import numpy as np
@@ -729,3 +733,87 @@ def test_depth_soft_beam_sample_on_card_matches_cpu(cuda):
                                          beam_size=5)
     assert (got.cpu() == want).float().mean().item() >= 0.99
     torch.testing.assert_close(got_s.cpu(), want_s, atol=1e-3, rtol=0)
+
+
+class _ImageSet:
+    """Seeded uint8 images with five placeholder-word references each."""
+
+    def __init__(self, n, hw, words, seed):
+        rng = np.random.default_rng(seed)
+        self.images = rng.integers(0, 256, (n, hw, hw, 3), dtype=np.uint8)
+        self.refs = [[" ".join(rng.choice(words, rng.integers(3, 12)))
+                      for _ in range(5)] for _ in range(n)]
+
+    def __len__(self):
+        return len(self.images)
+
+    def load_image(self, i):
+        return self.images[i]
+
+    def captions(self, i):
+        return self.refs[i]
+
+
+def _scale_kernels(tree, factor):
+    """Random torch-default conv inits shrink activations layer by layer;
+    scaled kernels keep the features image-dependent."""
+    return {k: (_scale_kernels(v, factor) if isinstance(v, dict)
+                else v * factor if k == "kernel" else v)
+            for k, v in tree.items()}
+
+
+def test_evaluate_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
+    from depth_image_captioning_pub_torch import cli
+    from depth_image_captioning_pub_torch.config import ConfigEval
+    from depth_image_captioning_pub_torch.engine import evaluate as ev
+    from depth_image_captioning_pub_torch.models.captioner import (
+        build_captioner)
+    from depth_image_captioning_pub_torch.utils.checkpoint import (
+        save_component)
+    from depth_image_captioning_pub_torch.utils.jax_bridge import (
+        params_to_jax)
+    w2i, i2w = cli.placeholder_vocab(SHAPES["main"][-1])
+    cfg = ConfigEval()
+    cfg.batch_size = 16
+    cfg.save_directory_soft = str(tmp_path)
+    save_dir, files = cli.eval_tables(cfg, "soft", False, False)
+
+    def captioner(device):
+        return build_captioner("base-soft", len(w2i), cfg,
+                               encoder_dtype=torch.float32,
+                               resnet_layers=(1, 1, 1, 1), device=device)
+
+    src = captioner("cpu")
+    for i in (1, 2):
+        src.init(torch.Generator().manual_seed(i))
+        trainable, frozen, _ = params_to_jax(src)
+        save_component(f"{save_dir}/{files[i][0]}",
+                       _scale_kernels(frozen["encoder"], 3.0))
+        save_component(f"{save_dir}/{files[i][1]}", trainable["decoder"])
+    data = _ImageSet(32, 224, [f"w{i}" for i in range(50)], seed=0)
+
+    hypos = {}
+    load_textfiles = ev.load_textfiles
+    for device in ("cuda", "cpu"):
+        rec = hypos.setdefault(device, [])
+        monkeypatch.setattr(ev, "load_textfiles", lambda r, h, rec=rec: (
+            rec.append(list(h)) or load_textfiles(r, h)))
+        cap = captioner(device)
+        before = decode_seq.LAUNCHES
+        scores = ev.evaluate(
+            "base-soft", "coco", cap,
+            lambda i: cli.load_eval_components(save_dir, files[i], cap),
+            data, w2i, i2w, cfg, num_sets=2, quiet=True)
+        # 2 sets x 2 batches of 16 on K2; the CPU runs the plain version
+        assert decode_seq.LAUNCHES == before + (4 if device == "cuda" else 0)
+        assert all(len(v) == 2 and np.all(np.isfinite(v))
+                   for v in scores.values())
+    assert len(hypos["cuda"]) == len(hypos["cpu"]) == 2
+    assert hypos["cuda"][0] != hypos["cuda"][1]
+    for got, want in zip(hypos["cuda"], hypos["cpu"]):
+        same = total = 0
+        for g, w in zip(got, want):
+            g, w = g.split(), w.split()
+            same += sum(a == b for a, b in zip(g, w))
+            total += max(len(g), len(w))
+        assert total and same >= 0.99 * total, (same, total)

@@ -1,11 +1,15 @@
 """Rules the port keeps, checked on the CPU.
 
 * No module of ``depth_image_captioning_pub_torch`` and not
-  ``chip_smoke.py`` imports ``jax``, ``flax`` or
-  ``depth_image_captioning_pub_tpu`` (an AST walk over every import).
+  ``chip_smoke.py`` imports ``jax``, ``flax``, ``msgpack``, ``ml_dtypes``
+  or ``depth_image_captioning_pub_tpu`` (an AST walk over every import),
+  and Pillow is imported only inside functions (the card's machine has
+  none).
 * The port's own copies of the JAX package's framework-free code behave as
   the originals: ``ConfigTrain``/``ConfigEval`` field by field, the
-  detokenizer, the vocabulary loader and the evaluation batches.
+  detokenizer, the vocabulary loader and the evaluation batches; the
+  caption metrics are the JAX package's files with only the import paths
+  rewritten.
 * The entry points run on the CUDA card unless the caller asks for the
   CPU: their default device is ``"cuda"``, and without a card a default
   call raises instead of running on the CPU.
@@ -25,15 +29,17 @@ from depth_image_captioning_pub_tpu import config as jconfig
 from depth_image_captioning_pub_tpu.data import pipeline as jpipeline
 from depth_image_captioning_pub_tpu.data import tokenizer as jtokenizer
 from depth_image_captioning_pub_tpu.data import vocab as jvocab
-from depth_image_captioning_pub_torch import cli
+from depth_image_captioning_pub_torch import cli, evaluation
 from depth_image_captioning_pub_torch import config as tconfig
 from depth_image_captioning_pub_torch.data import pipeline as tpipeline
 from depth_image_captioning_pub_torch.data import tokenizer as ttokenizer
 from depth_image_captioning_pub_torch.data import vocab as tvocab
 from depth_image_captioning_pub_torch.models import captioner, dpt
+from depth_image_captioning_pub_torch.pipeline import CaptionPipeline
 
 REPO = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "depth_image_captioning_pub_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "msgpack", "ml_dtypes",
+             "depth_image_captioning_pub_tpu")
 
 
 def _port_sources():
@@ -57,6 +63,46 @@ def test_port_and_chip_smoke_import_no_jax():
            for p in files for root, line in _imported_roots(p)
            if root in FORBIDDEN]
     assert not bad, bad
+
+
+def _module_level_imports(tree):
+    """Import nodes outside every function body."""
+    for node in ast.iter_child_nodes(tree):
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            yield node
+        elif not isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            yield from _module_level_imports(node)
+
+
+def _names(node):
+    if isinstance(node, ast.Import):
+        return [a.name.split(".")[0] for a in node.names]
+    return [node.module.split(".")[0]] if node.level == 0 else []
+
+
+def test_pillow_imported_only_in_functions():
+    bad = [f"{p.relative_to(REPO)}:{node.lineno}"
+           for p in _port_sources()
+           for node in _module_level_imports(ast.parse(p.read_text()))
+           if "PIL" in _names(node)]
+    assert not bad, bad
+    src = ast.parse("import PIL\nclass A:\n    from PIL import Image\n"
+                    "def f():\n    import PIL.Image\n")
+    assert [n.lineno for n in _module_level_imports(src)
+            if "PIL" in _names(n)] == [1, 3]
+
+
+def test_metrics_copies_equal_jax():
+    jdir = REPO / "depth_image_captioning_pub_tpu" / "metrics"
+    tdir = REPO / "depth_image_captioning_pub_torch" / "metrics"
+    names = sorted(p.name for p in jdir.glob("*.py"))
+    assert names == sorted(p.name for p in tdir.glob("*.py"))
+    assert {"bleu.py", "cider.py", "meteor.py", "porter.py", "rouge.py",
+            "scorer.py", "__init__.py"} <= set(names)
+    for name in names:
+        want = (jdir / name).read_text().replace(
+            "depth_image_captioning_pub_tpu", "depth_image_captioning_pub_torch")
+        assert (tdir / name).read_text() == want, name
 
 
 def test_import_guard_sees_imports(tmp_path):
@@ -133,8 +179,13 @@ def test_entry_points_default_to_cuda():
         "make_depth_fn": inspect.signature(
             cli.make_depth_fn).parameters["device"].default,
     }
+    defaults["from_experiment"] = inspect.signature(
+        CaptionPipeline.from_experiment).parameters["device"].default
+    defaults["eval_depth_fn"] = inspect.signature(
+        cli.eval_depth_fn).parameters["device"].default
     assert set(defaults.values()) == {"cuda"}, defaults
-    assert "is_available" not in inspect.getsource(cli)
+    for module in (cli, evaluation):
+        assert "is_available" not in inspect.getsource(module)
     if torch.cuda.is_available():
         return
     # without a card a default call raises from PyTorch, it does not fall
@@ -158,3 +209,36 @@ def test_cli_device_default_is_cuda(monkeypatch):
               "--length-penalty", "0.7"])
     assert seen["device"] == "cuda" and seen["kind"] == "nic"
     assert seen["beam"] == 3 and seen["length_penalty"] == 0.7
+
+
+@pytest.mark.parametrize("words", [["base", "soft", "score", "coco"],
+                                   ["depth", "soft", "score", "coco"],
+                                   ["nic"]])
+def test_evaluation_device_default_is_cuda(words, tmp_path, monkeypatch):
+    """``evaluation.main`` captions on the card unless ``--device cpu``:
+    without a card it raises where it builds the captioner."""
+    seen = {}
+    monkeypatch.setattr(evaluation, "score_mode",
+                        lambda *a: seen.setdefault("device", a[-1]) and 0)
+    monkeypatch.setattr(evaluation, "nic_mode",
+                        lambda *a: seen.setdefault("device", a[-1]) and 0)
+    assert evaluation.main(list(words)) == 0
+    assert seen["device"] == "cuda"
+    monkeypatch.undo()
+    if torch.cuda.is_available():
+        return
+    # an empty evaluation set in the reference's layout
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("DCAP_RESNET_LAYERS", "1,1,1,1")
+    monkeypatch.setenv("DCAP_TINY_DPT", "1")
+    coco = tmp_path / "dataset" / "coco2014"
+    coco.mkdir(parents=True)
+    with open(coco / "word_to_id.pkl", "wb") as f:
+        pickle.dump({"a": 0, "<start>": 1, "<end>": 2, "<unk>": 3}, f)
+    (coco / "captions_val2014.json").write_text(
+        '{"images": [], "annotations": []}')
+    (tmp_path / "data_index").mkdir()
+    np.save(tmp_path / "data_index" / "np_val_index.npy",
+            np.zeros((0,), np.int64))
+    with pytest.raises((RuntimeError, AssertionError)):
+        evaluation.main(list(words))
