@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """GPU smoke run of the PyTorch port's main paths: base-soft,
 depth-soft and NIC greedy captioning, base-soft beam-5 captioning,
-base-soft stochastic (nucleus) captioning and the scored evaluation of
-base-soft checkpoint sets.
+base-soft stochastic (nucleus) captioning, the scored evaluation of
+base-soft checkpoint sets, and the hard-attention and MLP-depth kinds
+(base-hard, mdepth-soft, depth-hard, mdepth-hard) greedy, by beam search
+and sampled, scored too.
 
 Run from the root of a checkout, on a machine with one CUDA card (written
 for an NVIDIA H100):
@@ -24,7 +26,9 @@ the script exits non-zero:
    queued behind a spin kernel, and the rate of calls through the
    wrapper, which the host sets) and the bound at each B, and in the log
    line the launch's plan (``decode_step.LAST_PLAN``) and ptxas'
-   registers/spills;
+   registers/spills; then at B=64 on mdepth's f32 features at D=2080 and
+   at an odd width (D=2044, A=50, E=H=100, zero-padded for the launch),
+   with the same tolerance, in ``ms_by_shape``;
 4. greedy decode kernel (K2: one cooperative launch, one CTA per SM,
    weights resident in shared memory) vs its plain version at B = 1, 16
    and 64 (V=9956, 30 steps, <end> set): token agreement >= 0.99 at each
@@ -33,7 +37,8 @@ the script exits non-zero:
    step 0 (K2's ``max_abs_err`` is the largest token difference of these
    runs); times, the bound, and in the log line the per-step floor of
    re-reading the features, the CTA count and shared memory of the launch
-   that ran (``decode_seq.LAST_PLAN``) and ptxas' registers/spills;
+   that ran (``decode_seq.LAST_PLAN``) and ptxas' registers/spills; the
+   same at B=64 on mdepth's f32 features at D=2080 and at the odd width;
 5. main path: ``CaptionPipeline`` over a seeded random-weight base-soft
    captioner at full width (ResNet-152 bf16, 224x224, V=9956, buckets
    1/16/64) answers requests of 1, 16 and 100 images; the decode kernel's
@@ -82,7 +87,10 @@ the script exits non-zero:
    <end> forced and with every token tied (zeroed vocab head) at B=64;
    times, the bound, and in the log line the per-step feature floor, the
    launch's plan (``beam_seq.LAST_PLAN``) and ptxas' registers/spills; the
-   kernel is also timed at W=2..5 at B=64;
+   kernel is also timed at W=2..8 at B=64, and at W=6..8, on mdepth's f32
+   features at D=2080 and at an odd width (D=2044, A=50, E=H=100,
+   zero-padded for the launch; exact with <end> forced) held to its plain
+   version as at W=5;
 11. beam path: ``CaptionPipeline(beam_size=5)`` over the base-soft
    captioner at full width answers requests of 1, 16 and 64 images; K4's
    counter grows by one per chunk, K2's does not, no plain version runs;
@@ -110,9 +118,37 @@ the script exits non-zero:
    and differ from set 2's; the seven metrics must hold 3 finite values
    each and the pickle must be written. Per set it prints the load,
    caption and host scoring times and the scored images/s.
+14. base-hard path: ``CaptionPipeline(seed=0)`` over a seeded base-hard
+   captioner at full width (ResNet-152 bf16, 224x224, V=9956, buckets
+   1/16/64; the attention vector and the LSTM's context rows rescaled to a
+   trained model's scales, so that the region noise moves tokens) answers
+   requests of 1, 16 and 64 images; no kernel launches (hard attention
+   runs on PyTorch ops; the JAX package has no TPU kernel for it); the
+   same seed repeats the 16-image request's tokens and seed 1 changes
+   them; on that request's features and noise the card's decoder agrees
+   with the same decoder on the CPU on >= 0.99 of tokens; sampled alphas
+   are exactly one-hot; one 16-image request with ``beam_size=5`` and one
+   with ``sample=True``; the time split of one 64-image chunk (encoder,
+   set-up, the hard loop; the loop on the host clock too).
+15. mdepth-soft path: the mdepth-soft captioner at full width (ResNet-152,
+   phase 7's DPT, ``DepthMLPEncoder`` on 16x16 depth patches, concat to
+   D=2080 f32) answers requests of 1, 16 and 64 images: K5 12 and K2 1
+   launches a chunk, no plain version; the 16-image request agrees with a
+   run through the plain attention and decode on >= 0.99 of tokens; one
+   16-image request with ``beam_size=5`` (K4 1 a chunk) and one with
+   ``sample=True`` (K1 30 a chunk); the time split of one 64-image chunk
+   (RGB encoder, DPT, MLP encoder, set-up, K2).
+16. depth-hard and mdepth-hard at full width: one 16-image request each,
+   greedy and with ``beam_size=5``: K5 12 launches, no decode kernel.
+    Then one base-hard set (phase 14's captioner, scored twice: identical
+   hypotheses) and one mdepth-soft set (phase 15's: K2 4 and K5 48
+   launches), written with ``params_to_jax`` and ``save_component`` in the
+   JAX trainer's files and scored by ``evaluate`` on phase 13's 256
+   images: reloaded weights bit-equal, the load, caption and scoring
+   seconds printed.
 
-Each path (phases 5, 7, 9, 11, 12, 13) runs with every launch counter set to
-0 just before it and read just after. The line before the last is a JSON
+Each path (phases 5, 7, 9, 11-16: ``PATHS``) runs with every launch counter
+set to 0 just before it and read just after. The line before the last is a JSON
 object with the five ported kernels (K1 step, K2 greedy, K3 NIC greedy, K4
 beam, K5 ViT attention): launches per path, error, time beside the plain
 version's, the least time the card could take for the same work
@@ -154,11 +190,22 @@ BEAM_SRC = "depth_image_captioning_pub_torch/csrc/beam_seq.cu"
 BEAM_TPU = "depth_image_captioning_pub_tpu/ops/pallas/beam_seq.py:475"
 NIC_E, NIC_LAYERS = 300, 2
 BEAM = 5
+D_CONCAT = 2080          # mdepth-*: 2048 RGB + 32 depth channels, f32
+# an odd width, zero-padded for K1, K2 and K4: D, and A, E, H in the
+# AttentionDecoder's argument order (dim_attention, dim_embedding,
+# dim_encoder, dim_decoder)
+ODD_D, ODD_A, ODD_E, ODD_H = 2044, 50, 100, 100
+ODD_AEDH = (ODD_A, ODD_E, ODD_D, ODD_H)
+ODD_LABEL = f"odd D={ODD_D} A={ODD_A} E={ODD_E} H={ODD_H}"
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 F32_FLOPS = 67e12              # H100 SXM f32, CUDA cores (TF32 off)
 BF16_FLOPS = 989e12            # H100 SXM bf16 tensor cores, dense
 PATHS = ("base-soft", "depth-soft", "nic", "base-soft-beam5",
-         "base-soft-sample", "score")
+         "base-soft-sample", "score", "base-hard", "base-hard-beam5",
+         "base-hard-sample", "mdepth-soft", "mdepth-soft-beam5",
+         "mdepth-soft-sample", "depth-hard", "depth-hard-beam5",
+         "mdepth-hard", "mdepth-hard-beam5", "score-base-hard",
+         "score-mdepth-soft")
 TOP_P = 0.9          # the sampling path's nucleus
 SCORE_IMAGES, SCORE_SETS, SCORE_BATCH = 256, 3, 64
 
@@ -182,28 +229,35 @@ def cuda_ms(fn, iters):
     return start.elapsed_time(stop) / iters
 
 
-def queued_ms(fn, iters, spin_cycles=20_000_000):
+def queued_ms(fn, iters, spin_cycles=20_000_000, tries=4):
     """Mean device time of fn() over iters calls queued behind a spin
-    kernel (~10 ms), so that the card runs them back to back whatever the
-    host's launch rate: a short kernel's own time, where ``cuda_ms``
-    gives the rate at which the host can call it."""
+    kernel, so that the card runs them back to back whatever the host's
+    launch rate: a short kernel's own time, where ``cuda_ms`` gives the
+    rate at which the host can call it. The spin starts at spin_cycles
+    (~10 ms); where the host took longer than that to queue the calls, it
+    grows to three times the host's time and the calls are queued again,
+    up to tries times in all."""
     import torch
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(spin_cycles)
-    t0 = time.perf_counter()
-    start.record()
-    for _ in range(iters):
-        fn()
-    stop.record()
-    host_ms = (time.perf_counter() - t0) * 1e3
-    torch.cuda.synchronize()
-    if host_ms > 0.8 * spin_cycles / 2.0e6:      # the spin at 2 GHz
-        raise RuntimeError(f"the host took {host_ms:.2f} ms to queue "
-                           f"{iters} calls: longer than the spin")
-    return start.elapsed_time(stop) / iters
+    for _ in range(tries):
+        torch.cuda._sleep(spin_cycles)
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(iters):
+            fn()
+        stop.record()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        spin_ms = spin_cycles / 2.0e6        # the spin at 2 GHz, the most
+        if host_ms <= 0.8 * spin_ms:
+            return start.elapsed_time(stop) / iters
+        spin_cycles = int(3 * host_ms * 2.0e6)
+    raise RuntimeError(f"the host took {host_ms:.2f} ms to queue {iters} "
+                       f"calls: longer than the spin of {spin_ms:.2f} ms, "
+                       f"{tries} times")
 
 
 def bound(nbytes, flops, peak):
@@ -409,6 +463,50 @@ def phase_step(smi):
             f"{plan.smem_bytes} B shared memory each ({plan.h_cols} "
             f"h-product columns, {plan.units} hidden unit(s), h tile "
             f"{plan.h_rows} rows, attention chunk {plan.a_chunk}) [{smi}]")
+    # mdepth's f32 features at D=2080, and an odd width (zero-padded for
+    # the launch), at B=64
+    for label, (d, a, e, h), dtype in (
+            (f"B={B} D={D_CONCAT} f32", (D_CONCAT, A, E, H), torch.float32),
+            (f"B={B} {ODD_LABEL}", (ODD_D, ODD_A, ODD_E, ODD_H),
+             torch.bfloat16)):
+        wx = decode_step.pack_weights(
+            u(h, a), u(a), u(a), u(1), u(h, d), u(d), u(e + d, 4 * h),
+            u(h, 4 * h), u(4 * h), u(4 * h), dim_embedding=e)
+        feats = torch.from_numpy(np.abs(rng.standard_normal((B, K, d)))
+                                 .astype(np.float32)).to(dev, dtype)
+        rows = [torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32) * 0.5).to(dev)
+            for shape in ((B, K, a), (B, e), (B, h), (B, h))]
+        args = (feats, *rows, wx)
+        got = decode_step.fused_decode_core(*args)
+        torch.cuda.synchronize()
+        again = decode_step.fused_decode_core(*args)
+        want = decode_step.fused_decode_core_plain(*args)
+        if not all(torch.equal(g, x) for g, x in zip(got, again)):
+            raise RuntimeError(f"two decode_step calls differ at {label}")
+        err = max((g - x).abs().max().item() for g, x in zip(got, want))
+        if not err <= STEP_ATOL:
+            raise RuntimeError(f"decode_step max abs err {err} > "
+                               f"{STEP_ATOL} at {label}")
+        worst = max(worst, err)
+        # at the odd width each call also pads its inputs (~20 small
+        # launches): fewer calls, so that they fit the launch queue behind
+        # a longer spin
+        ms = queued_ms(lambda: decode_step.fused_decode_core(*args), 10,
+                       spin_cycles=100_000_000)
+        call_ms = cuda_ms(lambda: decode_step.fused_decode_core(*args), 50)
+        plain_ms = cuda_ms(
+            lambda: decode_step.fused_decode_core_plain(*args), 50)
+        bound_ms, bound_by = bound(nbytes(*args[:5], *wx, *got),
+                                   B * step_flops(K, d, a, e, h), F32_FLOPS)
+        by_shape[label] = {
+            "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err}
+        log("decode_step", f"{label} {dtype}: max abs err {err:.3e} (tol "
+            f"{STEP_ATOL}); two calls bit-identical; kernel {ms:.4f} ms "
+            f"(launches queued; {call_ms:.4f} ms a call through the "
+            f"wrapper), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by}) [{smi}]")
     main = by_shape[f"B={B}"]
     log("decode_step", f"source {STEP_SRC}, replaces {STEP_TPU}")
     return {"name": "decode_step", "route": "cuda", "source": STEP_SRC,
@@ -421,7 +519,9 @@ def phase_step(smi):
 def phase_seq(smi):
     """K2 at B = 1, 16 and 64 (the main path's chunk sizes) against its
     plain version: token agreement, exact with <end> forced, times, the
-    bound, the per-step feature floor and the launch's plan."""
+    bound, the per-step feature floor and the launch's plan; then at B=64
+    on mdepth's f32 features at D=2080 and at an odd width (zero-padded
+    for the launch)."""
     import torch
     from depth_image_captioning_pub_torch.cli import (
         SPECIAL, placeholder_vocab)
@@ -442,8 +542,11 @@ def phase_seq(smi):
         log("decode_seq", f"ptxas, "
             f"{'bf16' if 'bfloat16' in args else 'f32'} features: {line}")
     by_shape, end_err = {}, 0.0
-    for bsz in SEQ_BATCHES:
-        feats = feats64[:bsz].contiguous()
+
+    def greedy_case(dec, feats, label):
+        bsz, k, d = feats.shape
+        h, a = dec.att_w_dec.shape
+        e = dec.dim_embedding
         with torch.inference_mode():
             proj = project_features(dec.att_params(), feats,
                                     compute_dtype=torch.float32)
@@ -463,7 +566,7 @@ def phase_seq(smi):
             distinct = len({tuple(r) for r in got.tolist()})
             if agree < MIN_AGREEMENT:
                 raise RuntimeError(f"greedy token agreement {agree} < "
-                                   f"{MIN_AGREEMENT} at B={bsz}")
+                                   f"{MIN_AGREEMENT} at {label}")
             ms = cuda_ms(lambda: run(decode_seq.fused_greedy_decode, w), 10)
             plain_ms = cuda_ms(
                 lambda: run(decode_seq.fused_greedy_decode_plain, w), 10)
@@ -474,27 +577,27 @@ def phase_seq(smi):
             torch.cuda.synchronize()
             want_end = run(decode_seq.fused_greedy_decode_plain, w_end)
             err = (got_end - want_end).abs().max().item()
-            end_err = max(end_err, err)
             if err != 0 or not bool((got_end == end_id).all()):
                 raise RuntimeError(f"greedy kernel with <end> forced differs "
-                                   f"from the plain version at B={bsz}")
+                                   f"from the plain version at {label}")
         # the steps this run's rows took: up to and including their <end>
         ended = (got == end_id).cpu().numpy()
         steps = int(np.where(ended.any(1), ended.argmax(1) + 1,
                              MAX_LEN).sum())
         bound_ms, bound_by = bound(
             nbytes(feats, proj, state.h, state.c, *w.step, w.w_out, w.b_out,
-                   got) + steps * E * 4,
-            steps * (step_flops(K, D, A, E, H) + 2 * H * VOCAB), F32_FLOPS)
+                   got) + steps * e * 4,
+            steps * (step_flops(k, d, a, e, h) + 2 * h * VOCAB), F32_FLOPS)
         # the kernel reads the features again every step (they exceed the
         # L2 at B=64): that stream alone, per step and over the steps run
         loop_steps = int(np.where(ended.any(1), ended.argmax(1) + 1,
                                   MAX_LEN).max())
         floor_step = nbytes(feats) / HBM_BYTES_PER_S * 1e3
-        by_shape[f"B={bsz}"] = {
+        by_shape[label] = {
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "token_agreement": agree}
-        log("decode_seq", f"B={bsz} V={VOCAB} L={MAX_LEN} end_id={end_id}: "
+        log("decode_seq", f"{label} K={k} D={d} A={a} E={e} H={h} "
+            f"{feats.dtype} V={VOCAB} L={MAX_LEN} end_id={end_id}: "
             f"token agreement {agree:.4f} (min {MIN_AGREEMENT}), {distinct} "
             f"distinct rows, {steps} row-steps; <end>-forced run exact; "
             f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
@@ -506,6 +609,25 @@ def phase_seq(smi):
             f"shared memory each ({plan.h_cols} h-product columns, "
             f"{plan.units} hidden unit(s), h tile {plan.h_rows} rows) "
             f"[{smi}]")
+        return err
+
+    for bsz in SEQ_BATCHES:
+        end_err = max(end_err, greedy_case(dec, feats64[:bsz].contiguous(),
+                                           f"B={bsz}"))
+    # mdepth-soft's features: f32 at D=2080, twice bf16's bytes at D=2048
+    dec_c = AttentionDecoder(VOCAB, A, E, D_CONCAT, H, device=dev)
+    dec_c.reset_parameters(torch.Generator().manual_seed(3))
+    feats_c = torch.from_numpy(np.abs(rng.standard_normal((B, K, D_CONCAT)))
+                               .astype(np.float32)).to(dev)
+    end_err = max(end_err, greedy_case(dec_c, feats_c,
+                                       f"B={B} D={D_CONCAT} f32"))
+    del feats_c
+    dec_o = AttentionDecoder(VOCAB, *ODD_AEDH, device=dev)
+    dec_o.reset_parameters(torch.Generator().manual_seed(4))
+    feats_o = torch.from_numpy(np.abs(rng.standard_normal((B, K, ODD_D)))
+                               .astype(np.float32)).to(dev, torch.bfloat16)
+    end_err = max(end_err, greedy_case(dec_o, feats_o,
+                                       f"B={B} {ODD_LABEL}"))
     main = by_shape[f"B={B}"]
     return {"name": "decode_seq", "route": "cuda", "source": SEQ_SRC,
             "replaces": SEQ_TPU, "max_abs_err": end_err, "ms": main["ms"],
@@ -899,7 +1021,7 @@ def phase_depth_path(smi):
         + f"; sum of stages {total:.2f}; K5 {k5:.2f} ms = "
         f"{100 * k5 / total:.1f}% of the stages, "
         f"{100 * k5 / ev.times['dpt']:.1f}% of the DPT [{smi}]")
-    return launches
+    return launches, est
 
 
 def phase_nic_kernel(smi):
@@ -1166,6 +1288,92 @@ def phase_beam_kernel(smi):
             f"{plan.smem_bytes} B shared memory each ({plan.h_cols} "
             f"h-product columns, {plan.units} hidden unit(s), h tile "
             f"{plan.h_rows} rows, {plan.rows} beam rows) [{smi}]")
+
+    def beam_case(dec, feats, beam, label, forced=False):
+        """K4 against its plain version on one decoder and feature set:
+        exact records with <end> forced, else agreement; times and the
+        bound."""
+        bsz, k, d = feats.shape
+        h, a = dec.att_w_dec.shape
+        e = dec.dim_embedding
+        with torch.inference_mode():
+            proj = project_features(dec.att_params(), feats,
+                                    compute_dtype=torch.float32)
+            state = dec.init_state(feats)
+            w = dec.seq_weights()
+            if forced:
+                b_out = w.b_out.clone()
+                b_out[0, end_id] += 100.0
+                w = w._replace(b_out=b_out)
+
+            def run(fn):
+                return fn(feats, proj, state.h, state.c, w, beam_size=beam,
+                          max_length=MAX_LEN, start_id=start_id,
+                          end_id=end_id)
+
+            got = run(beam_seq.fused_beam_decode)
+            torch.cuda.synchronize()
+            plan = beam_seq.LAST_PLAN
+            want = run(beam_seq.fused_beam_decode_plain)
+            err = (got.scores - want.scores).abs().max().item()
+            if forced:
+                agree = rec_agree = float(
+                    torch.equal(got.tokens, want.tokens)
+                    and torch.equal(got.parents, want.parents))
+                if agree != 1.0:
+                    raise RuntimeError(f"beam kernel with <end> forced "
+                                       f"differs from the plain version at "
+                                       f"{label}")
+            else:
+                agree = (beam_seq.select_best(got, end_id)[0]
+                         == beam_seq.select_best(want, end_id)[0]
+                         ).float().mean().item()
+                rec_agree = min(
+                    (got.tokens == want.tokens).float().mean().item(),
+                    (got.parents == want.parents).float().mean().item())
+            if min(agree, rec_agree) < MIN_AGREEMENT or not err <= SCORE_ATOL:
+                raise RuntimeError(f"beam kernel at {label}: best-token "
+                                   f"agreement {agree}, record agreement "
+                                   f"{rec_agree}, scores err {err}")
+            ms = cuda_ms(lambda: run(beam_seq.fused_beam_decode), 10)
+            plain_ms = cuda_ms(lambda: run(beam_seq.fused_beam_decode_plain),
+                               3)
+        beam_rows = int(beam_steps(got, end_id).sum()) * beam
+        bound_ms, bound_by = bound(
+            nbytes(feats, proj, state.h, state.c, *w.step, w.w_out, w.b_out,
+                   *got) + beam_rows * e * 4,
+            beam_rows * (step_flops(k, d, a, e, h) + 2 * h * VOCAB),
+            F32_FLOPS)
+        by_shape[label] = {
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "token_agreement": agree,
+            "record_agreement": rec_agree, "max_abs_err": err}
+        log("beam_seq", f"{label} W={beam} K={k} D={d} A={a} E={e} H={h} "
+            f"{feats.dtype}{' <end> forced' if forced else ''}: best-token "
+            f"agreement {agree:.4f}, record agreement {rec_agree:.4f}, "
+            f"scores max abs err {err:.3e}; kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
+            f"{plan.ctas} CTAs, {plan.smem_bytes} B shared memory, h tile "
+            f"{plan.h_rows} rows, {plan.rows} beam rows [{smi}]")
+        return ms
+
+    # the wider instances at the main shape, mdepth's f32 features at
+    # D=2080 and an odd width (zero-padded for the launch), at B=64
+    for bw in beam_seq.BEAM_SIZES[BEAM - 1:]:
+        ms_by_beam[bw] = beam_case(dec, feats64, bw, f"B={B} W={bw}")
+    dec_c = AttentionDecoder(VOCAB, A, E, D_CONCAT, H, device=dev)
+    dec_c.reset_parameters(torch.Generator().manual_seed(11))
+    feats_c = torch.from_numpy(np.abs(rng.standard_normal((B, K, D_CONCAT)))
+                               .astype(np.float32)).to(dev)
+    beam_case(dec_c, feats_c, BEAM, f"B={B} D={D_CONCAT} f32")
+    del feats_c
+    dec_o = AttentionDecoder(VOCAB, *ODD_AEDH, device=dev)
+    dec_o.reset_parameters(torch.Generator().manual_seed(12))
+    feats_o = torch.from_numpy(np.abs(rng.standard_normal((B, K, ODD_D)))
+                               .astype(np.float32)).to(dev, torch.bfloat16)
+    beam_case(dec_o, feats_o, BEAM, f"B={B} {ODD_LABEL}")
+    beam_case(dec_o, feats_o, BEAM, f"B={B} {ODD_LABEL} <end> forced",
+              forced=True)
     main = by_shape[f"B={B}"]
     log("beam_seq", f"B={B}: exact tokens and parents with "
         + ", ".join(f"{k} (scores err {v:.1e})" for k, v in exact.items())
@@ -1546,6 +1754,401 @@ def phase_score_path(smi, cap):
     return {k: launches[k] + beam_launches[k] for k in launches}
 
 
+def trained_scales(dec, feats):
+    """Rescale a random hard decoder to a trained model's scales on
+    ``feats``: the attention vector so that the scores spread by about 1
+    over the regions, and the LSTM's context rows so that the context
+    weighs as much as the embedding in the gates. A random ResNet's
+    features are far from unit size, and at random scales either no
+    Gumbel draw moves a region or no region moves a token. Returns the two
+    factors."""
+    import torch
+    from depth_image_captioning_pub_torch.ops.attention import (
+        attention_logits, project_features)
+    e = dec.dim_embedding
+    with torch.inference_mode():
+        proj = project_features(dec.att_params(), feats,
+                                compute_dtype=torch.float32)
+        h, _ = dec.init_state(feats)
+        spread = attention_logits(dec.att_params(), proj, h).std(1).mean()
+        att = 1.0 / spread.item()
+        dec.att_w_full.mul_(att)
+        dec.att_b_full.mul_(att)
+        ctx = (feats.float().std() / dec.embed.std()).item()
+        dec.lstm_w_ih[e:].div_(ctx)
+    return att, 1.0 / ctx
+
+
+def phase_hard_path(smi):
+    """base-hard: requests of 1, 16 and 64 images through the pipeline (no
+    kernel: hard attention runs on PyTorch ops), the seed's repeatability,
+    the card against the CPU on the same noise, one-hot alphas, a beam-5
+    and a sampled request, and one chunk's time split."""
+    import copy
+
+    import torch
+    from depth_image_captioning_pub_torch.cli import (
+        SPECIAL, placeholder_vocab)
+    from depth_image_captioning_pub_torch.engine.evaluate import (
+        make_caption_fn)
+    from depth_image_captioning_pub_torch.models.captioner import (
+        build_captioner)
+    from depth_image_captioning_pub_torch.ops.decode import gumbel_noise
+    from depth_image_captioning_pub_torch.ops.image_ops import (
+        imagenet_normalize, to_unit_float)
+    from depth_image_captioning_pub_torch.pipeline import CaptionPipeline
+    dev = torch.device("cuda")
+    w2i, i2w = placeholder_vocab(VOCAB)
+    start_id, end_id = w2i[SPECIAL.start], w2i[SPECIAL.end]
+    t0 = time.perf_counter()
+    cap = build_captioner("base-hard", VOCAB, device=dev)
+    cap.init(torch.Generator().manual_seed(14))
+    dec = cap.decoder
+    images = np.random.default_rng(14).integers(
+        0, 256, (81, 224, 224, 3), dtype=np.uint8)
+    requests = [images[:1], images[1:17], images[17:81]]
+    x16 = torch.from_numpy(requests[1]).to(dev)
+    with torch.inference_mode():
+        feats16 = cap.encoder(imagenet_normalize(to_unit_float(x16)))
+    att, ctx = trained_scales(dec, feats16)
+    log("hard", f"base-hard: ResNet-152 bf16 + hard-attention decoder, "
+        f"V={VOCAB}, built in {time.perf_counter() - t0:.1f} s; attention "
+        f"vector scaled by {att:.3e} (scores of unit spread), the LSTM's "
+        f"context rows by {ctx:.3e} (context as large as the embedding); "
+        f"|feat| max {feats16.abs().max().item():.3e}")
+
+    def pipeline(**kw):
+        pipe = CaptionPipeline(cap, w2i, i2w, max_length=MAX_LEN,
+                               batch_buckets=(1, 16, 64), **kw)
+        for size in (1, 16, 64):          # warm-up: one call per bucket
+            pipe.caption_tokens(images[:size])
+        return pipe
+
+    pipe = pipeline(seed=0)
+    outputs, launches = run_requests(pipe, requests, smi, "hard")
+    if any(launches.values()):
+        raise RuntimeError(f"base-hard launched kernels: {launches}")
+    again = [pipe.caption_tokens(r) for r in requests[1:]]
+    seed1 = CaptionPipeline(cap, w2i, i2w, max_length=MAX_LEN,
+                            batch_buckets=(1, 16, 64), seed=1)
+    other = np.concatenate([seed1.caption_tokens(r) for r in requests[1:]])
+    first = np.concatenate(outputs[1:])
+    if not np.array_equal(np.concatenate(again), first):
+        raise RuntimeError("base-hard: the same seed gave other tokens")
+    if np.array_equal(other, first):
+        raise RuntimeError("base-hard: another seed gave the same tokens")
+
+    # the card against the CPU on the 16-image request's features and noise
+    gen = torch.Generator(device=dev).manual_seed(14)
+    noise = [gumbel_noise((16, K), gen) for _ in range(MAX_LEN)]
+    kw = dict(max_length=MAX_LEN, end_id=end_id)
+    with torch.inference_mode():
+        got = dec.greedy_sample(feats16, start_id, **kw,
+                                att_noise=lambda t, shape: noise[t])
+        ref = copy.deepcopy(dec).cpu().greedy_sample(
+            feats16.cpu(), start_id, **kw,
+            att_noise=lambda t, shape: noise[t].cpu())
+        _, alphas = dec.stochastic_sample(feats16, start_id, gen,
+                                          max_length=MAX_LEN, top_p=TOP_P)
+    agree = (got.cpu() == ref).float().mean().item()
+    one_hot = bool(((alphas == 0) | (alphas == 1)).all()
+                   and (alphas.sum(-1) == 1).all())
+    if agree < MIN_AGREEMENT or not one_hot:
+        raise RuntimeError(f"base-hard card vs CPU agreement {agree}, "
+                           f"one-hot alphas {one_hot}")
+    log("hard", f"16- and 64-image requests: the same seed repeats their "
+        f"tokens, seed 1 changes {float((other != first).mean()):.4f} of "
+        f"them; 16-image request's features and noise: card vs "
+        f"CPU decoder on the same features and noise: token agreement "
+        f"{agree:.4f} (min {MIN_AGREEMENT}); sampled alphas exactly "
+        f"one-hot")
+    by_path = {"base-hard": launches}
+    for name, options in (("base-hard-beam5", dict(beam_size=BEAM, seed=0)),
+                          ("base-hard-sample", dict(sample=True, top_p=TOP_P,
+                                                    seed=0))):
+        _, got = run_requests(pipeline(**options), [requests[1]], smi, name)
+        if any(got.values()):
+            raise RuntimeError(f"{name} launched kernels: {got}")
+        by_path[name] = got
+    for c in pipe(list(requests[1][:2])):
+        log("hard", f"caption: {c!r}")
+
+    # time split of one 64-image chunk: device time of each stage alone,
+    # and the host's time for the loop, which sets its pace
+    program = make_caption_fn(cap, start_id, MAX_LEN, end_id=end_id,
+                              generator=gen)
+    ev = Events()
+    with torch.inference_mode():
+        x = torch.from_numpy(requests[2]).to(dev)
+        f = ev.ms("encoder", lambda: cap.encoder(
+            imagenet_normalize(to_unit_float(x))))
+        ev.ms("decoder set-up", lambda: dec._prepare(f, None))
+        loop = f"hard greedy loop x{MAX_LEN} (set-up included)"
+        ev.ms(loop, lambda: dec.greedy_sample(f, start_id, generator=gen,
+                                               **kw))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dec.greedy_sample(f, start_id, generator=gen, **kw)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        ev.ms("caption program", lambda: program(x))
+    log("hard", "64-image chunk split (device ms, each stage timed alone): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in ev.times.items())
+        + f"; the loop on the host clock {host_ms:.2f} ms [{smi}]")
+    return by_path, cap
+
+
+def phase_mdepth_path(smi, est):
+    """mdepth-soft: requests of 1, 16 and 64 images through the pipeline
+    (K5 in the DPT, K2 at D=2080 on f32 features), the 16-image request
+    against the plain versions, a beam-5 (K4) and a sampled (K1) request,
+    and one chunk's time split."""
+    import torch
+    from depth_image_captioning_pub_torch.cli import (
+        SPECIAL, placeholder_vocab)
+    from depth_image_captioning_pub_torch.models import decoder as dec_mod
+    from depth_image_captioning_pub_torch.models.captioner import (
+        build_captioner)
+    from depth_image_captioning_pub_torch.ops.image_ops import (
+        imagenet_normalize, to_unit_float)
+    from depth_image_captioning_pub_torch.ops.kernels import (
+        decode_seq, vit_attention)
+    from depth_image_captioning_pub_torch.pipeline import CaptionPipeline
+    dev = torch.device("cuda")
+    w2i, i2w = placeholder_vocab(VOCAB)
+    start_id, end_id = w2i[SPECIAL.start], w2i[SPECIAL.end]
+    blocks = len(est.model.blocks)
+    t0 = time.perf_counter()
+    cap = build_captioner("mdepth-soft", VOCAB, device=dev)
+    cap.init(torch.Generator().manual_seed(15))
+    depth_fn = est.depth_fn()
+    mlp = cap.depth_encoder_apply()
+    log("mdepth", f"mdepth-soft: ResNet-152 bf16 + DPT-hybrid bf16 at "
+        f"384x384 + DepthMLPEncoder f32 (256-128-64-32) + decoder at "
+        f"D={cap.decoder.dim_enc_eff}, V={VOCAB}, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    images = np.random.default_rng(15).integers(
+        0, 256, (81, 224, 224, 3), dtype=np.uint8)
+    requests = [images[:1], images[1:17], images[17:81]]
+
+    def pipeline(**kw):
+        pipe = CaptionPipeline(cap, w2i, i2w, depth_fn=depth_fn,
+                               max_length=MAX_LEN, batch_buckets=(1, 16, 64),
+                               **kw)
+        for size in (1, 16, 64):          # warm-up: one call per bucket
+            pipe.caption_tokens(images[:size])
+        return pipe
+
+    def expect(launches, chunks, **per_chunk):
+        want = dict.fromkeys(launches, 0)
+        want.update({k: v * chunks for k, v in per_chunk.items()})
+        if launches != want:
+            raise RuntimeError(f"mdepth-soft launches {launches}, expected "
+                               f"{want}")
+
+    pipe = pipeline()
+    outputs, launches = run_requests(pipe, requests, smi, "mdepth")
+    chunks = sum(-(-len(r) // pipe.batch_size) for r in requests)
+    expect(launches, chunks, decode_seq=1, vit_attention=blocks)
+
+    # the 16-image request again, with the attention and the decode plain
+    plains = {vit_attention: vit_attention.fused_attention_plain,
+              decode_seq: decode_seq.fused_greedy_decode_plain}
+
+    def stages(x):
+        x = to_unit_float(x)
+        feats = cap.encoder(imagenet_normalize(x))
+        dfeats = mlp(depth_fn(x))
+        fused = cap.decoder.fuse(feats, dfeats)
+        toks = cap.decoder.greedy_sample(feats, start_id, dfeats,
+                                         max_length=MAX_LEN, end_id=end_id)
+        return fused, toks
+
+    def attention_plain(q, k, v, *, scale, n_valid):
+        return plains[vit_attention](q, k, v, scale=scale, n_valid=n_valid)
+
+    x16 = torch.from_numpy(requests[1]).to(dev)
+    with torch.inference_mode():
+        fused, _ = stages(x16)
+        kernel_attention = vit_attention.fused_attention
+        vit_attention.fused_attention = attention_plain
+        dec_mod.fused_greedy_decode = plains[decode_seq]
+        try:
+            ref_fused, ref = stages(x16)
+        finally:
+            vit_attention.fused_attention = kernel_attention
+            dec_mod.fused_greedy_decode = decode_seq.fused_greedy_decode
+    if fused.dtype != torch.float32 or fused.shape != (16, K, D_CONCAT):
+        raise RuntimeError(f"mdepth features {fused.dtype} "
+                           f"{tuple(fused.shape)}")
+    agree = float((ref.cpu().numpy() == outputs[1]).mean())
+    err = (fused - ref_fused).abs().max().item()
+    log("mdepth", f"16-image request vs plain attention+decode: token "
+        f"agreement {agree:.4f} (min {MIN_AGREEMENT}), fused features "
+        f"{tuple(fused.shape)} {fused.dtype} max abs err {err:.3e}")
+    if agree < MIN_AGREEMENT:
+        raise RuntimeError(f"mdepth-soft kernels vs plain agreement {agree}")
+    by_path = {"mdepth-soft": launches}
+    for name, kw, per_chunk in (
+            ("mdepth-soft-beam5", dict(beam_size=BEAM), {"beam_seq": 1}),
+            ("mdepth-soft-sample", dict(sample=True, top_p=TOP_P, seed=0),
+             {"decode_step": MAX_LEN})):
+        _, got = run_requests(pipeline(**kw), [requests[1]], smi, name)
+        expect(got, 1, vit_attention=blocks, **per_chunk)
+        by_path[name] = got
+    for c in pipe(list(requests[1][:2])):
+        log("mdepth", f"caption: {c!r}")
+
+    # time split of one 64-image chunk
+    ev = Events()
+    dec = cap.decoder
+    with torch.inference_mode():
+        x = to_unit_float(torch.from_numpy(requests[2]).to(dev))
+        feats = ev.ms("rgb encoder", lambda: cap.encoder(
+            imagenet_normalize(x)))
+        depth = ev.ms("dpt", lambda: depth_fn(x))
+        dfeats = ev.ms("mlp encoder (patches + MLP)", lambda: mlp(depth))
+
+        def setup():
+            f, proj, h, c = dec._prepare(feats, dfeats)
+            return f.contiguous(), proj, h, c, dec.seq_weights()
+
+        f, proj, h, c, w = ev.ms("decoder set-up (concat, projection, "
+                                 "h0/c0, packing)", setup)
+        ev.ms("greedy decode (K2)", lambda: decode_seq.fused_greedy_decode(
+            f, proj, h, c, w, max_length=MAX_LEN, start_id=start_id,
+            end_id=end_id))
+    total = sum(ev.times.values())
+    log("mdepth", "64-image chunk split (device ms, each stage timed "
+        "alone): " + ", ".join(f"{k} {v:.2f}" for k, v in ev.times.items())
+        + f"; sum {total:.2f} [{smi}]")
+    return by_path, cap
+
+
+def phase_other_kinds(smi, est):
+    """depth-hard and mdepth-hard at full width: one 16-image request
+    each, greedy and beam 5; K5 runs in the DPT, no decode kernel."""
+    import torch
+    from depth_image_captioning_pub_torch.cli import placeholder_vocab
+    from depth_image_captioning_pub_torch.models.captioner import (
+        build_captioner)
+    from depth_image_captioning_pub_torch.pipeline import CaptionPipeline
+    dev = torch.device("cuda")
+    w2i, i2w = placeholder_vocab(VOCAB)
+    blocks = len(est.model.blocks)
+    images = np.random.default_rng(16).integers(
+        0, 256, (16, 224, 224, 3), dtype=np.uint8)
+    by_path = {}
+    for seed, kind in enumerate(("depth-hard", "mdepth-hard"), 16):
+        cap = build_captioner(kind, VOCAB, device=dev)
+        cap.init(torch.Generator().manual_seed(seed))
+        for beam in (1, BEAM):
+            name = kind + (f"-beam{beam}" if beam > 1 else "")
+            pipe = CaptionPipeline(cap, w2i, i2w, depth_fn=est.depth_fn(),
+                                   max_length=MAX_LEN, batch_buckets=(16,),
+                                   beam_size=beam, seed=0)
+            pipe.caption_tokens(images)               # warm-up
+            _, launches = run_requests(pipe, [images], smi, name)
+            want = dict.fromkeys(launches, 0)
+            want["vit_attention"] = blocks
+            if launches != want:
+                raise RuntimeError(f"{name} launches {launches}, expected "
+                                   f"{want}")
+            by_path[name] = launches
+        log(kind, f"caption: {pipe(images[0])!r}")
+        del cap, pipe
+        torch.cuda.empty_cache()
+    return by_path
+
+
+def phase_score_new_kinds(smi, hard_cap, mdepth_cap, est):
+    """One base-hard set (scored twice: the same hypotheses) and one
+    mdepth-soft set, each written with ``params_to_jax`` and
+    ``save_component`` in the JAX trainer's files, scored by ``evaluate``
+    through ``load_eval_components`` on phase 13's 256 images."""
+    import tempfile
+    from pathlib import Path
+
+    import torch
+    from depth_image_captioning_pub_torch import cli
+    from depth_image_captioning_pub_torch.config import ConfigEval
+    from depth_image_captioning_pub_torch.engine import evaluate as ev
+    from depth_image_captioning_pub_torch.utils.checkpoint import (
+        save_component)
+    from depth_image_captioning_pub_torch.utils.jax_bridge import (
+        params_to_jax)
+    w2i, i2w = cli.placeholder_vocab(VOCAB)
+    data = ScoreImages(SCORE_IMAGES, [w for w in w2i if w.startswith("w")],
+                       seed=13)
+    chunks = -(-SCORE_IMAGES // SCORE_BATCH)
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    by_path = {}
+    for kind, cap, dfn, runs in (("base-hard", hard_cap, None, 2),
+                                 ("mdepth-soft", mdepth_cap, est.depth_fn(),
+                                  1)):
+        base, atten = kind.split("-")
+        mlp = base == "mdepth"
+        trainable, frozen, stats = params_to_jax(cap)
+        expected = {1: {k: v.clone() for k, v in cap.state_dict().items()}}
+        with tempfile.TemporaryDirectory(dir=build,
+                                         prefix=f"score_{kind}_") as tmp:
+            cfg = ConfigEval()
+            cfg.batch_size, cfg.max_length = SCORE_BATCH, MAX_LEN
+            cfg.save_directory_hard = cfg.save_directory_Cdep_soft = tmp
+            save_dir, files = cli.eval_tables(cfg, atten, False, mlp,
+                                              "mlp" if mlp else "cnn")
+            trees = [frozen["encoder"], trainable["decoder"]]
+            if mlp:
+                trees.append({"params": trainable["depth_encoder"],
+                              "batch_stats": stats})
+            for name, tree in zip(files[1], trees):
+                save_component(f"{save_dir}/{name}", tree)
+            hypos, total = [], {}
+            for _ in range(runs):
+                torch.cuda.synchronize()
+                reset_counts()
+                with PlainCalls() as plain, SetTimes(ev, cap,
+                                                     expected) as sets:
+                    scores = ev.evaluate(
+                        kind, "coco", cap, sets.loader(
+                            lambda i: cli.load_eval_components(
+                                save_dir, files[i], cap)),
+                        data, w2i, i2w, cfg, depth_fn=dfn, num_sets=1,
+                        quiet=True)
+                launches = read_counts()
+                if plain.calls:
+                    raise RuntimeError(f"plain versions ran on the {kind} "
+                                       f"score path: {set(plain.calls)}")
+                total = {k: total.get(k, 0) + v for k, v in launches.items()}
+                hypos.append(sets.hypos[0])
+                row = sets.rows[0]
+                if list(scores) != list(ev.METRIC_KEYS) or not all(
+                        np.all(np.isfinite(v)) for v in scores.values()):
+                    raise RuntimeError(f"bad {kind} scores {scores}")
+                load = row["read"] + row["copy"]
+                log("score", f"{kind} set: load {load:.3f} s (read "
+                    f"{row['read']:.3f}, copy to the card {row['copy']:.3f}), "
+                    f"caption {row['caption']:.3f} s, host scoring "
+                    f"{row['score']:.3f} s; CIDEr "
+                    f"{scores['CIDEr'][0]:.4g} [{smi}]")
+        want = dict.fromkeys(total, 0)
+        if mlp:
+            want.update(decode_seq=chunks,
+                        vit_attention=chunks * len(est.model.blocks))
+        if total != want:
+            raise RuntimeError(f"{kind} score launches {total}, expected "
+                               f"{want}")
+        if runs > 1 and hypos[0] != hypos[1]:
+            raise RuntimeError(f"{kind}: scoring the set twice gave other "
+                               f"hypotheses")
+        by_path[f"score-{kind}"] = total
+        log("score", f"{kind}: launches {total} for {chunks} chunks a set; "
+            f"loaded weights bit-equal to the written ones"
+            + ("; the two runs' hypotheses identical" if runs > 1 else ""))
+    return by_path
+
+
 def main():
     smi = phase_env()
     import torch
@@ -1554,7 +2157,7 @@ def main():
     seq = phase_seq(smi)
     base, base_cap = phase_main_path(smi)
     vit = phase_vit(smi)
-    depth = phase_depth_path(smi)
+    depth, est = phase_depth_path(smi)
     nic_k = phase_nic_kernel(smi)
     nic = phase_nic_path(smi)
     beam_k = phase_beam_kernel(smi)
@@ -1562,6 +2165,14 @@ def main():
     sample = phase_sample_path(smi, base_cap)
     score = phase_score_path(smi, base_cap)
     by_path = dict(zip(PATHS, (base, depth, nic, beam, sample, score)))
+    hard, hard_cap = phase_hard_path(smi)
+    mdepth, mdepth_cap = phase_mdepth_path(smi, est)
+    by_path.update(hard)
+    by_path.update(mdepth)
+    by_path.update(phase_other_kinds(smi, est))
+    by_path.update(phase_score_new_kinds(smi, hard_cap, mdepth_cap, est))
+    if tuple(by_path) != PATHS:
+        raise RuntimeError(f"paths run {tuple(by_path)}, expected {PATHS}")
     kernels = [step, seq, nic_k, beam_k, vit]
     for entry in kernels:
         counts = {path: c[entry["name"]] for path, c in by_path.items()}

@@ -8,16 +8,18 @@
 
 ``--images`` is a uint8 ``.npy`` array [N, H, W, 3] (or [H, W, 3]);
 ``--random N`` captions N seeded random images instead. ``--kind`` is
-``base-soft`` (default), ``depth-soft`` or ``nic``. ``--beam N`` (N > 1)
+``base-soft`` (default), ``base-hard``, ``depth-soft``, ``depth-hard``,
+``mdepth-soft``, ``mdepth-hard`` or ``nic``. ``--beam N`` (N > 1)
 captions with beam search, ranked by score / length**``--length-penalty``.
 ``--sample`` draws captions from the filtered distribution
-(``--temperature``, ``--top-k``, ``--top-p``; ``--seed`` seeds the draws).
+(``--temperature``, ``--top-k``, ``--top-p``; ``--seed`` seeds the draws,
+and hard attention's region draws, which repeat on every run).
 It runs on the CUDA card; ``--device cpu`` runs the plain PyTorch versions
 of the kernels on the CPU instead. Weights come from an ``.npz``
 that ``utils/jax_bridge.load_npz`` reads (the JAX package's parameter
-trees; for depth-soft also the depth encoder, its BN statistics and,
+trees; for a depth kind also the depth encoder, its BN statistics and,
 under ``frozen/dpt``, the DPT) or, without ``--weights``, are drawn from
-``--seed``; a depth-soft run without DPT weights warns, as the JAX CLI
+``--seed``; a depth run without DPT weights warns, as the JAX CLI
 does. ``--tiny-dpt`` shrinks the DPT to the tests' size (64x64 input).
 Without ``--vocab`` a placeholder vocabulary of ``--vocab-size`` words is
 used, which is only good for seeded weights. Prints one caption per line.
@@ -97,7 +99,7 @@ def eval_depth_fn(cfg, device="cuda"):
     if weights and os.path.exists(weights):
         raise NotImplementedError(
             f"DPT weights {weights}: the Omnidata checkpoint loader is not "
-            f"yet ported (ROADMAP.md, Queue A item 7)")
+            f"yet ported (ROADMAP.md, Queue A item 3)")
     return make_depth_fn(tiny=bool(os.environ.get("DCAP_TINY_DPT")),
                          device=device,
                          hint="set --dpt-weights or $DPT_WEIGHTS")
@@ -153,9 +155,9 @@ def load_eval_components(save_directory: str, files, cap):
     trainable params, batch_stats), the trees ``params_from_jax`` takes
     (with ``frozen={"encoder": ...}``). ``files`` is a row of a
     ``*_parameter_files`` table: encoder, decoder and, for depth kinds,
-    the depth encoder's ``{"params", "batch_stats"}`` bundle; NIC's
-    projection is a file of its own, the encoder's name with "encoder"
-    replaced by "enc_linear"."""
+    the depth encoder's ``{"params", "batch_stats"}`` bundle (the MLP's
+    statistics are empty); NIC's projection is a file of its own, the
+    encoder's name with "encoder" replaced by "enc_linear"."""
     from depth_image_captioning_pub_torch.utils.checkpoint import (
         load_component)
 
@@ -170,7 +172,7 @@ def load_eval_components(save_directory: str, files, cap):
     elif cap.spec.uses_depth:
         bundle = load(files[2])
         params["depth_encoder"] = bundle["params"]
-        stats = bundle["batch_stats"]
+        stats = bundle.get("batch_stats", {})
     return frozen_enc, params, stats
 
 
@@ -224,6 +226,8 @@ def caption(args: argparse.Namespace) -> List[str]:
 
 
 def main(argv: Optional[List[str]] = None) -> None:
+    from depth_image_captioning_pub_torch.models.captioner import (
+        PORTED_KINDS)
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
     sub = p.add_subparsers(dest="command", required=True)
@@ -231,8 +235,7 @@ def main(argv: Optional[List[str]] = None) -> None:
     src = c.add_mutually_exclusive_group(required=True)
     src.add_argument("--images", help="uint8 .npy [N,H,W,3] or [H,W,3]")
     src.add_argument("--random", type=int, help="caption N seeded images")
-    c.add_argument("--kind", default="base-soft",
-                   choices=("base-soft", "depth-soft", "nic"))
+    c.add_argument("--kind", default="base-soft", choices=PORTED_KINDS)
     c.add_argument("--weights", help=".npz of the JAX parameter trees")
     c.add_argument("--vocab", help="word_to_id.pkl")
     c.add_argument("--vocab-size", type=int, default=9956)

@@ -54,7 +54,7 @@ namespace dcap {
 namespace seq {
 namespace beam {
 
-constexpr int kMaxBeam = 5;
+constexpr int kMaxBeam = 8;
 constexpr float kNegInf = -1e9f;  // ops/decode.NEG_INF
 constexpr int kBeamHRows = 4;     // rows of a thread's h-product tile
 constexpr int kBeamGRows = 2;     // rows of a warp's gate products
@@ -579,6 +579,9 @@ const void* kernel_for(int beam) {
     case 3: return kernel_fn<FT, 3>();
     case 4: return kernel_fn<FT, 4>();
     case 5: return kernel_fn<FT, 5>();
+    case 6: return kernel_fn<FT, 6>();
+    case 7: return kernel_fn<FT, 7>();
+    case 8: return kernel_fn<FT, 8>();
     default: return nullptr;
   }
 }

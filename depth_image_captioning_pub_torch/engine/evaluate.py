@@ -1,25 +1,30 @@
 """Batched caption generation and scored evaluation (counterpart of the
-JAX ``engine/evaluate.py``): NIC, base-soft and depth-soft, greedy, beam
-search or stochastic sampling, on one device, no caches.
+JAX ``engine/evaluate.py``): every kind (NIC; base, depth and mdepth with
+soft or hard attention), greedy, beam search or stochastic sampling, on
+one device, no caches.
 
 The hot path is ``make_caption_fn``: uint8 NHWC images -> /255 on the
 device, then (a) ImageNet normalization -> frozen RGB encoder and, for a
 depth kind, (b) ``depth_fn`` (the DPT: standardized depth maps) -> depth
-encoder; the decoder adds (b) to (a) and runs the whole-sequence greedy
+encoder; the decoder fuses (b) into (a) and runs the whole-sequence greedy
 kernel, the whole-search beam kernel or the sampling loop of one-step
-kernels -> token IDs. NIC's encoder is the backbone, a global pool and the
-projection to the LSTM's input.
+kernels (soft attention), or its loops of PyTorch ops (hard attention, on
+Gumbel region noise) -> token IDs. NIC's encoder is the backbone, a global
+pool and the projection to the LSTM's input.
 
 ``evaluate`` scores checkpoint sets: for each, the trees from the loader
 go into the captioner's modules, ``generate_captions`` captions the
 dataset and the seven metrics of ``metrics.score`` are appended to their
-lists. The JAX package's caches of the frozen stages across sets are not
-ported; it documents them as bit-identical to a recompute, which is what
-each set runs here.
+lists. Hard attention draws each set's noise from a generator seeded with
+the set's index, as the JAX package keys each set with
+``PRNGKey(set_idx)``. The JAX package's caches of the frozen stages across
+sets are not ported; it documents them as bit-identical to a recompute,
+which is what each set runs here.
 """
 
 from __future__ import annotations
 
+import functools
 import pickle
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -33,8 +38,11 @@ from depth_image_captioning_pub_torch.data.tokenizer import (
     SPECIAL, ids_to_caption)
 from depth_image_captioning_pub_torch.metrics import load_textfiles, score
 from depth_image_captioning_pub_torch.models.captioner import Captioner
+from depth_image_captioning_pub_torch.models.decoder import AttNoise
 from depth_image_captioning_pub_torch.ops.image_ops import (
     imagenet_normalize, to_unit_float)
+from depth_image_captioning_pub_torch.ops.kernels.beam_seq import (
+    check_beam_size)
 from depth_image_captioning_pub_torch.utils.jax_bridge import params_from_jax
 
 METRIC_KEYS = ("Bleu_1", "Bleu_2", "Bleu_3", "Bleu_4", "METEOR", "ROUGE_L",
@@ -47,7 +55,7 @@ def make_caption_fn(cap: Captioner, start_id: int, max_length: int = 30,
                     length_penalty: float = 0.0,
                     sampling: Optional[Dict] = None,
                     generator: Optional[torch.Generator] = None
-                    ) -> Callable[[torch.Tensor], torch.Tensor]:
+                    ) -> Callable[..., torch.Tensor]:
     """fn(images [B,H,W,3] uint8 on the captioner's device) -> tokens
     [B, max_length] int32 on that device. ``depth_fn`` (required by depth
     kinds, e.g. ``DPTDepthEstimator.depth_fn()``) maps the [0,1] images to
@@ -56,13 +64,22 @@ def make_caption_fn(cap: Captioner, start_id: int, max_length: int = 30,
     decode ignores it and always runs ``max_length`` steps.
 
     ``beam_size > 1`` switches to batched beam search (it needs
-    ``end_id``), ranked by score / length**``length_penalty``.
+    ``end_id``), ranked by score / length**``length_penalty``. Soft
+    attention's search runs the beam kernel, whose instances on a CUDA
+    device are ``beam_seq.BEAM_SIZES``: a wider beam raises here, before
+    any work.
 
     ``sampling`` ({"temperature", "top_k", "top_p"}, defaults 1.0, 0, 1.0)
     switches to stochastic sampling (temperature / top-k / nucleus, always
     ``max_length`` steps), drawing from ``generator``: each call advances
     it, so calls give fresh captions, deterministic per its seed.
+
+    Hard attention draws its region noise from ``generator`` too, or from
+    the ``att_noise(t, shape)`` hook that a call passes (``fn(images,
+    att_noise=...)``; the tests replay the JAX package's draws through it).
     """
+    if beam_size > 1 and cap.spec.attention == "soft":
+        check_beam_size(beam_size, cap.device)
     if beam_size > 1 and end_id is None:
         raise ValueError("beam search needs end_id (<end> token)")
     if sampling is not None:
@@ -91,22 +108,34 @@ def make_caption_fn(cap: Captioner, start_id: int, max_length: int = 30,
             return sample(feats, max_length=max_length)
         return nic_caption_fn
 
+    hard = cap.spec.attention == "hard"
+
     @torch.inference_mode()
-    def caption_fn(images: torch.Tensor) -> torch.Tensor:
+    def caption_fn(images: torch.Tensor,
+                   att_noise: Optional[AttNoise] = None) -> torch.Tensor:
+        noise = {}        # hard attention's region noise
+        if hard:
+            if att_noise is None and generator is None:
+                raise ValueError(f"{cap.spec.kind} needs a generator or an "
+                                 f"att_noise hook for its region noise")
+            noise = {"att_noise": att_noise}
         images = to_unit_float(images)
         feats = encoder(imagenet_normalize(images))
         dep = None
         if depth_encoder is not None:
             dep = depth_encoder(depth_fn(images))
+        if sampling is not None:     # the generator draws the tokens too
+            return sample(feats, start_id, generator, dep,
+                          max_length=max_length, **noise)[0]
+        if hard:
+            noise["generator"] = generator
         if beam_size > 1:
             return cap.decoder.beam_sample(
                 feats, start_id, end_id, dep, beam_size=beam_size,
-                max_length=max_length, length_penalty=length_penalty)[0]
-        if sampling is not None:
-            return sample(feats, start_id, generator, dep,
-                          max_length=max_length)[0]
+                max_length=max_length, length_penalty=length_penalty,
+                **noise)[0]
         return sample(feats, start_id, dep, max_length=max_length,
-                      end_id=end_id)
+                      end_id=end_id, **noise)
 
     return caption_fn
 
@@ -114,11 +143,13 @@ def make_caption_fn(cap: Captioner, start_id: int, max_length: int = 30,
 def generate_captions(caption_fn: Callable, dataset,
                       word_to_id: Dict[str, int],
                       id_to_word: Dict[int, str], batch_size: int,
-                      device, prefetch: int = 3
+                      device, prefetch: int = 3,
+                      att_noise: Optional[Callable[[int], AttNoise]] = None
                       ) -> Tuple[List[str], List[List[str]]]:
     """Caption every image of ``dataset`` (anything with ``load_image(i)``
     or ``load_images_batch``, ``captions(i)`` and ``len``); returns
-    (hypotheses, references).
+    (hypotheses, references). ``att_noise(i)``, when given, is batch i's
+    region-noise hook (hard attention), passed to ``caption_fn``.
 
     Batches keep one shape (the last is padded with repeated images, which
     are dropped before detokenization). Detokenizing batch i overlaps the
@@ -136,10 +167,11 @@ def generate_captions(caption_fn: Callable, dataset,
     it = Prefetcher(eval_batches(dataset, word_to_id, batch_size),
                     depth=prefetch)
     try:
-        for batch in it:
+        for i, batch in enumerate(it):
             refs.extend(batch.references)
             images = torch.from_numpy(np.ascontiguousarray(batch.images))
-            tokens = caption_fn(images.to(device))
+            kw = {} if att_noise is None else {"att_noise": att_noise(i)}
+            tokens = caption_fn(images.to(device), **kw)
             pending.append((tokens, int(batch.pad_mask.sum())))
             if len(pending) > 1:
                 drain(pending.pop(0))
@@ -156,7 +188,9 @@ def evaluate(kind: str, use_data: str, cap: Captioner,
              cfg: Optional[ConfigEval] = None,
              depth_fn: Optional[Callable] = None, num_sets: int = 3,
              scores_pickle: Optional[str] = None, beam_size: int = 1,
-             quiet: bool = False) -> Dict[str, List[float]]:
+             quiet: bool = False,
+             att_noise: Optional[Callable[[int, int], AttNoise]] = None
+             ) -> Dict[str, List[float]]:
     """Score ``num_sets`` checkpoint sets of one configuration (``kind``
     and ``use_data`` name it, as in the JAX package); returns, and pickles
     to ``scores_pickle``, {metric: [one score per set]}.
@@ -166,21 +200,33 @@ def evaluate(kind: str, use_data: str, cap: Captioner,
     Each set's trees are copied into ``cap`` (``params_from_jax``) and the
     dataset is captioned on ``cap``'s device in ``cfg.batch_size`` batches
     of at most ``cfg.max_length`` tokens: greedy decode with the <end>
-    exit (the greedy kernels), or beam search when ``beam_size > 1``.
+    exit, or beam search when ``beam_size > 1``.
     Depth kinds need ``depth_fn``, as ``make_caption_fn`` does.
+
+    Hard attention draws set k's region noise from one ``torch.Generator``
+    on ``cap.device`` seeded with k, which advances batch by batch (the
+    JAX package keys set k with ``PRNGKey(k)`` and splits it once a
+    batch). ``att_noise(set_idx, batch_idx)``, when given, returns each
+    batch's ``att_noise(t, shape)`` hook instead (the tests feed the JAX
+    split chain through it).
     """
     cfg = cfg or ConfigEval()
+    generator = (torch.Generator(device=cap.device)
+                 if cap.spec.attention == "hard" else None)
     caption_fn = make_caption_fn(cap, word_to_id[SPECIAL.start],
                                  cfg.max_length, depth_fn,
                                  end_id=word_to_id[SPECIAL.end],
-                                 beam_size=beam_size)
+                                 beam_size=beam_size, generator=generator)
     scores: Dict[str, List[float]] = {k: [] for k in METRIC_KEYS}
     for set_idx in range(1, num_sets + 1):
         frozen_enc, params, batch_stats = checkpoint_loader(set_idx)
         params_from_jax(cap, params, {"encoder": frozen_enc}, batch_stats)
-        hypos, refs = generate_captions(caption_fn, dataset, word_to_id,
-                                        id_to_word, cfg.batch_size,
-                                        cap.device)
+        if generator is not None:
+            generator.manual_seed(set_idx)
+        hypos, refs = generate_captions(
+            caption_fn, dataset, word_to_id, id_to_word, cfg.batch_size,
+            cap.device, att_noise=None if att_noise is None
+            else functools.partial(att_noise, set_idx))
         result = score(*load_textfiles(refs, hypos))
         if not quiet:
             print(result)

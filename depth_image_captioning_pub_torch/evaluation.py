@@ -2,7 +2,7 @@
 package's ``base_evaluation.py`` / ``depth_evaluation.py`` score modes):
 
     python -m depth_image_captioning_pub_torch.evaluation \\
-        {base|depth} soft score {coco|rem_coco|rem_original}
+        {base|depth} {soft|hard} score {coco|rem_coco|rem_original} [--mlp]
     python -m depth_image_captioning_pub_torch.evaluation nic
 
 Each run captions the frozen val subset (``data_index/np_val_index.npy``
@@ -10,16 +10,20 @@ for coco) with each of ``--num-sets`` (default 3) checkpoint sets that
 the JAX trainer wrote under ``exp_result/`` (``ConfigEval``'s tables,
 paths relative to the working directory), scores BLEU-1..4, METEOR,
 ROUGE-L and CIDEr, and pickles the per-metric lists to
-``<save_dir>/<useData>_scores.pkl`` (``nic_scores.pkl`` for nic).
+``<save_dir>/<useData>_scores.pkl`` (``nic_scores.pkl`` for nic). ``--mlp``
+(depth only) scores the MLP-depth ``mdepth_*`` sets into
+``<save_dir>/mdepth_<useData>_scores.pkl``. Hard attention draws set k's
+Gumbel region noise from a generator seeded with k.
 
-Options: ``--beam W`` (beam search, W > 1), ``--batch-size B`` (default
+Options: ``--beam W`` (beam search, W > 1; soft attention on the card
+takes W = 2..8, the beam kernel's instances), ``--batch-size B`` (default
 ``ConfigEval.batch_size``), ``--device`` (``cuda``, the default: the
 CUDA kernels; ``cpu`` runs their plain PyTorch versions), ``--dpt-weights
 PATH`` (depth: the Omnidata loader is not ported yet, so an existing file
 raises; without weights the DPT is drawn at random with a warning).
 $DCAP_RESNET_LAYERS and $DCAP_TINY_DPT shrink the backbone and the DPT.
-Hard attention, ``--mlp`` (``mdepth-*``) and ``sample`` are not ported:
-they exit with status 2 and name their ROADMAP.md items.
+``sample`` mode is not ported: it exits with status 2 and names its
+ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -41,11 +45,8 @@ from depth_image_captioning_pub_torch.models.captioner import build_captioner
 
 EVAL_DATA = ("coco", "rem_coco", "rem_original")
 NOT_PORTED = {
-    "hard": "hard attention is not ported yet (ROADMAP.md, Queue A item 5)",
-    "--mlp": "mdepth-* scoring is not ported yet (ROADMAP.md, Queue A "
-             "item 6)",
     "sample": "sample mode and its attention overlays are not ported yet "
-              "(ROADMAP.md, Queue A item 10)",
+              "(ROADMAP.md, Queue A item 6)",
 }
 
 
@@ -66,16 +67,21 @@ def _report(scores) -> int:
 
 
 def score_mode(atten: str, use_data: str, cfg: ConfigEval, depth: bool,
-               num_sets: int, beam_size: int, device) -> int:
+               num_sets: int, beam_size: int, encoder: str, device) -> int:
+    """``encoder="mlp"`` (depth only) scores the mdepth sets; their pickle
+    gets an ``mdepth_`` prefix, as in the JAX package, so that it does not
+    overwrite the CNN-depth scores in the same directory."""
     w2i_p, i2w_p, anno, index_file, use_ori = cli.eval_data_selection(
         cfg, use_data)
     word_to_id, id_to_word = _load_vocabs(w2i_p, i2w_p)
-    save_directory, tables = cli.eval_tables(cfg, atten, use_ori, depth)
+    save_directory, tables = cli.eval_tables(cfg, atten, use_ori, depth,
+                                             encoder=encoder)
     ds = CocoCaptions(cfg.val_img_directory, anno)
     if index_file:
         ds = Subset(ds, load_index_file(index_file))
         print(f"subset size : {len(ds)}")
-    kind = f"{'depth' if depth else 'base'}-{atten}"
+    mlp = depth and encoder == "mlp"
+    kind = f"{('mdepth' if mlp else 'depth') if depth else 'base'}-{atten}"
     depth_fn = cli.eval_depth_fn(cfg, device) if depth else None
     cap = build_captioner(kind, len(word_to_id), cfg,
                           resnet_layers=cli.resnet_layers_from_env(),
@@ -85,7 +91,8 @@ def score_mode(atten: str, use_data: str, cfg: ConfigEval, depth: bool,
         lambda i: cli.load_eval_components(save_directory, tables[i], cap),
         ds, word_to_id, id_to_word, cfg, depth_fn=depth_fn,
         num_sets=num_sets, beam_size=beam_size,
-        scores_pickle=f"{save_directory}/{use_data}_scores.pkl"))
+        scores_pickle=f"{save_directory}/{'mdepth_' if mlp else ''}"
+                      f"{use_data}_scores.pkl"))
 
 
 def nic_mode(cfg: ConfigEval, num_sets: int, beam_size: int, device) -> int:
@@ -109,7 +116,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     p = argparse.ArgumentParser(
         description=__doc__, formatter_class=argparse.RawTextHelpFormatter)
     p.add_argument("words", nargs="+",
-                   help="{base|depth} soft score {coco|rem_coco|"
+                   help="{base|depth} {soft|hard} score {coco|rem_coco|"
                         "rem_original}, or nic")
     p.add_argument("--num-sets", type=int, default=3)
     p.add_argument("--beam", type=int, default=1,
@@ -119,11 +126,10 @@ def main(argv: Optional[List[str]] = None) -> int:
                    help="cuda (default) or cpu (the kernels' plain versions)")
     p.add_argument("--dpt-weights", default=None)
     p.add_argument("--mlp", action="store_true",
-                   help="mdepth-* checkpoints (not ported yet)")
+                   help="depth: the MLP-depth (mdepth-*) checkpoint sets")
     args = p.parse_args(argv)
     words = args.words
-    asked = [w for w in ("hard", "sample") if w in words]
-    for key in asked + (["--mlp"] if args.mlp else []):
+    for key in (w for w in NOT_PORTED if w in words):
         print(NOT_PORTED[key], file=sys.stderr)
         return 2
     cfg = ConfigEval()
@@ -134,14 +140,15 @@ def main(argv: Optional[List[str]] = None) -> int:
     if words == ["nic"]:
         return nic_mode(cfg, args.num_sets, args.beam, args.device)
     if (len(words) == 4 and words[0] in ("base", "depth")
-            and words[1] == "soft" and words[2] == "score"):
+            and words[1] in ("soft", "hard") and words[2] == "score"):
         if words[3] not in EVAL_DATA:
             print("input coco or rem_coco or rem_original", file=sys.stderr)
             return 1
-        return score_mode("soft", words[3], cfg, words[0] == "depth",
-                          args.num_sets, args.beam, args.device)
-    print("evaluation {base|depth} soft score {coco|rem_coco|rem_original}"
-          " | nic", file=sys.stderr)
+        return score_mode(words[1], words[3], cfg, words[0] == "depth",
+                          args.num_sets, args.beam,
+                          "mlp" if args.mlp else "cnn", args.device)
+    print("evaluation {base|depth} {soft|hard} score {coco|rem_coco|"
+          "rem_original} [--mlp] | nic", file=sys.stderr)
     return 1
 
 

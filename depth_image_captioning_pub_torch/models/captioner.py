@@ -1,13 +1,15 @@
 """Model assembly per configuration kind (counterpart of the JAX
-``models/captioner.py``). This package builds ``base-soft`` (a frozen
-ResNet-152 grid encoder and a soft-attention decoder), ``depth-soft`` (the
+``models/captioner.py``). This package builds the JAX package's seven
+kinds: ``base-soft`` / ``base-hard`` (a frozen ResNet-152 grid encoder and
+a soft- or hard-attention decoder), ``depth-soft`` / ``depth-hard`` (the
 same, plus a ``DepthCNNEncoder`` whose features are added to the RGB
-features) and ``nic`` (Show and Tell: the frozen ResNet-152, a global
-average pool, a trainable Linear 2048 -> 300 and a two-layer LSTM
+features), ``mdepth-soft`` / ``mdepth-hard`` (a ``DepthMLPEncoder`` on 16x16
+depth patches whose 32 features per region are concatenated to the RGB
+features, D = 2080) and ``nic`` (Show and Tell: the frozen ResNet-152, a
+global average pool, a trainable Linear 2048 -> 300 and a two-layer LSTM
 decoder). The DPT that makes the depth maps is not part of the
 ``Captioner``: ``make_caption_fn`` takes it as ``depth_fn``, as in the JAX
-package. Every other kind raises ``NotImplementedError`` until its slice is
-ported (ROADMAP.md).
+package.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import torch.nn as nn
 from depth_image_captioning_pub_torch.config import ConfigTrain
 from depth_image_captioning_pub_torch.models.decoder import AttentionDecoder
 from depth_image_captioning_pub_torch.models.depth_encoders import (
-    DepthCNNEncoder)
+    DepthCNNEncoder, DepthMLPEncoder, img_to_patch)
 from depth_image_captioning_pub_torch.models.initializers import (
     torch_bias, torch_linear_kernel)
 from depth_image_captioning_pub_torch.models.nic import NICDecoder
@@ -31,7 +33,8 @@ from depth_image_captioning_pub_torch.models.resnet import (
 from depth_image_captioning_pub_torch.ops.pooling import global_avg_pool
 from depth_image_captioning_pub_torch.ops.precision import full_f32
 
-PORTED_KINDS = ("nic", "base-soft", "depth-soft")
+PORTED_KINDS = ("nic", "base-soft", "base-hard", "depth-soft", "depth-hard",
+                "mdepth-soft", "mdepth-hard")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,6 +55,8 @@ class CaptionerSpec:
             "mdepth-soft": ("soft", "concat", "mlp"),
             "mdepth-hard": ("hard", "concat", "mlp"),
         }
+        if kind not in table:
+            raise ValueError(f"unknown kind {kind!r}; one of {PORTED_KINDS}")
         att, fusion, dep = table[kind]
         return CaptionerSpec(kind, att, fusion, dep)
 
@@ -104,10 +109,6 @@ class Captioner(nn.Module):
                  resnet_layers: Optional[Sequence[int]] = None,
                  device="cuda"):
         super().__init__()
-        if spec.kind not in PORTED_KINDS:
-            raise NotImplementedError(
-                f"kind {spec.kind!r} is not ported yet; this package has "
-                f"{PORTED_KINDS} (ROADMAP.md, Queue A)")
         self.spec = spec
         self.device = torch.device(device)
         layers = tuple(resnet_layers or RESNET152_LAYERS)
@@ -130,10 +131,14 @@ class Captioner(nn.Module):
             vocab_size, dim_attention=cfg.dim_attention,
             dim_embedding=cfg.dim_embedding, dim_encoder=cfg.dim_encoder,
             dim_decoder=cfg.dim_hidden, fusion=spec.fusion,
-            device=self.device)
+            device=self.device, attention_kind=spec.attention,
+            dim_depth=cfg.dim_out)
         if spec.depth_encoder == "cnn":
             self.depth_module = DepthCNNEncoder(
                 cfg.enc_img_size, dtype=encoder_dtype, device=self.device)
+        elif spec.depth_encoder == "mlp":
+            self.depth_module = DepthMLPEncoder(
+                cfg.dim_l1, cfg.dim_l2, cfg.dim_out, device=self.device)
 
     def init(self, generator: torch.Generator) -> None:
         """Draw every parameter from ``generator`` with the JAX package's
@@ -160,20 +165,26 @@ class Captioner(nn.Module):
 
     def depth_encoder_apply(
             self) -> Optional[Callable[[torch.Tensor], torch.Tensor]]:
-        """standardized depth maps [B, 224, 224, 1] -> depth features
-        [B, K, 2048] (encoder dtype), on the BN running statistics; None
-        for kinds without depth."""
+        """standardized depth maps [B, 224, 224, 1] -> depth features: the
+        CNN's [B, K, 2048] (encoder dtype, on the BN running statistics) or
+        the MLP's [B, K, 32] f32 on the maps' 16x16 patches (it has no
+        batch statistics); None for kinds without depth."""
+        if self.spec.depth_encoder == "mlp":
+            return lambda depth: self.depth_module(img_to_patch(depth))
         return self.depth_module
 
     def sample_apply(self, sampling: Optional[Dict] = None
                      ) -> Callable[..., torch.Tensor]:
         """Greedy decode: (features, start_id, depth_features=None, *,
-        max_length, end_id) -> tokens [B, L]; for NIC (features, *,
-        max_length) -> tokens [B, L]. With ``sampling`` (``temperature``,
-        ``top_k``, ``top_p``) the stochastic sampler with those settings:
-        (features, start_id, generator, depth_features=None, *,
-        max_length) -> (tokens [B, L], alphas [B, L, K]); for NIC
-        (features, generator, *, max_length) -> tokens [B, L]."""
+        max_length, end_id) -> tokens [B, L] (hard attention also takes
+        ``generator`` or ``att_noise``, its region noise); for NIC
+        (features, *, max_length) -> tokens [B, L]. With ``sampling``
+        (``temperature``, ``top_k``, ``top_p``) the stochastic sampler with
+        those settings: (features, start_id, generator, depth_features=None,
+        *, max_length) -> (tokens [B, L], alphas [B, L, K]); for NIC
+        (features, generator, *, max_length) -> tokens [B, L]. Soft
+        attention decodes on the kernels, hard attention on PyTorch ops
+        (``models/decoder.py``)."""
         if sampling is None:
             return self.decoder.greedy_sample
         return functools.partial(self.decoder.stochastic_sample, **sampling)

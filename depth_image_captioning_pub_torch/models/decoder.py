@@ -1,26 +1,33 @@
 """Attention LSTM caption decoder (counterpart of the JAX
-``models/decoder.py``), soft attention with ``"none"`` or ``"add"`` depth
-fusion (concat fusion waits for the ``mdepth-*`` slice).
+``models/decoder.py``): soft or hard attention, with ``"none"``, ``"add"``
+or ``"concat"`` fusion of depth annotation vectors.
 
 Parameters keep the JAX names and [in, out] layout as plain
 ``nn.Parameter``s (``att_w_enc``, ``lstm_w_ih``, ``out_w``, ...), so the
 bridge from the JAX parameter tree is a name-for-name copy and
 ``pack_weights`` is a slice and reshape.
 
-Greedy decode runs the whole-sequence kernel of
-``ops/kernels/decode_seq.py`` (``csrc/decode_seq.cu`` on a CUDA device,
-its plain PyTorch version on the CPU), beam search the whole-search kernel
-of ``ops/kernels/beam_seq.py`` (``csrc/beam_seq.cu``), and stochastic
-sampling a Python loop of one-step kernels (``ops/kernels/decode_step.py``,
-``csrc/decode_step.cu``), each followed by the vocab head, the filters and
-the draw of ``ops/decode.py``. Encoder features may stay bf16 in device
-memory: the projection, the initial state and the kernels upcast them
-exactly, and all decoder arithmetic is f32.
+Soft attention decodes on the kernels: greedy decode runs the
+whole-sequence kernel of ``ops/kernels/decode_seq.py``
+(``csrc/decode_seq.cu`` on a CUDA device, its plain PyTorch version on the
+CPU), beam search the whole-search kernel of ``ops/kernels/beam_seq.py``
+(``csrc/beam_seq.cu``), and stochastic sampling a Python loop of one-step
+kernels (``ops/kernels/decode_step.py``, ``csrc/decode_step.cu``), each
+followed by the vocab head, the filters and the draw of ``ops/decode.py``.
+Hard attention has no TPU kernel (the JAX package runs it on XLA alone), so
+its three paths are Python loops of PyTorch ops: each step draws Gumbel
+noise over the K regions (``att_noise(t, shape)``, by default
+``ops/decode.region_noise`` of a ``torch.Generator``), attends to the one
+region ``ops/attention.gumbel_max_attention`` picks, and runs the gated
+context, the LSTM cell and the head. Encoder features may stay bf16 in
+device memory: the projection, the initial state, the kernels and the
+gather upcast them exactly, and all decoder arithmetic is f32. Concat
+fusion promotes bf16 RGB and f32 depth features to f32, as JAX does.
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -28,16 +35,20 @@ import torch.nn as nn
 from depth_image_captioning_pub_torch.models.initializers import (
     torch_bias, torch_linear_kernel, uniform_pm)
 from depth_image_captioning_pub_torch.ops.attention import (
-    AttentionParams, project_features)
+    AttentionParams, gumbel_max_attention, project_features)
 from depth_image_captioning_pub_torch.ops.decode import (
-    filtered_logits, gumbel_argmax, gumbel_noise)
+    beam_search, filtered_logits, gumbel_argmax, gumbel_noise, log_softmax,
+    region_noise, tile_for_beams)
 from depth_image_captioning_pub_torch.ops.kernels.beam_seq import (
     fused_beam_decode, select_best)
 from depth_image_captioning_pub_torch.ops.kernels.decode_seq import (
     DecodeSeqWeights, fused_greedy_decode)
 from depth_image_captioning_pub_torch.ops.kernels.decode_step import (
     fused_decode_core, pack_weights)
+from depth_image_captioning_pub_torch.ops.lstm import LSTMCellParams, lstm_cell
 from depth_image_captioning_pub_torch.ops.precision import full_f32
+
+AttNoise = Callable[[int, Sequence[int]], torch.Tensor]
 
 
 class DecoderState(NamedTuple):
@@ -45,26 +56,33 @@ class DecoderState(NamedTuple):
     c: torch.Tensor  # [B, H]
 
 
-FUSIONS = ("none", "add")
+FUSIONS = ("none", "add", "concat")
+ATTENTION_KINDS = ("soft", "hard")
 
 
 class AttentionDecoder(nn.Module):
-    """Soft-attention LSTM decoder, float32 parameters, with ``"none"`` or
-    ``"add"`` fusion of depth annotation vectors (hard attention and concat
-    fusion wait for their slices)."""
+    """Soft- or hard-attention LSTM decoder, float32 parameters, with
+    ``"none"``, ``"add"`` or ``"concat"`` fusion of depth annotation
+    vectors; concat widens the annotation vectors by ``dim_depth``."""
 
     def __init__(self, vocab_size: int, dim_attention: int = 128,
                  dim_embedding: int = 128, dim_encoder: int = 2048,
-                 dim_decoder: int = 128, fusion: str = "none", device=None):
+                 dim_decoder: int = 128, fusion: str = "none", device=None,
+                 attention_kind: str = "soft", dim_depth: int = 32):
         super().__init__()
         if fusion not in FUSIONS:
-            raise NotImplementedError(f"fusion {fusion!r} is not ported yet; "
-                                      f"this package has {FUSIONS}")
+            raise ValueError(f"unknown fusion {fusion!r}; one of {FUSIONS}")
+        if attention_kind not in ATTENTION_KINDS:
+            raise ValueError(f"unknown attention kind {attention_kind!r}; "
+                             f"one of {ATTENTION_KINDS}")
         self.vocab_size = vocab_size
         self.fusion = fusion
+        self.attention_kind = attention_kind
         self.dim_embedding = dim_embedding
-        d_enc, d_att, d_dec, d_emb = (dim_encoder, dim_attention, dim_decoder,
-                                      dim_embedding)
+        self.dim_enc_eff = dim_encoder + (dim_depth if fusion == "concat"
+                                          else 0)
+        d_enc, d_att, d_dec, d_emb = (self.dim_enc_eff, dim_attention,
+                                      dim_decoder, dim_embedding)
         p, b, u = torch_linear_kernel, torch_bias, uniform_pm
         # name -> (shape, initializer), in the JAX module's order
         self._inits = {
@@ -108,10 +126,15 @@ class AttentionDecoder(nn.Module):
              depth_features: Optional[torch.Tensor]) -> torch.Tensor:
         """Join RGB and depth annotation vectors. ``"add"`` sums them in
         their storage dtype (bf16 + bf16 rounds to bf16, as in the JAX
-        package), and the sum stays in that dtype for the decoder."""
+        package), and the sum stays in that dtype for the decoder.
+        ``"concat"`` joins them along the channels in their promoted dtype
+        (bf16 RGB and f32 depth give f32, as ``jnp.concatenate``)."""
         if self.fusion == "none" or depth_features is None:
             return features
-        return features + depth_features
+        if self.fusion == "add":
+            return features + depth_features
+        dt = torch.promote_types(features.dtype, depth_features.dtype)
+        return torch.cat([features.to(dt), depth_features.to(dt)], dim=-1)
 
     def init_state(self, features: torch.Tensor) -> DecoderState:
         """h0, c0 from Linear(mean(features)) chunked in two; the mean
@@ -129,30 +152,90 @@ class AttentionDecoder(nn.Module):
         return DecodeSeqWeights(step, self.out_w, self.out_b[None, :],
                                 self.embed)
 
+    def _tail(self, context: torch.Tensor, emb: torch.Tensor,
+              h: torch.Tensor, c: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The step after the attention (JAX ``_step``): the f_beta gate on
+        the context, the LSTM cell on [emb | gate * context] and the vocab
+        head -> (h', c', logits)."""
+        gate = torch.sigmoid(h @ self.f_beta_w + self.f_beta_b)
+        lstm = LSTMCellParams(self.lstm_w_ih, self.lstm_w_hh, self.lstm_b_ih,
+                              self.lstm_b_hh)
+        h, c = lstm_cell(lstm, torch.cat([emb, gate * context], dim=-1), h, c)
+        return h, c, h @ self.out_w + self.out_b
+
+    def _prepare(self, features, depth_features):
+        """(fused features, f32 projection, h0, c0)."""
+        features = self.fuse(features, depth_features)
+        proj = project_features(self.att_params(), features,
+                                compute_dtype=torch.float32)
+        h, c = self.init_state(features)
+        return features, proj, h, c
+
     @torch.no_grad()
     @full_f32()   # the f32 projection and h0/c0 products, without TF32
     def greedy_sample(self, features: torch.Tensor, start_id: int,
                       depth_features: Optional[torch.Tensor] = None, *,
                       max_length: int = 30,
-                      end_id: Optional[int] = None) -> torch.Tensor:
+                      end_id: Optional[int] = None,
+                      generator: Optional[torch.Generator] = None,
+                      att_noise: Optional[AttNoise] = None) -> torch.Tensor:
         """Batched greedy decode: tokens [B, max_length] int32.
 
-        Fuses ``depth_features`` into ``features`` (``fuse``), then runs
-        the whole-sequence kernel (ops/kernels/decode_seq.py,
+        Fuses ``depth_features`` into ``features`` (``fuse``). Soft
+        attention runs the whole-sequence kernel (ops/kernels/decode_seq.py,
         csrc/decode_seq.cu; its plain version for CPU tensors) in one call.
         ``end_id`` gives finished captions <end>-padding and stops the loop
         once every row is done; the detokenizer stops at the first <end>
         either way. Attention weights are not produced: the visualization
         path waits for a later slice.
+
+        Hard attention runs ``_hard_greedy``: all ``max_length`` steps of
+        PyTorch ops, the region noise of step t from ``att_noise(t, [B,
+        K])`` or ``generator``.
         """
-        features = self.fuse(features, depth_features)
-        proj = project_features(self.att_params(), features,
-                                compute_dtype=torch.float32)
-        state = self.init_state(features)
+        if self.attention_kind == "hard":
+            return self._hard_greedy(
+                features, start_id, depth_features, max_length=max_length,
+                end_id=end_id, att_noise=att_noise or region_noise(generator))
+        features, proj, h, c = self._prepare(features, depth_features)
         return fused_greedy_decode(
-            features.contiguous(), proj, state.h, state.c,
-            self.seq_weights(), max_length=max_length, start_id=start_id,
+            features.contiguous(), proj, h, c, self.seq_weights(),
+            max_length=max_length, start_id=start_id,
             end_id=-1 if end_id is None else end_id)
+
+    def _hard_greedy(self, features, start_id, depth_features, *,
+                     max_length: int, end_id: Optional[int],
+                     att_noise: AttNoise) -> torch.Tensor:
+        """Hard-attention greedy decode, the counterpart of JAX
+        ``_greedy_sample_early_exit``: each step attends to the region
+        ``gumbel_max_attention`` draws, runs the gated context, the LSTM
+        cell and the head, and takes the argmax; with ``end_id`` a finished
+        row emits <end> from then on. JAX stops its ``while_loop`` once
+        every row is done; this loop runs all ``max_length`` steps with the
+        done-mask instead and never waits on the card. The tokens are the
+        same: JAX's noise of step t depends on t alone (``fold_in(rng,
+        t)``), and a finished row's tokens are <end> either way."""
+        features, proj, h, c = self._prepare(features, depth_features)
+        att = self.att_params()
+        bsz, k = features.shape[:2]
+        dev = features.device
+        tokens = torch.empty((bsz, max_length), dtype=torch.int32,
+                             device=dev)
+        prev = torch.full((bsz,), start_id, dtype=torch.int64, device=dev)
+        done = torch.zeros((bsz,), dtype=torch.bool, device=dev)
+        for t in range(max_length):
+            ctx, _ = gumbel_max_attention(att, features, proj, h,
+                                          att_noise(t, (bsz, k)),
+                                          torch.float32)
+            h, c, logits = self._tail(ctx, self.embed[prev], h, c)
+            token = torch.argmax(logits, dim=-1).to(torch.int32)
+            if end_id is not None:
+                token = torch.where(done, end_id, token)
+                done = done | (token == end_id)
+            tokens[:, t] = token
+            prev = token.long()
+        return tokens
 
     @torch.no_grad()
     @full_f32()   # the f32 projection, h0/c0 and head products
@@ -162,24 +245,32 @@ class AttentionDecoder(nn.Module):
             depth_features: Optional[torch.Tensor] = None, *,
             max_length: int = 30, temperature: float = 1.0, top_k: int = 0,
             top_p: float = 1.0,
-            noise: Optional[Callable[[int], torch.Tensor]] = None
+            noise: Optional[Callable[[int], torch.Tensor]] = None,
+            att_noise: Optional[AttNoise] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Batched temperature / top-k / nucleus sampling: (tokens [B,
         max_length] int32, alphas [B, max_length, K] f32).
 
         Set-up as ``greedy_sample``, then ``max_length`` steps (no early
         exit, as the JAX scan), each: the embedding of the previous token,
-        one step kernel (``fused_decode_core``: h', c', alpha), the vocab
-        head, ``filtered_logits`` and a Gumbel-argmax draw. The noise of
-        step t is ``noise(t)`` [B, V] when given (the tests feed the JAX
-        package's draws), else drawn from ``generator``.
-        Deterministic per generator state; top_k=1 gives greedy argmax.
+        the attention-LSTM step, the vocab head, ``filtered_logits`` and a
+        Gumbel-argmax draw. Soft attention runs the step as one kernel
+        (``fused_decode_core``: h', c', alpha); hard attention draws the
+        step's region first (``gumbel_max_attention``, one-hot alphas) and
+        runs the rest in PyTorch ops. The token noise of step t is
+        ``noise(t)`` [B, V] and hard attention's region noise ``att_noise(t,
+        [B, K])`` when given (the tests feed the JAX package's draws), else
+        drawn from ``generator``. Deterministic per generator state; top_k=1
+        gives greedy argmax.
         """
-        features = self.fuse(features, depth_features).contiguous()
-        proj = project_features(self.att_params(), features,
-                                compute_dtype=torch.float32)
-        h, c = self.init_state(features)
-        w = self.seq_weights()
+        features, proj, h, c = self._prepare(features, depth_features)
+        features = features.contiguous()
+        hard = self.attention_kind == "hard"
+        if hard:
+            att_noise = att_noise or region_noise(generator)
+            att = self.att_params()
+        else:
+            w = self.seq_weights()
         bsz, k = features.shape[:2]
         tokens = torch.empty((bsz, max_length), dtype=torch.int32,
                              device=features.device)
@@ -188,11 +279,17 @@ class AttentionDecoder(nn.Module):
         prev = torch.full((bsz,), start_id, dtype=torch.int64,
                           device=features.device)
         for t in range(max_length):
-            h, c, alpha = fused_decode_core(features, proj, w.embed[prev],
-                                            h, c, w.step)
-            filt = filtered_logits(h @ w.w_out + w.b_out,
-                                   temperature=temperature, top_k=top_k,
-                                   top_p=top_p)
+            if hard:
+                ctx, alpha = gumbel_max_attention(
+                    att, features, proj, h, att_noise(t, (bsz, k)),
+                    torch.float32)
+                h, c, logits = self._tail(ctx, self.embed[prev], h, c)
+            else:
+                h, c, alpha = fused_decode_core(features, proj,
+                                                w.embed[prev], h, c, w.step)
+                logits = h @ w.w_out + w.b_out
+            filt = filtered_logits(logits, temperature=temperature,
+                                   top_k=top_k, top_p=top_p)
             z = (noise(t) if noise is not None
                  else gumbel_noise(filt.shape, generator))
             token = gumbel_argmax(filt, z)
@@ -207,23 +304,61 @@ class AttentionDecoder(nn.Module):
                     end_id: int,
                     depth_features: Optional[torch.Tensor] = None, *,
                     beam_size: int = 5, max_length: int = 30,
-                    length_penalty: float = 0.0
+                    length_penalty: float = 0.0,
+                    generator: Optional[torch.Generator] = None,
+                    att_noise: Optional[AttNoise] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Batched beam search: (tokens [B, max_length] int32 of the best
         beam, its score [B]).
 
-        Fuses ``depth_features`` into ``features``, then runs the whole
-        search in one call (ops/kernels/beam_seq.py, csrc/beam_seq.cu; its
-        plain version for CPU tensors), which stops once every beam has
-        emitted <end>. ``length_penalty`` alpha ranks the final beams by
-        score / length**alpha (GNMT); 0 ranks by log-probability.
+        Fuses ``depth_features`` into ``features``. Soft attention runs the
+        whole search in one call (ops/kernels/beam_seq.py,
+        csrc/beam_seq.cu; its plain version for CPU tensors), which stops
+        once every beam has emitted <end>. Hard attention runs
+        ``ops/decode.beam_search`` over PyTorch steps (``_hard_beam``).
+        ``length_penalty`` alpha ranks the final beams by score /
+        length**alpha (GNMT); 0 ranks by log-probability.
         """
-        features = self.fuse(features, depth_features)
-        proj = project_features(self.att_params(), features,
-                                compute_dtype=torch.float32)
-        state = self.init_state(features)
+        if self.attention_kind == "hard":
+            return self._hard_beam(
+                features, start_id, end_id, depth_features,
+                beam_size=beam_size, max_length=max_length,
+                length_penalty=length_penalty,
+                att_noise=att_noise or region_noise(generator))
+        features, proj, h, c = self._prepare(features, depth_features)
         out = fused_beam_decode(
-            features.contiguous(), proj, state.h, state.c,
-            self.seq_weights(), beam_size=beam_size, max_length=max_length,
-            start_id=start_id, end_id=end_id)
+            features.contiguous(), proj, h, c, self.seq_weights(),
+            beam_size=beam_size, max_length=max_length, start_id=start_id,
+            end_id=end_id)
         return select_best(out, end_id, length_penalty)
+
+    def _hard_beam(self, features, start_id, end_id, depth_features, *,
+                   beam_size: int, max_length: int, length_penalty: float,
+                   att_noise: AttNoise) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Hard-attention beam search, the counterpart of JAX
+        ``beam_sample``'s XLA path with ``early_exit``: one [B, W, K] noise
+        draw a step (``att_noise(t, [B, W, K])``), each beam attending over
+        its image's features, which stay [B, K, D] (never tiled by beam),
+        then the gated context, the LSTM cell, the head and a log-softmax
+        per beam, and the search of ``ops/decode.beam_search``."""
+        features, proj, h0, c0 = self._prepare(features, depth_features)
+        att = self.att_params()
+        bsz, k = features.shape[:2]
+        beam = beam_size
+        rows = torch.arange(bsz, device=features.device)[:, None]
+
+        def step_fn(state, prev, t):
+            h, c = state["h"], state["c"]
+            dec = h.reshape(bsz, beam, -1) @ att.w_dec + att.b_dec
+            act = torch.relu(proj[:, None] + dec[:, :, None, :])
+            logits = act @ att.w_full + att.b_full            # [B, W, K]
+            pos = torch.argmax(logits + att_noise(t, (bsz, beam, k)), dim=-1)
+            ctx = features[rows, pos].to(torch.float32).reshape(
+                bsz * beam, -1)
+            h, c, out = self._tail(ctx, self.embed[prev.long()], h, c)
+            return {"h": h, "c": c}, log_softmax(out)
+
+        return beam_search(step_fn, tile_for_beams({"h": h0, "c": c0}, beam),
+                           bsz, start_id, end_id, beam_size=beam,
+                           max_length=max_length,
+                           length_penalty=length_penalty, early_exit=True)

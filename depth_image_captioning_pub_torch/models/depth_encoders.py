@@ -1,9 +1,8 @@
-"""Depth-map encoders (counterpart of the JAX ``models/depth_encoders.py``).
-
-This slice ports ``DepthCNNEncoder`` at inference: BatchNorm on its running
-statistics (eps 1e-5, f32 math), convs in the compute dtype on
-channels_last tensors. The MLP encoder and ``img_to_patch`` (the
-``mdepth-*`` kinds) wait for their slice.
+"""Depth-map encoders (counterpart of the JAX ``models/depth_encoders.py``),
+at inference: ``DepthCNNEncoder`` (the ``depth-*`` kinds: BatchNorm on its
+running statistics, eps 1e-5, f32 math, convs in the compute dtype on
+channels_last tensors) and ``img_to_patch`` + ``DepthMLPEncoder`` (the
+``mdepth-*`` kinds: a per-patch MLP in f32, no batch statistics).
 """
 
 from __future__ import annotations
@@ -13,7 +12,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from depth_image_captioning_pub_torch.models.initializers import (
-    torch_conv_kernel)
+    torch_bias, torch_conv_kernel, torch_linear_kernel)
 from depth_image_captioning_pub_torch.models.resnet import FrozenBatchNorm2d
 from depth_image_captioning_pub_torch.ops.pooling import (
     adaptive_avg_pool2d, nchw, nhwc)
@@ -61,3 +60,51 @@ class DepthCNNEncoder(nn.Module):
         x = F.relu(self.bn3(self.conv3(x)))
         x = adaptive_avg_pool2d(nhwc(x), self.enc_img_size)
         return x.reshape(x.shape[0], self.enc_img_size ** 2, x.shape[-1])
+
+
+def img_to_patch(depth: torch.Tensor, patch: int = 16) -> torch.Tensor:
+    """[B, H, W, 1] -> [B, (H/p)*(W/p), p*p]: the patches ordered row-major
+    over the grid, each patch's pixels row-major (``nn.Unfold(16,
+    stride=16)`` and a permute on one channel)."""
+    b, h, w, c = depth.shape
+    if c != 1 or h % patch or w % patch:
+        raise ValueError(f"img_to_patch needs [B, H, W, 1] with H and W "
+                         f"multiples of {patch}, got {tuple(depth.shape)}")
+    gh, gw = h // patch, w // patch
+    x = depth[..., 0].reshape(b, gh, patch, gw, patch)
+    return x.permute(0, 1, 3, 2, 4).reshape(b, gh * gw, patch * patch)
+
+
+class DepthMLPEncoder(nn.Module):
+    """Per-patch MLP 256 -> 128 -> 64 -> 32, ReLU after every layer, f32:
+    [B, 196, 256] patches -> [B, 196, 32] features, which the decoder
+    concatenates to the RGB features (2048 + 32 = 2080). Layer names are
+    the flax names (``l1``, ``l2``, ``l3``)."""
+
+    def __init__(self, dim_l1: int = 128, dim_l2: int = 64,
+                 dim_out: int = 32, dim_in: int = 256, device=None):
+        super().__init__()
+        kw = dict(dtype=torch.float32, device=device)
+        self.l1 = nn.Linear(dim_in, dim_l1, **kw)
+        self.l2 = nn.Linear(dim_l1, dim_l2, **kw)
+        self.l3 = nn.Linear(dim_l2, dim_out, **kw)
+
+    def layers(self):
+        return (self.l1, self.l2, self.l3)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """The JAX module's init: torch-default Linear kernels and biases."""
+        with torch.no_grad():
+            for lin in self.layers():
+                fan_in = lin.in_features
+                lin.weight.copy_(torch_linear_kernel(
+                    (fan_in, lin.out_features), generator).T)
+                lin.bias.copy_(torch_bias(fan_in)(lin.bias.shape, generator))
+
+    @full_f32()   # f32 products in full f32, not TF32
+    def forward(self, patches: torch.Tensor) -> torch.Tensor:
+        x = patches.to(torch.float32)
+        for lin in self.layers():
+            # flax Dense: the product, then the bias
+            x = F.relu(x @ lin.weight.T + lin.bias)
+        return x

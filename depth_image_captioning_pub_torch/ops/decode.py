@@ -5,9 +5,10 @@ Generic over models through ``step_fn(state, tokens, t) -> (state,
 logprobs)``: every tensor of ``state`` (a dict) and ``tokens``/``logprobs``
 has a leading [B*W] dim, and ``t`` is the step index. Beams are reordered
 by a gather; finished beams persist by only offering ``<end>`` at zero
-cost. Used by ``NICDecoder.beam_sample``; the attention decoder's search
-runs in the whole-search kernel (``ops/kernels/beam_seq.py``), whose plain
-version repeats this selection step.
+cost. Used by ``NICDecoder.beam_sample`` and hard attention's search in
+``AttentionDecoder.beam_sample``; soft attention's search runs in the
+whole-search kernel (``ops/kernels/beam_seq.py``), whose plain version
+repeats this selection step.
 
 Two points hold the search to the JAX package's:
 
@@ -17,6 +18,8 @@ Two points hold the search to the JAX package's:
 * the length penalty measures a beam that never emitted ``<end>`` as
   length 1 (the argmax of an all-False row is 0), as the JAX package does.
 
+Hard attention draws its region as ``argmax(logits + noise)`` over
+``region_noise``'s draws (``ops/attention.gumbel_max_attention``).
 Stochastic sampling draws each token as ``gumbel_argmax(filtered_logits(
 logits), noise)``: ``argmax(filt + noise)`` over Gumbel noise is what
 ``jax.random.categorical`` computes. The two frameworks' generators give
@@ -82,6 +85,19 @@ def gumbel_noise(shape: Sequence[int], generator: torch.Generator
                    device=generator.device, dtype=torch.float32)
     u = u.clamp_(min=torch.finfo(torch.float32).tiny)
     return -torch.log(-torch.log(u))
+
+
+def region_noise(generator: torch.Generator
+                 ) -> Callable[[int, Sequence[int]], torch.Tensor]:
+    """Hard attention's noise source drawing from ``generator`` (on the
+    features' device): ``noise(t, shape)`` -> standard Gumbel of ``shape``
+    ([B, K] a step, [B, W, K] in the beam search). The decoders take any
+    such ``att_noise`` hook; the tests replay the JAX package's draws
+    through one."""
+    if generator is None:
+        raise ValueError("hard attention needs a generator or an att_noise "
+                         "hook for its Gumbel noise")
+    return lambda t, shape: gumbel_noise(shape, generator)
 
 
 def gumbel_argmax(filt: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:

@@ -12,13 +12,17 @@ of the skipped steps are <end> with identity parents, which is what
 running them would give.
 
 ``fused_beam_decode`` launches ``csrc/beam_seq.cu`` for CUDA tensors: the
-whole search (W = 2..5) in one cooperative launch of one CTA per SM on the
+whole search (W = 2..8) in one cooperative launch of one CTA per SM on the
 greedy kernel's phases (``csrc/decode_phases.cuh``), each CTA holding a
 column slice of the weights in shared memory for the whole launch, the
 beams' reorder a row map (``plan_beam`` sizes it; ``LAST_PLAN`` is the plan
 of the last launch). CPU tensors run ``fused_beam_decode_plain``. Both
 return the per-step records (``BeamSeqOutputs``); ``reconstruct_history``
 and ``select_best`` turn them into the best caption, in plain PyTorch.
+Widths the phases cannot read (D, E or H not a multiple of 8, A not of 4)
+are zero-padded for the launch (``decode_seq.pad_seq``); a beam wider
+than the kernel's instances raises (``check_beam_size``), where the plain
+version takes any W.
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ import torch
 from depth_image_captioning_pub_torch.ops import decode
 from depth_image_captioning_pub_torch.ops.kernels import _build
 from depth_image_captioning_pub_torch.ops.kernels.decode_seq import (
-    DecodeSeqWeights)
+    DecodeSeqWeights, pad_seq)
 from depth_image_captioning_pub_torch.ops.kernels.decode_step import (
     A_MIN, FEATURE_DTYPES, G_UNITS, SMEM_LIMIT, THREADS, TWO_UNITS_FROM,
     _sm_count, check_float32, check_same_device, check_shape,
@@ -40,7 +44,8 @@ from depth_image_captioning_pub_torch.ops.lstm import lstm_cell
 
 LAUNCHES = 0   # kernel launches of dcap_beam_decode in this process
 
-BEAM_SIZES = (2, 3, 4, 5)        # the widths csrc/beam_seq.cu is built for
+BEAM_SIZES = (2, 3, 4, 5, 6, 7, 8)   # the widths csrc/beam_seq.cu is
+#                                      built for
 STATIC_SMEM = 1024   # bytes kept free for the kernel's static shared arrays
 BEAM_H_ROWS = 4      # kBeamHRows: the h tile's rows are a multiple of it
 H_TILE_MAX = 128     # most rows of an h tile (the threads' fill sets it)
@@ -168,6 +173,17 @@ def _max_ctas(index: int, bf16: int, beam: int, smem: int) -> int:
     return fits
 
 
+def check_beam_size(beam_size: int, device) -> None:
+    """Raise, naming the kernel's widths, when a beam search of width
+    ``beam_size`` on ``device`` would reach the beam kernel without an
+    instance for it: a CUDA device and W outside ``BEAM_SIZES``. The plain
+    version (CPU tensors) takes any W."""
+    if (torch.device(device).type == "cuda"
+            and beam_size not in BEAM_SIZES):
+        raise ValueError(f"the beam kernel is built for beam sizes "
+                         f"{BEAM_SIZES}, got {beam_size}")
+
+
 def fused_beam_decode_plain(features, features_proj, h0, c0,
                             w: DecodeSeqWeights, *, beam_size: int,
                             max_length: int = 30, start_id: int = 0,
@@ -259,9 +275,14 @@ def fused_beam_decode(features: torch.Tensor, features_proj: torch.Tensor,
     if features.device.type != "cuda":
         raise ValueError(f"no kernel for device {features.device}")
 
-    if beam_size not in BEAM_SIZES:
-        raise ValueError(f"the beam kernel is built for beam sizes "
-                         f"{BEAM_SIZES}, got {beam_size}")
+    check_beam_size(beam_size, features.device)
+    features, features_proj, h0, c0, w = pad_seq(features, features_proj,
+                                                 h0, c0, w)
+    d, a, hdim, e = (features.shape[-1], features_proj.shape[-1],
+                     h0.shape[-1], w.embed.shape[-1])
+    named = ([("features_proj", features_proj), ("h0", h0), ("c0", c0)]
+             + list(zip(w.step._fields, w.step))
+             + [("w_out", w.w_out), ("b_out", w.b_out), ("embed", w.embed)])
     ptrs = cuda_pointers([("features", features)] + named)
     for name, t in (("features", features), ("features_proj", features_proj),
                     ("h0", h0), ("embed", w.embed)):

@@ -16,6 +16,9 @@ launch). CPU tensors run ``fused_greedy_decode_plain``
 and stops once every row is done, the output of the JAX early-exit paths;
 ``end_id < 0`` runs all ``max_length`` steps. Any batch size B >= 1 is
 taken as it is: there is no padding to a multiple of 8 as on the TPU.
+Widths the phases cannot read (D, E or H not a multiple of 8, A not of 4)
+are zero-padded for the launch (``pad_seq``), which leaves the tokens as
+they are.
 """
 
 from __future__ import annotations
@@ -30,7 +33,8 @@ from depth_image_captioning_pub_torch.ops.kernels.decode_step import (
     A_MIN, FEATURE_DTYPES, G_UNITS, H_ROWS, H_TILE_MAX, SMEM_LIMIT, THREADS,
     TWO_UNITS_FROM, DecodeStepWeights, _sm_count, attention_lstm_step,
     check_float32, check_same_device, check_shape, check_step_weights,
-    cuda_pointers, plain_step_params)
+    cuda_pointers, kernel_widths, pad_step_weights, plain_step_params,
+    zero_pad)
 
 LAUNCHES = 0   # kernel launches of dcap_greedy_decode in this process
 
@@ -144,6 +148,24 @@ class DecodeSeqWeights(NamedTuple):
     embed: torch.Tensor   # [V, E]
 
 
+def pad_seq(features, features_proj, h0, c0, w: DecodeSeqWeights):
+    """The whole-sequence kernels' inputs zero-padded to ``decode_step.
+    kernel_widths`` (``pad_step_weights``' argument: padded columns add
+    exactly 0 and padded hidden units stay 0; the head's padded rows meet
+    those zeros): (features, features_proj, h0, c0, w). Nothing is copied
+    at widths the kernels take as they are (the published ones)."""
+    bsz, k, d = features.shape
+    vocab, e = w.embed.shape
+    dp, ap, ep, hp = kernel_widths(d, features_proj.shape[-1], e,
+                                   h0.shape[-1])
+    return (zero_pad(features, (bsz, k, dp)),
+            zero_pad(features_proj, (bsz, k, ap)), zero_pad(h0, (bsz, hp)),
+            zero_pad(c0, (bsz, hp)),
+            DecodeSeqWeights(pad_step_weights(w.step, dp, ap, ep, hp),
+                             zero_pad(w.w_out, (hp, vocab)), w.b_out,
+                             zero_pad(w.embed, (vocab, ep))))
+
+
 def fused_greedy_decode_plain(features, features_proj, h0, c0,
                               w: DecodeSeqWeights, *, max_length: int = 30,
                               start_id: int = 0, end_id: int = -1
@@ -213,6 +235,13 @@ def fused_greedy_decode(features: torch.Tensor, features_proj: torch.Tensor,
     if features.device.type != "cuda":
         raise ValueError(f"no kernel for device {features.device}")
 
+    features, features_proj, h0, c0, w = pad_seq(features, features_proj,
+                                                 h0, c0, w)
+    d, a, hdim, e = (features.shape[-1], features_proj.shape[-1],
+                     h0.shape[-1], w.embed.shape[-1])
+    named = ([("features_proj", features_proj), ("h0", h0), ("c0", c0)]
+             + list(zip(w.step._fields, w.step))
+             + [("w_out", w.w_out), ("b_out", w.b_out), ("embed", w.embed)])
     ptrs = cuda_pointers([("features", features)] + named)
     for name, t in (("features", features), ("features_proj", features_proj),
                     ("h0", h0), ("embed", w.embed)):

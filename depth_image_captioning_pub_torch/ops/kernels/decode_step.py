@@ -18,7 +18,9 @@ CTA holding a column slice of the step's weights in shared memory
 (``plan_step`` sizes it; ``LAST_PLAN`` is the plan of the last launch).
 CPU tensors run ``fused_decode_core_plain``. Features may be float32 or
 bfloat16 (upcast exactly as they are read); everything else is float32,
-and alpha comes back float32. Any batch size B >= 1 is taken as it is.
+and alpha comes back float32. Any batch size B >= 1 is taken as it is;
+widths the phases cannot read (D, E or H not a multiple of 8, A not of 4)
+are zero-padded for the launch (``pad_step``) and h', c' sliced back.
 
 The module also holds what the kernels on those phases share: their build
 constants, the weight layout and the argument checks.
@@ -85,6 +87,65 @@ def pack_weights(att_w_dec, att_b_dec, att_w_full, att_b_full, f_beta_w,
         w_fb=f_beta_w, b_fb=f_beta_b[None, :],
         w_ih_e=lstm_w_ih[:dim_embedding], w_ih_c=lstm_w_ih[dim_embedding:],
         w_hh=lstm_w_hh, b_lstm=(lstm_b_ih + lstm_b_hh)[None, :])
+
+
+def kernel_widths(d: int, a: int, e: int, h: int
+                  ) -> Tuple[int, int, int, int]:
+    """(D, A, E, H) as the kernels on the shared phases run them: D, E and
+    H rounded up to multiples of 8 and A to a multiple of 4 (the phases
+    read 16 or 32 bytes at a time)."""
+    return (-(-d // 8) * 8, -(-a // 4) * 4, -(-e // 8) * 8,
+            -(-h // 8) * 8)
+
+
+def zero_pad(t: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+    """``t`` zero-padded at the end of every dim to ``shape``; ``t``
+    itself when it has that shape already."""
+    if tuple(t.shape) == tuple(shape):
+        return t
+    out = t.new_zeros(tuple(shape))
+    out[tuple(slice(0, n) for n in t.shape)] = t
+    return out
+
+
+def pad_gates(m: torch.Tensor, rows: int, h: int) -> torch.Tensor:
+    """[n, 4H] -> [rows, 4h]: the rows and each gate block zero-padded;
+    ``m`` itself when it has that shape already."""
+    n, g = m.shape
+    if (n, g) == (rows, 4 * h):
+        return m
+    out = m.new_zeros((rows, 4, h))
+    out[:n, :, :g // 4] = m.reshape(n, 4, g // 4)
+    return out.reshape(rows, 4 * h)
+
+
+def pad_step_weights(w: DecodeStepWeights, d: int, a: int, e: int, h: int
+                     ) -> DecodeStepWeights:
+    """The step weights zero-padded to widths D=d, A=a, E=e, H=h (at least
+    theirs). Every padded column or row meets a zero of the padded
+    activations: a zero feature or attention column adds exactly 0, and a
+    padded hidden unit stays exactly 0 (its gates are 0, so c' = sigmoid(0)
+    * 0 + sigmoid(0) * tanh(0) = 0 and h' = 0). Tensors already as wide
+    are returned as they are."""
+    return DecodeStepWeights(
+        w_dec=zero_pad(w.w_dec, (h, a)), b_dec=zero_pad(w.b_dec, (1, a)),
+        w_full=zero_pad(w.w_full, (a, 1)), b_full=w.b_full,
+        w_fb=zero_pad(w.w_fb, (h, d)), b_fb=zero_pad(w.b_fb, (1, d)),
+        w_ih_e=pad_gates(w.w_ih_e, e, h), w_ih_c=pad_gates(w.w_ih_c, d, h),
+        w_hh=pad_gates(w.w_hh, h, h), b_lstm=pad_gates(w.b_lstm, 1, h))
+
+
+def pad_step(features, features_proj, emb, h, c, w: DecodeStepWeights):
+    """The step kernel's inputs zero-padded to ``kernel_widths``: (features,
+    features_proj, emb, h, c, w). Nothing is copied at widths the kernel
+    takes as they are (the published ones)."""
+    bsz, k, d = features.shape
+    dp, ap, ep, hp = kernel_widths(d, features_proj.shape[-1],
+                                   emb.shape[-1], h.shape[-1])
+    return (zero_pad(features, (bsz, k, dp)),
+            zero_pad(features_proj, (bsz, k, ap)), zero_pad(emb, (bsz, ep)),
+            zero_pad(h, (bsz, hp)), zero_pad(c, (bsz, hp)),
+            pad_step_weights(w, dp, ap, ep, hp))
 
 
 class StepPlan(NamedTuple):
@@ -302,6 +363,12 @@ def fused_decode_core(features: torch.Tensor, features_proj: torch.Tensor,
     if features.device.type != "cuda":
         raise ValueError(f"no kernel for device {features.device}")
 
+    features, features_proj, emb, h, c, w = pad_step(
+        features, features_proj, emb, h, c, w)
+    d, a, e, hp = (features.shape[-1], features_proj.shape[-1],
+                   emb.shape[-1], h.shape[-1])
+    named = [("features_proj", features_proj), ("emb", emb), ("h", h),
+             ("c", c)] + list(zip(w._fields, w))
     ptrs = cuda_pointers([("features", features)] + named)
     for name, t in (("features", features), ("features_proj", features_proj),
                     ("emb", emb), ("h", h)):
@@ -311,9 +378,9 @@ def fused_decode_core(features: torch.Tensor, features_proj: torch.Tensor,
     bf16 = int(features.dtype == torch.bfloat16)
     with torch.cuda.device(features.device):
         index = torch.cuda.current_device()
-        p = plan_step(bsz, k, d, a, e, hdim, _sm_count(index))
+        p = plan_step(bsz, k, d, a, e, hp, _sm_count(index))
         while (fits := _max_ctas(index, bf16, p.smem_bytes)) < p.ctas:
-            p = plan_step(bsz, k, d, a, e, hdim, fits)
+            p = plan_step(bsz, k, d, a, e, hp, fits)
         h_out = torch.empty_like(h)
         c_out = torch.empty_like(c)
         alpha = torch.empty((bsz, k), dtype=torch.float32,
@@ -326,9 +393,12 @@ def fused_decode_core(features: torch.Tensor, features_proj: torch.Tensor,
         err = lib.dcap_decode_step(
             ptrs[0], bf16, *ptrs[1:], h_out.data_ptr(), c_out.data_ptr(),
             alpha.data_ptr(), fscr.data_ptr(), iscr.data_ptr(), bsz, k, d,
-            a, e, hdim, p.ctas, p.h_cols, p.units, p.a_chunk, p.h_rows,
+            a, e, hp, p.ctas, p.h_cols, p.units, p.a_chunk, p.h_rows,
             p.smem_bytes, stream)
     _build.check_launch(err, "dcap_decode_step")
     LAUNCHES += 1
     LAST_PLAN = p
+    if hp != hdim:
+        return (h_out[:, :hdim].contiguous(), c_out[:, :hdim].contiguous(),
+                alpha)
     return h_out, c_out, alpha

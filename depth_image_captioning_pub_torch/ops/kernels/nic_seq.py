@@ -31,7 +31,7 @@ import torch.nn.functional as F
 from depth_image_captioning_pub_torch.ops.kernels import _build
 from depth_image_captioning_pub_torch.ops.kernels.decode_step import (
     G_UNITS, H_ROWS, H_TILE_MAX, SMEM_LIMIT, THREADS, _sm_count,
-    check_float32, check_same_device, check_shape, cuda_pointers)
+    check_float32, check_same_device, check_shape, cuda_pointers, pad_gates)
 from depth_image_captioning_pub_torch.ops.lstm import (
     LSTMCellParams, StackedLSTMParams, stacked_lstm_step)
 
@@ -182,14 +182,6 @@ def _max_ctas(index: int, smem: int) -> int:
     return fits
 
 
-def _pad_gates(m: torch.Tensor, rows: int, h: int) -> torch.Tensor:
-    """[n, 4H] -> [rows, 4h]: each gate block and the rows zero-padded."""
-    n, g = m.shape
-    out = m.new_zeros((rows, 4, h))
-    out[:n, :, :g // 4] = m.reshape(n, 4, g // 4)
-    return out.reshape(rows, 4 * h)
-
-
 def pad_nic(x0: torch.Tensor, w: NICSeqWeights, e: int, h: int
             ) -> Tuple[torch.Tensor, NICSeqWeights]:
     """x0 and the weights zero-padded to input width ``e`` and hidden width
@@ -204,8 +196,8 @@ def pad_nic(x0: torch.Tensor, w: NICSeqWeights, e: int, h: int
     mats = []
     for li in range(0, len(w.layer_mats), 3):
         w_ih, w_hh, b = w.layer_mats[li:li + 3]
-        mats += [_pad_gates(w_ih, e if li == 0 else h, h),
-                 _pad_gates(w_hh, h, h), _pad_gates(b, 1, h)]
+        mats += [pad_gates(w_ih, e if li == 0 else h, h),
+                 pad_gates(w_hh, h, h), pad_gates(b, 1, h)]
     w_out = w.w_out.new_zeros((h, w.w_out.shape[1]))
     w_out[:h0] = w.w_out
     return F.pad(x0, (0, e - e0)), NICSeqWeights(

@@ -11,13 +11,17 @@
                            batch_buckets=(1, 16, 64))
     pipe(images_uint8)                              # -> list of captions
 
-``kind`` may also be ``"nic"``. ``CaptionPipeline(..., beam_size=5,
-length_penalty=0.7)`` captions with beam search, and ``CaptionPipeline(
-..., sample=True, temperature=0.8, top_k=0, top_p=0.9, seed=0)`` with
-stochastic sampling: the pipeline keeps one ``torch.Generator`` on the
-captioner's device, seeded from ``seed``, and every chunk draws from it,
-so repeated calls give fresh captions, deterministic per seed. A depth
-kind also needs the DPT that makes its depth maps:
+``kind`` may be any of the seven (``models/captioner.PORTED_KINDS``).
+``CaptionPipeline(..., beam_size=5, length_penalty=0.7)`` captions with
+beam search, and ``CaptionPipeline(..., sample=True, temperature=0.8,
+top_k=0, top_p=0.9, seed=0)`` with stochastic sampling: the pipeline keeps
+one ``torch.Generator`` on the captioner's device, seeded from ``seed``,
+and every chunk draws from it, so repeated calls give fresh captions,
+deterministic per seed. Hard attention draws its region noise from that
+generator too; without ``sample`` it is re-seeded with ``seed`` before
+every chunk, so a request captions the same way on every call (the JAX
+pipeline's fixed key). A depth kind also needs the DPT that makes its
+depth maps:
 
     est = DPTDepthEstimator(device="cuda")          # models/dpt.py
     est.init(torch.Generator().manual_seed(0))      # or dpt_params_from_jax
@@ -54,10 +58,10 @@ from depth_image_captioning_pub_torch.engine.evaluate import make_caption_fn
 
 
 class CaptionPipeline:
-    """Batched captioning over one captioner (nic, base-soft, or
-    depth-soft with its ``depth_fn``): greedy, beam search when
-    ``beam_size > 1``, or stochastic sampling when ``sample`` (greedy
-    ignores ``seed``; beam search with ``sample`` raises)."""
+    """Batched captioning over one captioner (a depth kind with its
+    ``depth_fn``): greedy, beam search when ``beam_size > 1``, or
+    stochastic sampling when ``sample`` (soft greedy and beam search ignore
+    ``seed``; beam search with ``sample`` raises)."""
 
     def __init__(self, cap, word_to_id: Dict[str, int],
                  id_to_word: Dict[int, str], *, depth_fn=None,
@@ -77,10 +81,13 @@ class CaptionPipeline:
         self.batch_size = self.batch_buckets[-1]   # the chunk size
         self.image_hw = tuple(image_hw)
         self.sample = bool(sample)
+        self.seed = int(seed)
+        hard = cap.spec.attention == "hard"
+        self._reseed = hard and not self.sample   # per chunk
         self.generator = None
-        if self.sample:
+        if self.sample or hard:
             self.generator = torch.Generator(device=self.device)
-            self.generator.manual_seed(int(seed))
+            self.generator.manual_seed(self.seed)
         self._fn = make_caption_fn(
             cap, start_id=word_to_id[SPECIAL.start],
             max_length=self.max_length, depth_fn=depth_fn,
@@ -172,6 +179,8 @@ class CaptionPipeline:
                 reps = np.zeros((bucket - valid,), np.int64)
                 chunk = np.concatenate([chunk, chunk[reps]], axis=0)
             images = torch.from_numpy(np.ascontiguousarray(chunk))
+            if self._reseed:
+                self.generator.manual_seed(self.seed)
             pending.append((self._fn(images.to(self.device)), valid))
             if len(pending) > 1:
                 toks, v = pending.pop(0)

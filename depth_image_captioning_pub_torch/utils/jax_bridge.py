@@ -6,8 +6,12 @@ input is what the JAX ``Captioner.init`` returns (or a checkpoint holds),
 
   trainable["decoder"][name]                    decoder params, [in, out]
   trainable["depth_encoder"]                    depth CNN convs and BN
-                                                scale/bias (depth kinds)
-  batch_stats                                   depth CNN BN mean/var
+                                                scale/bias (depth kinds),
+                                                or the depth MLP's Dense
+                                                l1/l2/l3 kernels and biases
+                                                (mdepth kinds)
+  batch_stats                                   depth CNN BN mean/var ({}
+                                                for the MLP, which has none)
   frozen["encoder"]["params"]["backbone"]       conv kernels HWIO, BN
                                                 scale/bias
   frozen["encoder"]["batch_stats"]["backbone"]  BN mean/var
@@ -132,6 +136,9 @@ def params_from_jax(cap, trainable: Tree, frozen: Tree,
     _load(cap.encoder, encoder_state_dict(frozen["encoder"]))
     _load(cap.decoder, dict(trainable["decoder"]))
     if depth is not None:
+        if cap.spec.depth_encoder == "mlp" and batch_stats:
+            raise KeyError(f"the depth MLP has no batch statistics, got "
+                           f"{sorted(batch_stats)}")
         _load(depth, flax_state_dict(trainable["depth_encoder"],
                                      batch_stats))
 

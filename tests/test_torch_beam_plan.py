@@ -16,7 +16,8 @@ from depth_image_captioning_pub_torch.ops.kernels import beam_seq
 
 K, A, E, H, V = 196, 128, 128, 128, 9956     # the main shape
 WARPS = beam_seq.THREADS // 32
-CASES = [(b, w, ctas, d) for b in (1, 16, 64, 130) for w in (2, 3, 4, 5)
+CASES = [(b, w, ctas, d) for b in (1, 16, 64, 130)
+         for w in beam_seq.BEAM_SIZES
          for ctas in (132, 114) for d in (2048, 2080)]
 
 
@@ -102,7 +103,7 @@ def test_plan_beam_units_follow_the_rows():
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(beam=6), "beam sizes"),
+    (dict(beam=9), "beam sizes"),
     (dict(beam=1), "beam sizes"),
     (dict(d=2052), "multiples of 8"),
     (dict(h=20), "multiples of 8"),

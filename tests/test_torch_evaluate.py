@@ -569,12 +569,14 @@ def test_entry_point_depth_soft(coco_dir, experiments, monkeypatch, capsys):
 
 
 def test_entry_point_refusals(coco_dir, tmp_path, monkeypatch, capsys):
+    """Only ``sample`` mode is left unported (hard attention and ``--mlp``
+    score: ``tests/test_torch_mdepth.py``)."""
     monkeypatch.chdir(coco_dir[0])
-    for argv, item in ((["base", "hard", "score", "coco"], "item 5"),
-                       (["depth", "soft", "score", "coco", "--mlp"],
+    assert list(evaluation.NOT_PORTED) == ["sample"]
+    for argv, item in ((["base", "soft", "sample", "dog", "coco"],
                         "item 6"),
-                       (["base", "soft", "sample", "dog", "coco"],
-                        "item 10")):
+                       (["depth", "hard", "sample", "dog", "coco"],
+                        "item 6")):
         assert evaluation.main(argv + ["--device", "cpu"]) == 2
         assert f"ROADMAP.md, Queue A {item})" in capsys.readouterr().err
     assert evaluation.main(["base", "soft", "score", "original",
@@ -582,6 +584,6 @@ def test_entry_point_refusals(coco_dir, tmp_path, monkeypatch, capsys):
     assert evaluation.main(["base", "soft", "train", "coco"]) == 1
     ckpt = tmp_path / "omnidata.ckpt"
     ckpt.write_bytes(b"weights")
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
+    with pytest.raises(NotImplementedError, match="Queue A item 3"):
         evaluation.main(["depth", "soft", "score", "coco", "--device", "cpu",
                          "--dpt-weights", str(ckpt)])

@@ -25,11 +25,12 @@ from depth_image_captioning_pub_tpu.data.tokenizer import (
 from depth_image_captioning_pub_tpu.engine.evaluate import (
     make_caption_fn as jax_make_caption_fn)
 from depth_image_captioning_pub_tpu.models.captioner import (
-    build_captioner as jax_build_captioner)
+    KINDS as JAX_KINDS, build_captioner as jax_build_captioner)
 from depth_image_captioning_pub_torch import cli
 from depth_image_captioning_pub_torch.engine.evaluate import (
     generate_captions, make_caption_fn)
-from depth_image_captioning_pub_torch.models.captioner import build_captioner
+from depth_image_captioning_pub_torch.models.captioner import (
+    PORTED_KINDS, build_captioner)
 from depth_image_captioning_pub_torch.ops.kernels import (
     decode_seq, decode_step)
 from depth_image_captioning_pub_torch.pipeline import CaptionPipeline
@@ -191,8 +192,10 @@ def test_cli_from_npz(vocab, models, images, tmp_path, capsys):
 
 
 def test_other_kinds_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_captioner("depth-hard", 20, resnet_layers=LAYERS,
+    """The port builds every kind of the JAX package; any other raises."""
+    assert set(PORTED_KINDS) == set(JAX_KINDS)
+    with pytest.raises(ValueError, match="unknown kind"):
+        build_captioner("depth-mlp", 20, resnet_layers=LAYERS,
                         device="cpu")
 
 
