@@ -2,9 +2,11 @@
 """GPU smoke run of the PyTorch port's main paths: base-soft,
 depth-soft and NIC greedy captioning, base-soft beam-5 captioning,
 base-soft stochastic (nucleus) captioning, the scored evaluation of
-base-soft checkpoint sets, and the hard-attention and MLP-depth kinds
+base-soft checkpoint sets, the hard-attention and MLP-depth kinds
 (base-hard, mdepth-soft, depth-hard, mdepth-hard) greedy, by beam search
-and sampled, scored too.
+and sampled, scored too, and the serving surface: the HTTP caption server
+(greedy and sampled) and the caption CLI over PNG files with the DPT at
+224x224.
 
 Run from the root of a checkout, on a machine with one CUDA card (written
 for an NVIDIA H100):
@@ -147,7 +149,48 @@ the script exits non-zero:
    images: reloaded weights bit-equal, the load, caption and scoring
    seconds printed.
 
-Each path (phases 5, 7, 9, 11-16: ``PATHS``) runs with every launch counter
+17. serve: phase 5's base-soft weights written as checkpoint set 1 in the
+   JAX trainer's files (``params_to_jax`` + ``save_component``, with a
+   vocabulary, in a working directory under ``build/``) and read back by
+   ``CaptionPipeline.from_experiment`` (buckets 1/2/4/8/16); ``serve(...)``
+   on 127.0.0.1:0 in a thread answers the JAX bench's traffic: 480x640 PNG
+   bodies made from ``SEED`` and encoded here with zlib (every scanline
+   filter), 50 sequential POSTs, then 16 concurrent clients x 10 POSTs.
+   Every reply must be 200; a sequential one must equal the pipeline's
+   direct caption of the same decoded array alone (computed before the
+   server starts: only the worker thread may use the card while it is
+   up). The worker's device calls are recorded (arrays and tokens) and,
+   once the server has stopped, each is run again: the encoder at the
+   bucket the call was padded to, K2 over the bucket (the served tokens,
+   bit for bit), K2 over each row alone at those features (the same
+   tokens: no row depends on another) and K2's plain version over the
+   bucket (token agreement over all calls at least ``MIN_AGREEMENT``). A
+   concurrent reply must be its row's caption in the call that served it;
+   for each one that differs from its image's caption alone, the largest
+   difference between its features at bucket 1 and at the served bucket
+   and the two captions' logit margin at the first token where they part
+   are printed. /metrics must show a batch above 1, /healthz every
+   image; a POST declaring more than ``MAX_REQUEST_BYTES`` gets 413 and a
+   closed connection; after set 1's decoder file is rewritten, /reload
+   must give exactly a fresh pipeline's captions over the new files. K2
+   launches once a device call, no plain version runs. Prints the
+   latency percentiles, captions/s, effective batch, the batch histogram
+   and the host decode's share of a request; where Pillow is importable
+   the decoder is also held to Pillow's bytes.
+18. serve-sample: two servers over that captioner with ``sample=True,
+   top_p=0.9`` and one seed answer 16 sequential requests with the same
+   captions; K1 launches 30 a device call.
+19. caption-depth224-beam3: ``caption.main`` over a directory of 16
+   480x640 PNG files at ``--kind depth-soft --beam 3 --dpt-size 224
+   --gelu tanh --dpt-head lowres`` in a working directory holding a
+   depth-soft set: its output must equal ``CaptionPipeline.
+   from_experiment``'s captions of the same paths; K5 12 and K4 1
+   launches; K5 at the DPT-at-224 shape (Z = 16 * 12, N = 197, d = 64)
+   against its plain version, its time in ``ms_by_shape``. No JPEG: the
+   card's machine has no libjpeg headers, so the native library is built
+   without its JPEG part there.
+
+Each path (phases 5, 7, 9, 11-19: ``PATHS``) runs with every launch counter
 set to 0 just before it and read just after. The line before the last is a JSON
 object with the five ported kernels (K1 step, K2 greedy, K3 NIC greedy, K4
 beam, K5 ViT attention): launches per path, error, time beside the plain
@@ -205,9 +248,11 @@ PATHS = ("base-soft", "depth-soft", "nic", "base-soft-beam5",
          "base-hard-sample", "mdepth-soft", "mdepth-soft-beam5",
          "mdepth-soft-sample", "depth-hard", "depth-hard-beam5",
          "mdepth-hard", "mdepth-hard-beam5", "score-base-hard",
-         "score-mdepth-soft")
+         "score-mdepth-soft", "serve", "serve-sample",
+         "caption-depth224-beam3")
 TOP_P = 0.9          # the sampling path's nucleus
 SCORE_IMAGES, SCORE_SETS, SCORE_BATCH = 256, 3, 64
+SEED = 0             # the serving phases' request images
 
 
 def log(phase, msg):
@@ -2149,6 +2194,681 @@ def phase_score_new_kinds(smi, hard_cap, mdepth_cap, est):
     return by_path
 
 
+SERVE_BUCKETS = (1, 2, 4, 8, 16)   # the JAX bench's serving buckets
+SERVE_SEQUENTIAL, SERVE_CLIENTS, SERVE_PER_CLIENT = 50, 16, 10
+SERVE_DISTINCT = 64                # distinct request bodies, reused
+SERVE_HW = (480, 640)              # the request images (a camera's size)
+SAMPLE_REQUESTS = 16
+DPT224_IMAGES = 16                 # one chunk: K5 at Z = 16 * 12, N = 197
+DPT_BLOCKS = 12                    # the DPT-hybrid's ViT blocks
+
+
+def png_bytes(arr):
+    """Encode [H, W, 3] uint8 as a PNG with zlib, row y filtered with
+    filter type y % 5 (every scanline filter is exercised)."""
+    import struct
+    import zlib
+    h, w, _ = arr.shape
+    x = arr.reshape(h, w * 3).astype(np.int16)
+    up = np.vstack([np.zeros((1, w * 3), np.int16), x[:-1]])
+    left = np.hstack([np.zeros((h, 3), np.int16), x[:, :-3]])
+    upleft = np.hstack([np.zeros((h, 3), np.int16), up[:, :-3]])
+    p = left + up - upleft
+    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - upleft)
+    paeth = np.where((pa <= pb) & (pa <= pc), left,
+                     np.where(pb <= pc, up, upleft))
+    preds = np.stack([np.zeros_like(x), left, up, (left + up) >> 1, paeth])
+    kind = np.arange(h) % 5
+    rows = ((x - preds[kind, np.arange(h)]) % 256).astype(np.uint8)
+    raw = np.hstack([kind.astype(np.uint8)[:, None], rows]).tobytes()
+
+    def chunk(tag, body):
+        return (struct.pack(">I", len(body)) + tag + body
+                + struct.pack(">I", zlib.crc32(tag + body)))
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
+
+
+def photo_like(rng, n, hw):
+    """n seeded [H, W, 3] uint8 images: a smooth field (a bilinear
+    upsample of 12x16 noise) plus pixel noise, so a PNG compresses as a
+    photograph's would, not as pure noise."""
+    import torch
+    import torch.nn.functional as F
+    small = torch.from_numpy(rng.random((n, 3, 12, 16), np.float32) * 255)
+    big = F.interpolate(small, size=hw, mode="bilinear",
+                        align_corners=False).permute(0, 2, 3, 1).numpy()
+    noise = rng.normal(0.0, 6.0, big.shape)
+    return np.clip(big + noise, 0, 255).astype(np.uint8)
+
+
+def http_post(port, body, path="/caption", timeout=120):
+    """(status, JSON reply, seconds) of one POST on its own connection."""
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        t0 = time.perf_counter()
+        conn.request("POST", path, body=body)
+        r = conn.getresponse()
+        data = r.read()
+        dt = time.perf_counter() - t0
+    finally:
+        conn.close()
+    return r.status, json.loads(data), dt
+
+
+def http_get(port, path):
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        conn.request("GET", path)
+        r = conn.getresponse()
+        return r.status, json.loads(r.read())
+    finally:
+        conn.close()
+
+
+def refused_and_closed(port, declared):
+    """POST /caption declaring ``declared`` body bytes and sending none:
+    the status line, and whether the server closed the connection (an
+    open one times out)."""
+    import socket
+    with socket.create_connection(("127.0.0.1", port), timeout=20) as s:
+        s.sendall((f"POST /caption HTTP/1.1\r\nHost: x\r\nConnection: "
+                   f"keep-alive\r\nContent-Length: {declared}\r\n\r\n")
+                  .encode())
+        data = b""
+        try:
+            while True:
+                part = s.recv(65536)
+                if not part:
+                    return data.split(b"\r\n")[0].decode(), True
+                data += part
+        except socket.timeout:
+            return data.split(b"\r\n")[0].decode(), False
+
+
+def decode_split(bodies):
+    """Host ms a body of the PNG decode's parts (zlib inflate, the rest of
+    ``decode_png``: chunks, CRCs, the C unfilter, the RGB conversion; then
+    ``resize_u8``), and of the whole decode when 16 threads share the
+    bodies (the server's handler threads and the interpreter lock)."""
+    import zlib
+    from concurrent.futures import ThreadPoolExecutor
+
+    from depth_image_captioning_pub_torch.data import image_io
+    t = {"inflate": 0.0, "png rest": 0.0, "resize": 0.0}
+    for b in bodies:
+        idat = b"".join(body for tag, body in image_io._png_chunks(b)
+                        if tag == b"IDAT")
+        t0 = time.perf_counter()
+        zlib.decompress(idat)
+        t1 = time.perf_counter()
+        rgb = image_io.decode_png(b)
+        t2 = time.perf_counter()
+        image_io.resize_u8(rgb, (224, 224))
+        t3 = time.perf_counter()
+        t["inflate"] += t1 - t0
+        t["png rest"] += (t2 - t1) - (t1 - t0)
+        t["resize"] += t3 - t2
+    out = {k: v * 1e3 / len(bodies) for k, v in t.items()}
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(SERVE_CLIENTS) as ex:
+        list(ex.map(lambda b: image_io.decode_image_bytes(b, (224, 224)),
+                    bodies))
+    out[f"{SERVE_CLIENTS} threads (wall)"] = ((time.perf_counter() - t0)
+                                             * 1e3 / len(bodies))
+    return out
+
+
+def percentiles(ms):
+    q = np.percentile(np.asarray(ms), [50, 90, 99])
+    return f"p50 {q[0]:.2f} / p90 {q[1]:.2f} / p99 {q[2]:.2f} ms"
+
+
+class Server:
+    """``serve(...)`` on 127.0.0.1:0 in a thread; stopped on exit."""
+
+    def __init__(self, pipe):
+        self.pipe = pipe
+
+    def __enter__(self):
+        import threading
+        from depth_image_captioning_pub_torch.serve import serve
+        self.httpd = serve(self.pipe, host="127.0.0.1", port=0,
+                           batch_window_ms=2.0)
+        self.thread = threading.Thread(target=self.httpd.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+        return self.httpd.server_address[1]
+
+    def __exit__(self, *exc):
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.httpd.service.stop()
+        self.thread.join(timeout=60)
+
+
+def write_experiment(root, kind, cap, w2i):
+    """``cap``'s weights as checkpoint set 1 of ``kind`` in the JAX
+    trainer's files under ``root`` (the reference's working-directory
+    layout, the vocabulary included); returns (ConfigEval, save_dir,
+    files)."""
+    import os
+    import pickle
+    from depth_image_captioning_pub_torch import cli
+    from depth_image_captioning_pub_torch.config import ConfigEval
+    from depth_image_captioning_pub_torch.utils.checkpoint import (
+        save_component)
+    from depth_image_captioning_pub_torch.utils.jax_bridge import (
+        params_to_jax)
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        cfg = ConfigEval()
+    finally:
+        os.chdir(cwd)
+    os.makedirs(os.path.dirname(cfg.word_to_id_file), exist_ok=True)
+    with open(cfg.word_to_id_file, "wb") as f:
+        pickle.dump(w2i, f)
+    base, atten = kind.split("-")
+    save_dir, files = cli.eval_tables(cfg, atten, False, base == "depth")
+    trainable, frozen, stats = params_to_jax(cap)
+    trees = [frozen["encoder"], trainable["decoder"]]
+    if base == "depth":
+        trees.append({"params": trainable["depth_encoder"],
+                      "batch_stats": stats})
+    for name, tree in zip(files[1], trees):
+        save_component(f"{save_dir}/{name}", tree)
+    return cfg, save_dir, files
+
+
+def served_rows(pipe, calls, decoded, alone, w2i, i2w):
+    """The server's device calls run again after it stopped (on the
+    weights it served with): the encoder's features at the bucket each
+    call was padded to; K2 over the bucket (``repeats``: calls whose
+    tokens are the served ones bit for bit); K2 over each row alone at
+    those features (``dependent_rows``: rows whose tokens differ, which
+    would mean a row depends on the others in the batch); K2's plain
+    version over each bucket (``plain_agreement``, over all calls). For
+    each served row whose caption differs from its image's caption alone
+    (``parted``): the largest difference between its features at the
+    served bucket and at bucket 1, the first token where the two captions
+    part, and there the logit margin between the two tokens in plain f32
+    steps on each set of features."""
+    import torch
+    from depth_image_captioning_pub_torch.cli import SPECIAL
+    from depth_image_captioning_pub_torch.data.tokenizer import (
+        ids_to_caption)
+    from depth_image_captioning_pub_torch.ops.image_ops import (
+        imagenet_normalize, to_unit_float)
+    from depth_image_captioning_pub_torch.ops.kernels import decode_seq
+    from depth_image_captioning_pub_torch.ops.kernels.decode_step import (
+        attention_lstm_step, plain_step_params)
+    from depth_image_captioning_pub_torch.ops.precision import full_f32
+    start_id, end_id = w2i[SPECIAL.start], w2i[SPECIAL.end]
+    dec, enc = pipe.cap.decoder, pipe.cap.encoder_apply()
+
+    def features(arrays):
+        bucket = next(b for b in pipe.batch_buckets if b >= len(arrays))
+        pad = np.concatenate([arrays, arrays[np.zeros(
+            bucket - len(arrays), np.int64)]])
+        with torch.inference_mode():
+            return enc(imagenet_normalize(to_unit_float(
+                torch.from_numpy(pad).to(pipe.device))))
+
+    def greedy(f):
+        return dec.greedy_sample(f.contiguous(), start_id,
+                                 max_length=MAX_LEN,
+                                 end_id=end_id).cpu().numpy()
+
+    @torch.inference_mode()
+    @full_f32()
+    def logits_at(f, row, step):
+        """The logits of ``step`` with the tokens of ``row`` before it."""
+        feats, proj, h, c = dec._prepare(f, None)
+        w = dec.seq_weights()
+        p = plain_step_params(w.step)
+        emb = w.embed[start_id][None]
+        for t in range(step + 1):
+            h, c, _ = attention_lstm_step(feats, proj, emb, h, c, p)
+            emb = w.embed[int(row[t])][None]
+        return (h @ w.w_out + w.b_out)[0]
+
+    @torch.inference_mode()
+    @full_f32()
+    def plain(f):
+        feats, proj, h, c = dec._prepare(f, None)
+        return decode_seq.fused_greedy_decode_plain(
+            feats, proj, h, c, dec.seq_weights(), max_length=MAX_LEN,
+            start_id=start_id, end_id=end_id).cpu().numpy()
+
+    out = {"repeats": 0, "dependent_rows": 0, "parted": [],
+           "buckets": sorted({next(b for b in pipe.batch_buckets
+                                   if b >= len(a)) for a, _ in calls})}
+    agree, total, seen = 0, 0, set()
+    for arrays, toks in calls:
+        f = features(arrays)
+        v = len(arrays)
+        out["repeats"] += np.array_equal(greedy(f)[:v], toks)
+        want = plain(f)[:v]
+        agree += int((want == toks).sum())
+        total += want.size
+        for r in range(v):
+            out["dependent_rows"] += not np.array_equal(
+                greedy(f[r:r + 1])[0], toks[r])
+            j = next(k for k in range(len(decoded))
+                     if np.array_equal(decoded[k], arrays[r]))
+            if (ids_to_caption(toks[r], i2w) == alone[j]
+                    or (j, f.shape[0]) in seen):
+                continue
+            seen.add((j, f.shape[0]))
+            f1 = features(arrays[r:r + 1])
+            solo = greedy(f1)[0]
+            step = int(np.argmax(solo != toks[r]))
+            a, b = int(toks[r][step]), int(solo[step])
+            lg_s = logits_at(f[r:r + 1], toks[r], step)
+            lg_1 = logits_at(f1, solo, step)
+            top = torch.topk(lg_s, 2).values
+            out["parted"].append({
+                "image": j, "bucket": f.shape[0], "step": step,
+                "feature_diff": (f[r].float() - f1[0].float()).abs()
+                .max().item(),
+                "feature_max": f1.float().abs().max().item(),
+                "margin_served": (lg_s[a] - lg_s[b]).item(),
+                "margin_alone": (lg_1[b] - lg_1[a]).item(),
+                "top2_gap": (top[0] - top[1]).item(),
+                "logit_std": lg_s.std().item()})
+    out["plain_agreement"] = agree / max(total, 1)
+    return out
+
+
+def phase_serve(smi, base_cap):
+    """The HTTP caption server over phase 5's base-soft weights, read back
+    from checkpoint files by ``CaptionPipeline.from_experiment``: the JAX
+    bench's traffic (sequential, then concurrent clients) of 480x640 PNG
+    bodies, replies against the pipeline's direct captions, /metrics,
+    /healthz, a refused oversized POST, /reload; then ``--sample``."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+    from pathlib import Path
+
+    import torch
+    from depth_image_captioning_pub_torch import serve as serve_mod
+    from depth_image_captioning_pub_torch.cli import placeholder_vocab
+    from depth_image_captioning_pub_torch.data.image_io import (
+        decode_image_bytes)
+    from depth_image_captioning_pub_torch.data.tokenizer import (
+        ids_to_caption)
+    from depth_image_captioning_pub_torch.models.decoder import (
+        AttentionDecoder)
+    from depth_image_captioning_pub_torch.utils.jax_bridge import (
+        params_to_jax)
+    from depth_image_captioning_pub_torch.pipeline import CaptionPipeline
+    from depth_image_captioning_pub_torch.utils.checkpoint import (
+        save_component)
+    w2i, i2w = placeholder_vocab(VOCAB)
+    rng = np.random.default_rng(SEED)
+    t0 = time.perf_counter()
+    pixels = photo_like(rng, SERVE_DISTINCT, SERVE_HW)
+    bodies = [png_bytes(a) for a in pixels]
+    log("serve", f"{SERVE_DISTINCT} request bodies: {SERVE_HW[0]}x"
+        f"{SERVE_HW[1]} PNGs from seed {SEED}, "
+        f"{np.mean([len(b) for b in bodies]) / 1e3:.0f} kB each, encoded "
+        f"in {time.perf_counter() - t0:.1f} s")
+    from depth_image_captioning_pub_torch.data import native_loader
+    if not native_loader.available():     # built here at first use
+        raise RuntimeError("the native image library did not build")
+    log("serve", f"native image library {native_loader.library_path()}: "
+        f"built; JPEG part {'yes' if native_loader.has_jpeg() else 'no'}")
+    t0 = time.perf_counter()
+    decoded = np.stack([decode_image_bytes(b, (224, 224)) for b in bodies])
+    decode_ms = (time.perf_counter() - t0) * 1e3 / len(bodies)
+    try:
+        import io
+
+        from PIL import Image
+        pil = [np.asarray(Image.open(io.BytesIO(b)).convert("RGB").resize(
+            (224, 224), Image.BILINEAR)) for b in bodies[:8]]
+        same = all(np.array_equal(a, b) for a, b in zip(pil, decoded[:8]))
+        if not same:
+            raise RuntimeError("decode_image_bytes differs from Pillow's "
+                               "decode and resize on the card's machine")
+        pil_note = "equal to Pillow's decode + resize on 8 bodies"
+    except ImportError:
+        pil_note = "Pillow not importable: not cross-checked"
+    log("serve", f"host decode (PNG inflate + unfilter + Pillow-exact "
+        f"resize to 224x224): {decode_ms:.2f} ms a body; {pil_note}")
+    log("serve", "host decode split, ms a body: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in decode_split(bodies).items()))
+
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    launches_by_path = {}
+    with tempfile.TemporaryDirectory(dir=build, prefix="serve_") as root:
+        cfg, save_dir, files = write_experiment(root, "base-soft", base_cap,
+                                                w2i)
+        cfg.max_length = MAX_LEN
+        t0 = time.perf_counter()
+        pipe = CaptionPipeline.from_experiment(
+            "base-soft", cfg=cfg, device="cuda", batch_buckets=SERVE_BUCKETS)
+        log("serve", f"from_experiment (ResNet-152 bf16 + decoder, "
+            f"V={VOCAB}, buckets {SERVE_BUCKETS}) in "
+            f"{time.perf_counter() - t0:.1f} s")
+        for bsz in SERVE_BUCKETS:                  # warm-up
+            pipe.caption_tokens(decoded[:bsz])
+        # the direct captions, before the server starts: each image alone
+        # (the sequential requests' batches)
+        alone = [pipe(decoded[i]) for i in range(len(decoded))]
+        # the worker's device calls, recorded (arrays and tokens) to be
+        # repeated once the server has stopped
+        calls, direct_tokens = [], pipe.caption_tokens
+
+        def recorded(arrays):
+            toks = direct_tokens(arrays)
+            calls.append((arrays.copy(), toks.copy()))
+            return toks
+
+        pipe.caption_tokens = recorded
+        torch.cuda.synchronize()
+        reset_counts()
+        with PlainCalls() as plain, Server(pipe) as port:
+            seq = [http_post(port, bodies[i % SERVE_DISTINCT])
+                   for i in range(SERVE_SEQUENTIAL)]
+            _, m_seq = http_get(port, "/metrics")
+
+            def client(c):
+                return [http_post(port, bodies[(c * SERVE_PER_CLIENT + i)
+                                               % SERVE_DISTINCT])
+                        for i in range(SERVE_PER_CLIENT)]
+
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(SERVE_CLIENTS) as ex:
+                conc = list(ex.map(client, range(SERVE_CLIENTS)))
+            conc_s = time.perf_counter() - t0
+            _, m_all = http_get(port, "/metrics")
+            _, health = http_get(port, "/healthz")
+            status, closed = refused_and_closed(
+                port, serve_mod.MAX_REQUEST_BYTES + 1)
+
+            pipe.caption_tokens = direct_tokens
+            # /reload after set 1's decoder file is rewritten
+            dec = AttentionDecoder(VOCAB, device="cpu")
+            dec.reset_parameters(torch.Generator().manual_seed(200))
+            save_component(f"{save_dir}/{files[1][1]}",
+                           {k: v.numpy() for k, v in
+                            dec.state_dict().items()})
+            reload_status, reload_reply, reload_s = http_post(port, b"",
+                                                              "/reload")
+            after = [http_post(port, bodies[i]) for i in range(8)]
+        launches = read_counts()
+        svc_hist = m_all["batch_size_hist"]
+        served, batches = m_all["images_served"], m_all["batches_run"]
+        # a fresh pipeline over the rewritten files, after the server
+        fresh = CaptionPipeline.from_experiment(
+            "base-soft", cfg=cfg, device="cuda", batch_buckets=(1,))
+        want_after = [fresh(decoded[i]) for i in range(8)]
+        del fresh
+        # each device call of the traffic again on set 1's weights
+        trainable, frozen, _ = params_to_jax(base_cap)
+        pipe.reload_weights(trainable, frozen["encoder"])
+        rerun = served_rows(pipe, calls, decoded, alone, w2i, i2w)
+
+    # checks
+    replies = seq + [r for c in conc for r in c] + after
+    bad = [r for r in replies if r[0] != 200]
+    if bad or reload_status != 200:
+        raise RuntimeError(f"serve: {len(bad)} replies not 200 (first "
+                           f"{bad[:1]}), /reload {reload_status} "
+                           f"{reload_reply}")
+    seq_caps = [r[1]["caption"] for r in seq]
+    if seq_caps != [alone[i % SERVE_DISTINCT]
+                    for i in range(SERVE_SEQUENTIAL)]:
+        raise RuntimeError("serve: a sequential reply differs from the "
+                           "pipeline's direct caption of its image")
+    if rerun["repeats"] != len(calls):
+        raise RuntimeError(f"serve: {len(calls) - rerun['repeats']} of "
+                           f"{len(calls)} device calls gave other tokens "
+                           f"when repeated")
+    if rerun["dependent_rows"]:
+        raise RuntimeError(f"serve: {rerun['dependent_rows']} rows gave "
+                           f"other tokens decoded alone at their call's "
+                           f"features than in the call's bucket")
+    if rerun["plain_agreement"] < MIN_AGREEMENT:
+        raise RuntimeError(f"serve: K2's token agreement with its plain "
+                           f"version at the served buckets "
+                           f"{rerun['plain_agreement']:.4f} < "
+                           f"{MIN_AGREEMENT}")
+    # a concurrent reply is a row's caption in a device call that held its
+    # image; the rows are the requests, one each
+    served_caps = {}
+    for arrays, toks in calls:
+        for a, row in zip(arrays, toks):
+            j = next(k for k in range(SERVE_DISTINCT)
+                     if np.array_equal(decoded[k], a))
+            served_caps.setdefault(j, []).append(ids_to_caption(row, i2w))
+    wrong, near_ties = 0, 0
+    for c, rows in enumerate(conc):
+        for i, r in enumerate(rows):
+            j = (c * SERVE_PER_CLIENT + i) % SERVE_DISTINCT
+            wrong += r[1]["caption"] not in served_caps.get(j, [])
+            near_ties += r[1]["caption"] != alone[j]
+    rows_run = sum(len(a) for a, _ in calls)
+    if wrong or rows_run != SERVE_SEQUENTIAL + SERVE_CLIENTS * \
+            SERVE_PER_CLIENT:
+        raise RuntimeError(f"serve: {wrong} concurrent replies are not the "
+                           f"pipeline's captions of their batches; "
+                           f"{rows_run} rows in {len(calls)} device calls")
+    if [r[1]["caption"] for r in after] != want_after:
+        raise RuntimeError("serve: captions after /reload differ from a "
+                           "fresh pipeline's over the rewritten files")
+    if want_after == alone[:8]:
+        raise RuntimeError("serve: the rewritten decoder left the captions "
+                           "unchanged")
+    total = SERVE_SEQUENTIAL + SERVE_CLIENTS * SERVE_PER_CLIENT + 8
+    if health["images_served"] != total - 8 or served != total - 8:
+        raise RuntimeError(f"serve: /healthz counts {health} and /metrics "
+                           f"{served}, expected {total - 8}")
+    if not any(int(k) > 1 for k in svc_hist):
+        raise RuntimeError(f"serve: no batch above 1 under concurrency: "
+                           f"{svc_hist}")
+    if not (status.startswith("HTTP/1.1 413") and closed):
+        raise RuntimeError(f"serve: oversized POST got {status!r}, "
+                           f"connection closed {closed}")
+    if plain.calls:
+        raise RuntimeError(f"plain versions ran on the serve path: "
+                           f"{sorted(set(plain.calls))}")
+    want = dict.fromkeys(launches, 0)
+    want["decode_seq"] = batches + len(after)
+    if launches != want:
+        raise RuntimeError(f"serve launches {launches}, expected {want}")
+    launches_by_path["serve"] = launches
+
+    seq_ms = [r[2] * 1e3 for r in seq]
+    conc_ms = [r[2] * 1e3 for c in conc for r in c]
+    n_conc = SERVE_CLIENTS * SERVE_PER_CLIENT
+    conc_batches = batches - m_seq["batches_run"]
+    log("serve", f"{SERVE_SEQUENTIAL} sequential requests: "
+        f"{percentiles(seq_ms)}"
+        f", {SERVE_SEQUENTIAL / (sum(seq_ms) / 1e3):.1f} captions/s; the "
+        f"host decode {decode_ms:.2f} ms = "
+        f"{100 * decode_ms / np.median(seq_ms):.1f}% of the median request "
+        f"[{smi}]")
+    log("serve", f"{SERVE_CLIENTS} concurrent clients x {SERVE_PER_CLIENT}: "
+        f"{percentiles(conc_ms)}, {n_conc / conc_s:.1f} captions/s, "
+        f"effective batch {n_conc / conc_batches:.2f} ({conc_batches} "
+        f"device calls) [{smi}]")
+    log("serve", f"server: batch histogram {svc_hist}; request latency "
+        f"{m_all['request_latency']}; device calls {m_all['device_batch']}")
+    log("serve", f"all {len(replies)} replies 200; the sequential ones "
+        f"equal the pipeline's direct captions alone, the concurrent ones "
+        f"the pipeline's captions of the batches the worker formed (its "
+        f"{len(calls)} device calls repeated after the server: "
+        f"bit-identical tokens; each of their {rows_run} rows decoded alone "
+        f"at its call's features by K2: the same tokens; K2's plain version "
+        f"over the served buckets {rerun['buckets']}: token agreement "
+        f"{rerun['plain_agreement']:.4f}); /healthz "
+        f"{health['images_served']} images; oversized POST: {status!r}, "
+        f"connection closed; /reload in {reload_s * 1e3:.0f} ms: 8 "
+        f"captions equal a fresh pipeline's over the rewritten files")
+    log("serve", f"{near_ties} of {n_conc} concurrent replies differ from "
+        f"their image's caption alone; {len(rerun['parted'])} distinct "
+        f"(image, bucket) rows: " + ("; ".join(
+            f"image {d['image']} at bucket {d['bucket']}: features differ "
+            f"by at most {d['feature_diff']:.4g} from bucket 1's "
+            f"(largest feature {d['feature_max']:.4g}), the captions part "
+            f"at token {d['step']}, where the served token leads by "
+            f"{d['margin_served']:.4g} in the served features' logits "
+            f"(top-2 gap {d['top2_gap']:.4g}) and trails by "
+            f"{d['margin_alone']:.4g} in bucket 1's (plain f32 steps; the "
+            f"logits' standard deviation there {d['logit_std']:.4g})"
+            for d in rerun["parted"]) or "none"))
+    log("serve", f"launches {launches} for {batches} device calls; plain "
+        f"calls 0")
+    launches_by_path["serve-sample"] = phase_serve_sample(
+        smi, pipe, bodies[:SAMPLE_REQUESTS], w2i, i2w)
+    del pipe
+    torch.cuda.empty_cache()
+    return launches_by_path
+
+
+def phase_serve_sample(smi, pipe, bodies, w2i, i2w):
+    """Two servers over the same captioner with ``sample=True, top_p=0.9``
+    and one seed answer the same captions to the same sequential
+    requests; K1 launches 30 a device call."""
+    import torch
+    from depth_image_captioning_pub_torch.pipeline import CaptionPipeline
+    runs, calls = [], 0
+    torch.cuda.synchronize()
+    reset_counts()
+    with PlainCalls() as plain:
+        for _ in range(2):
+            spipe = CaptionPipeline(pipe.cap, w2i, i2w, max_length=MAX_LEN,
+                                    batch_buckets=SERVE_BUCKETS, sample=True,
+                                    top_p=TOP_P, seed=SEED)
+            with Server(spipe) as port:
+                replies = [http_post(port, b) for b in bodies]
+                _, m = http_get(port, "/metrics")
+            calls += m["batches_run"]
+            if any(r[0] != 200 for r in replies):
+                raise RuntimeError("serve-sample: a reply is not 200")
+            runs.append(replies)
+    launches = read_counts()
+    caps = [[r[1]["caption"] for r in run] for run in runs]
+    if caps[0] != caps[1]:
+        raise RuntimeError("serve-sample: two servers with one seed "
+                           "answered other captions")
+    want = dict.fromkeys(launches, 0)
+    want["decode_step"] = MAX_LEN * calls
+    if launches != want or plain.calls:
+        raise RuntimeError(f"serve-sample launches {launches}, expected "
+                           f"{want}; plain calls {plain.calls}")
+    ms = [r[2] * 1e3 for run in runs for r in run]
+    log("serve-sample", f"{len(bodies)} sequential requests x 2 servers "
+        f"(top_p {TOP_P}, seed {SEED}): the same captions, "
+        f"{len(set(caps[0]))} distinct; {percentiles(ms)} [{smi}]")
+    log("serve-sample", f"launches {launches} for {calls} device calls; "
+        f"plain calls 0")
+    return launches
+
+
+def phase_caption_depth224(smi, vit):
+    """``caption.main`` over a directory of 480x640 PNG files at
+    ``--kind depth-soft --beam 3 --dpt-size 224 --gelu tanh --dpt-head
+    lowres``: its output equals the pipeline's direct captions of the same
+    paths; K5 at Z = 16 * 12, N = 197 against its plain version."""
+    import os
+    import tempfile
+    from pathlib import Path
+
+    import torch
+    from depth_image_captioning_pub_torch import caption as caption_cli
+    from depth_image_captioning_pub_torch.cli import placeholder_vocab
+    from depth_image_captioning_pub_torch.models.captioner import (
+        build_captioner)
+    from depth_image_captioning_pub_torch.pipeline import CaptionPipeline
+    dev = torch.device("cuda")
+    z, n, d = DPT224_IMAGES * 12, 197, 64
+    rng = np.random.default_rng(SEED + 1)
+    qkv = [torch.from_numpy(rng.standard_normal((z, n, d)).astype(
+        np.float32)).to(dev, torch.bfloat16) for _ in range(3)]
+    err, mean, tol, k_ms, p_ms = attention_case(*qkv, n)
+    bound_ms, bound_by = bound(4 * z * n * d * 2, 4 * z * n * n * d,
+                               BF16_FLOPS)
+    vit["max_abs_err"] = max(vit["max_abs_err"], err)
+    vit["ms_by_shape"][f"Z={z} N={n} d={d}"] = {
+        "ms": k_ms, "plain_ms": p_ms, "max_abs_err": err,
+        "bound_ms": bound_ms, "bound_by": bound_by}
+    log("vit_attention", f"Z={z} N={n} d={d} bf16 (the DPT at 224x224): max "
+        f"abs err {err:.3e}, mean {mean:.3e} (tol {tol:.3e}); kernel "
+        f"{k_ms:.4f} ms, plain {p_ms:.3f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by}) [{smi}]")
+
+    w2i, _ = placeholder_vocab(VOCAB)
+    cap = build_captioner("depth-soft", VOCAB, device=dev)
+    cap.init(torch.Generator().manual_seed(21))
+    pixels = photo_like(rng, DPT224_IMAGES, SERVE_HW)
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    argv = ["--kind", "depth-soft", "--beam", "3", "--dpt-size", "224",
+            "--gelu", "tanh", "--dpt-head", "lowres", "--json"]
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory(dir=build, prefix="caption_") as root:
+        cfg, _, _ = write_experiment(root, "depth-soft", cap, w2i)
+        del cap
+        pngs = Path(root) / "images"
+        pngs.mkdir()
+        for i, a in enumerate(pixels):
+            (pngs / f"img{i:02d}.png").write_bytes(png_bytes(a))
+        out = Path(root) / "captions.json"
+        os.chdir(root)
+        try:
+            torch.cuda.synchronize()
+            reset_counts()
+            with PlainCalls() as plain:
+                t0 = time.perf_counter()
+                rc = caption_cli.main([str(pngs), "--output", str(out)]
+                                      + argv)
+                torch.cuda.synchronize()
+                cli_s = time.perf_counter() - t0
+            launches = read_counts()
+            rows = json.loads(out.read_text())
+            cfg.dpt_image_size, cfg.dpt_gelu, cfg.dpt_head = (224, "tanh",
+                                                             "lowres")
+            pipe = CaptionPipeline.from_experiment(
+                "depth-soft", cfg=cfg, device="cuda", beam_size=3,
+                batch_size=16)
+            paths = [r["path"] for r in rows]
+            direct = pipe(paths)
+        finally:
+            os.chdir(cwd)
+    if rc != 0 or len(rows) != DPT224_IMAGES:
+        raise RuntimeError(f"caption.main exit {rc}, {len(rows)} rows")
+    if [r["caption"] for r in rows] != direct:
+        raise RuntimeError("caption.main's captions differ from the "
+                           "pipeline's direct captions of the same paths")
+    if plain.calls:
+        raise RuntimeError(f"plain versions ran on the caption path: "
+                           f"{sorted(set(plain.calls))}")
+    want = dict.fromkeys(launches, 0)
+    want.update(beam_seq=1, vit_attention=DPT_BLOCKS)
+    if launches != want:
+        raise RuntimeError(f"caption-depth224-beam3 launches {launches}, "
+                           f"expected {want}")
+    log("caption", f"caption.main {' '.join(argv)} over {DPT224_IMAGES} "
+        f"480x640 PNGs: exit 0 in {cli_s:.1f} s (the experiment's load and "
+        f"the random DPT's build included), captions equal to "
+        f"CaptionPipeline's on the same paths; {len(set(direct))} distinct "
+        f"[{smi}]")
+    log("caption", f"caption: {direct[0]!r}; no JPEG files: the card's "
+        f"machine has no jpeglib.h")
+    log("caption", f"launches {launches}; plain calls 0")
+    del pipe
+    torch.cuda.empty_cache()
+    return {"caption-depth224-beam3": launches}
+
+
 def main():
     smi = phase_env()
     import torch
@@ -2171,6 +2891,8 @@ def main():
     by_path.update(mdepth)
     by_path.update(phase_other_kinds(smi, est))
     by_path.update(phase_score_new_kinds(smi, hard_cap, mdepth_cap, est))
+    by_path.update(phase_serve(smi, base_cap))
+    by_path.update(phase_caption_depth224(smi, vit))
     if tuple(by_path) != PATHS:
         raise RuntimeError(f"paths run {tuple(by_path)}, expected {PATHS}")
     kernels = [step, seq, nic_k, beam_k, vit]

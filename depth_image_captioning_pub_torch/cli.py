@@ -20,7 +20,9 @@ that ``utils/jax_bridge.load_npz`` reads (the JAX package's parameter
 trees; for a depth kind also the depth encoder, its BN statistics and,
 under ``frozen/dpt``, the DPT) or, without ``--weights``, are drawn from
 ``--seed``; a depth run without DPT weights warns, as the JAX CLI
-does. ``--tiny-dpt`` shrinks the DPT to the tests' size (64x64 input).
+does. ``--tiny-dpt`` shrinks the DPT to the tests' size (64x64 input);
+``--dpt-size``, ``--gelu`` and ``--dpt-head`` set its input side and
+its throughput knobs (``add_dpt_flags``).
 Without ``--vocab`` a placeholder vocabulary of ``--vocab-size`` words is
 used, which is only good for seeded weights. Prints one caption per line.
 
@@ -59,7 +61,7 @@ def _ints(text: str) -> Tuple[int, ...]:
     return tuple(int(x) for x in text.split(",") if x)
 
 
-def make_depth_fn(dpt_variables=None, *, tiny: bool = False,
+def make_depth_fn(dpt_variables=None, *, cfg=None, tiny: bool = False,
                   device="cuda", seed: int = 0,
                   hint: str = "pass DPT weights under frozen/dpt of "
                               "--weights"):
@@ -67,12 +69,19 @@ def make_depth_fn(dpt_variables=None, *, tiny: bool = False,
     ``cli.make_depth_fn``). ``dpt_variables`` is the flax DPT tree
     ({"params": ...}); without it the weights are drawn from ``seed``, with
     the JAX CLI's warning (``hint`` says where weights would come from).
-    ``tiny`` builds the tests' DPT (``dpt.TINY_DPT`` at 64x64)."""
+    ``cfg`` (a ``ConfigEval``, default values without it) gives the DPT's
+    input side ``dpt_image_size``, its GELU ``dpt_gelu`` ("erf" or "tanh")
+    and its head ``dpt_head`` ("full" or "lowres"); another GELU or head
+    raises. ``tiny`` builds the tests' DPT (``dpt.TINY_DPT`` at 64x64)."""
     from depth_image_captioning_pub_torch.models.dpt import (
         TINY_DPT, DPTDepthEstimator)
     from depth_image_captioning_pub_torch.utils.jax_bridge import (
         dpt_params_from_jax)
-    kw = dict(TINY_DPT, image_size=64) if tiny else {}
+    cfg = cfg or ConfigEval()
+    kw = dict(image_size=cfg.dpt_image_size, gelu=cfg.dpt_gelu,
+              head=cfg.dpt_head)
+    if tiny:
+        kw.update(TINY_DPT, image_size=64)
     est = DPTDepthEstimator(device=device, **kw)
     if dpt_variables is not None:
         dpt_params_from_jax(est, dpt_variables)
@@ -91,7 +100,8 @@ def resnet_layers_from_env() -> Optional[Tuple[int, ...]]:
 
 
 def eval_depth_fn(cfg, device="cuda"):
-    """The DPT of a scored depth evaluation: the Omnidata weights of
+    """The DPT of a scored depth evaluation, at ``cfg``'s ``dpt_image_size``,
+    ``dpt_gelu`` and ``dpt_head``: the Omnidata weights of
     ``cfg.dpt_weights`` / $DPT_WEIGHTS are not readable yet, so without
     them the DPT is drawn from seed 0 with the JAX warning;
     $DCAP_TINY_DPT builds the tests' DPT."""
@@ -100,7 +110,7 @@ def eval_depth_fn(cfg, device="cuda"):
         raise NotImplementedError(
             f"DPT weights {weights}: the Omnidata checkpoint loader is not "
             f"yet ported (ROADMAP.md, Queue A item 3)")
-    return make_depth_fn(tiny=bool(os.environ.get("DCAP_TINY_DPT")),
+    return make_depth_fn(cfg=cfg, tiny=bool(os.environ.get("DCAP_TINY_DPT")),
                          device=device,
                          hint="set --dpt-weights or $DPT_WEIGHTS")
 
@@ -176,6 +186,32 @@ def load_eval_components(save_directory: str, files, cap):
     return frozen_enc, params, stats
 
 
+EXPORT_NOT_PORTED = ("--export-dir: the AOT export is not ported yet "
+                     "(ROADMAP.md, Queue A item 6)")
+
+
+def add_dpt_flags(p: argparse.ArgumentParser) -> None:
+    """The DPT's flags of the JAX package's depth evaluation, serve and
+    caption CLIs (depth kinds only): its input side and two throughput
+    knobs that change the depth maps, off by default."""
+    p.add_argument("--dpt-size", type=int, default=384,
+                   help="DPT input side (224 -> 384 upscale by default)")
+    p.add_argument("--gelu", default="erf", choices=("erf", "tanh"),
+                   help="the DPT ViT MLPs' GELU: erf (exact, the default) "
+                        "or tanh")
+    p.add_argument("--dpt-head", default="full", choices=("full", "lowres"),
+                   help="lowres runs the head's convs before its x2 "
+                        "upsample (not exact)")
+
+
+def dpt_cfg(args: argparse.Namespace) -> ConfigEval:
+    """A ``ConfigEval`` with ``add_dpt_flags``' values."""
+    cfg = ConfigEval()
+    cfg.dpt_image_size, cfg.dpt_gelu, cfg.dpt_head = (
+        args.dpt_size, args.gelu, args.dpt_head)
+    return cfg
+
+
 def build_pipeline(args: argparse.Namespace):
     from depth_image_captioning_pub_torch.data.vocab import load_vocab
     from depth_image_captioning_pub_torch.models.captioner import (
@@ -188,7 +224,7 @@ def build_pipeline(args: argparse.Namespace):
         word_to_id, id_to_word = load_vocab(args.vocab)
     else:
         word_to_id, id_to_word = placeholder_vocab(args.vocab_size)
-    cfg = ConfigEval()
+    cfg = dpt_cfg(args)
     cap = build_captioner(args.kind, len(word_to_id), cfg,
                           resnet_layers=args.resnet_layers or None,
                           device=args.device)
@@ -200,7 +236,8 @@ def build_pipeline(args: argparse.Namespace):
         cap.init(torch.Generator().manual_seed(args.seed))
     depth_fn = None
     if cap.spec.uses_depth:
-        depth_fn = make_depth_fn(frozen.get("dpt"), tiny=args.tiny_dpt,
+        depth_fn = make_depth_fn(frozen.get("dpt"), cfg=cfg,
+                                 tiny=args.tiny_dpt,
                                  device=args.device, seed=args.seed)
     return CaptionPipeline(cap, word_to_id, id_to_word, depth_fn=depth_fn,
                            max_length=args.max_length,
@@ -246,6 +283,7 @@ def main(argv: Optional[List[str]] = None) -> None:
                    help="e.g. 3,8,36,3 (ResNet-152, the default)")
     c.add_argument("--tiny-dpt", action="store_true",
                    help="the tests' small DPT (64x64 input)")
+    add_dpt_flags(c)
     c.add_argument("--image-size", type=int, default=224)
     c.add_argument("--max-length", type=int, default=30)
     c.add_argument("--batch-buckets", type=_ints, default=(1, 16, 64))

@@ -1,12 +1,14 @@
 """COCO-captions dataset reader (the port's own copy of the JAX package's
-``data/coco.py``, without its native JPEG loader).
+``data/coco.py``).
 
 Index order matches torchvision's ``CocoCaptions``: items are enumerated
 over image ids sorted ascending, and each item's caption list keeps the
 annotation file's order, so the frozen eval-subset index files
 (``data_index/np_val_index.npy``) point at the same images. Pillow decodes
-the JPEGs; it is imported when an image is first read, so the package
-imports (and captions uint8 arrays) where Pillow is missing.
+``load_image``'s JPEGs; it is imported when an image is first read, so the
+package imports (and captions uint8 arrays) where Pillow is missing.
+``load_images_batch`` decodes through ``data/native_loader.py``, as the JAX
+package's does.
 """
 
 from __future__ import annotations
@@ -59,6 +61,17 @@ class CocoCaptions:
         if self.image_size is not None:
             img = img.resize(self.image_size[::-1], Image.BILINEAR)
         return np.asarray(img, dtype=np.uint8)
+
+    def load_images_batch(self, indices) -> np.ndarray:
+        """Batched decode via the native loader (threaded libjpeg with
+        DCT-domain scaling; per-file fallback to ``image_io``) -> [N, H, W,
+        3] uint8, the JAX package's bytes."""
+        from depth_image_captioning_pub_torch.data.native_loader import (
+            available, decode_batch)
+        if self.image_size is None or not available():
+            return np.stack([self.load_image(i) for i in indices])
+        return decode_batch([self.image_path(i) for i in indices],
+                            self.image_size)
 
     def __getitem__(self, index: int) -> Tuple[np.ndarray, List[str]]:
         return self.load_image(index), self.captions(index)

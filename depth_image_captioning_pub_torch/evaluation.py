@@ -20,7 +20,9 @@ takes W = 2..8, the beam kernel's instances), ``--batch-size B`` (default
 ``ConfigEval.batch_size``), ``--device`` (``cuda``, the default: the
 CUDA kernels; ``cpu`` runs their plain PyTorch versions), ``--dpt-weights
 PATH`` (depth: the Omnidata loader is not ported yet, so an existing file
-raises; without weights the DPT is drawn at random with a warning).
+raises; without weights the DPT is drawn at random with a warning),
+``--dpt-size``, ``--gelu`` and ``--dpt-head`` (depth: the DPT's input
+side, 384 by default, and its throughput knobs, ``cli.add_dpt_flags``).
 $DCAP_RESNET_LAYERS and $DCAP_TINY_DPT shrink the backbone and the DPT.
 ``sample`` mode is not ported: it exits with status 2 and names its
 ROADMAP.md item.
@@ -125,6 +127,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu (the kernels' plain versions)")
     p.add_argument("--dpt-weights", default=None)
+    cli.add_dpt_flags(p)
     p.add_argument("--mlp", action="store_true",
                    help="depth: the MLP-depth (mdepth-*) checkpoint sets")
     args = p.parse_args(argv)
@@ -132,7 +135,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     for key in (w for w in NOT_PORTED if w in words):
         print(NOT_PORTED[key], file=sys.stderr)
         return 2
-    cfg = ConfigEval()
+    cfg = cli.dpt_cfg(args)
     if args.batch_size:
         cfg.batch_size = args.batch_size
     if args.dpt_weights:

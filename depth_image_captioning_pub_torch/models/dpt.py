@@ -25,9 +25,15 @@ XLA's SAME padding puts the odd pixel of a stride-2 window at the end
 ``F.pad``, since torch's symmetric ``padding`` cannot.
 
 Submodule names follow the flax names, so ``utils/jax_bridge.py`` maps the
-flax tree path for path. The JAX package's TPU knobs (token padding to a
-multiple of 8, tanh GELU, the low-resolution head, the two-tap upsample,
-token sharding, ablations) are not ported.
+flax tree path for path. Two of the JAX package's throughput knobs are
+constructor arguments here, not module globals: ``gelu="tanh"`` (the JAX
+``GELU_APPROXIMATE``: the ViT MLPs' GELU; the readout keeps the exact one,
+as in the JAX package) and ``head="lowres"`` (``HEAD_LOW_RES``: head conv2
+and conv3 before the x2 upsample). Both change the depth maps and are off
+by default. ``DPTDepthEstimator(image_size=224)`` runs the DPT at 224x224:
+the position embeddings shrink from 24x24 to 14x14 and the ViT attention
+runs at N = 197 tokens. The other TPU knobs (token padding to a multiple
+of 8, the two-tap upsample, token sharding, ablations) are not ported.
 """
 
 from __future__ import annotations
@@ -177,15 +183,32 @@ class HybridResNetStages(nn.Module):
         return taps
 
 
+GELUS = {"erf": "none", "tanh": "tanh"}   # knob -> F.gelu's approximate
+HEADS = ("full", "lowres")
+
+
+def check_knobs(gelu: str, head: str) -> None:
+    """Raise on a GELU or head setting the DPT does not have (the JAX
+    ``cli.make_depth_fn``'s messages)."""
+    if gelu not in GELUS:
+        raise ValueError(f"dpt_gelu must be 'erf' or 'tanh', got {gelu!r}")
+    if head not in HEADS:
+        raise ValueError(f"dpt_head must be 'full' or 'lowres', got "
+                         f"{head!r}")
+
+
 class ViTBlock(nn.Module):
-    """Pre-LN transformer block (timm ViT), LayerNorm eps 1e-6, exact-erf
-    GELU. Attention is the fused kernel over Z = batch * heads."""
+    """Pre-LN transformer block (timm ViT), LayerNorm eps 1e-6, the MLP's
+    GELU exact (``gelu="erf"``) or tanh-approximated (``"tanh"``).
+    Attention is the fused kernel over Z = batch * heads."""
 
     def __init__(self, dim: int = 768, heads: int = 12, mlp_ratio: int = 4,
-                 *, dtype=torch.float32, device=None):
+                 *, gelu: str = "erf", dtype=torch.float32, device=None):
         super().__init__()
         kw = dict(dtype=dtype, device=device)
+        check_knobs(gelu, "full")
         self.heads = heads
+        self.approximate = GELUS[gelu]
         self.norm1 = nn.LayerNorm(dim, eps=1e-6, **kw)
         self.qkv = nn.Linear(dim, 3 * dim, **kw)
         self.proj = nn.Linear(dim, dim, **kw)
@@ -205,7 +228,7 @@ class ViTBlock(nn.Module):
                                             n_valid=n)
         out = out.reshape(b, self.heads, n, dh).permute(0, 2, 1, 3)
         x = x + self.proj(out.reshape(b, n, d))
-        h = F.gelu(self.fc1(self.norm2(x)), approximate="none")
+        h = F.gelu(self.fc1(self.norm2(x)), approximate=self.approximate)
         return x + self.fc2(h)
 
 
@@ -273,17 +296,22 @@ def resize_pos_embed(pos: torch.Tensor, grid_old: int,
 
 
 class DPTDepthModel(nn.Module):
-    """images [B, H, W, 3] (DPT-normalized) -> depth [B, H, W]."""
+    """images [B, H, W, 3] (DPT-normalized) -> depth [B, H, W]. ``gelu``
+    ("erf" or "tanh") is the ViT MLPs' GELU; ``head="lowres"`` runs head
+    conv2 and conv3 before the x2 upsample (not exact: a 3x3 conv does not
+    commute with the resize)."""
 
     def __init__(self, features: int = 256, vit_dim: int = 768,
                  vit_heads: int = 12, vit_blocks: int = 12,
                  hooks: Tuple[int, int] = (8, 11),
                  resnet_layers: Sequence[int] = (3, 4, 9), patch: int = 16,
-                 pretrain_grid: int = 24, *, dtype=torch.float32,
-                 device=None):
+                 pretrain_grid: int = 24, *, gelu: str = "erf",
+                 head: str = "full", dtype=torch.float32, device=None):
         super().__init__()
+        check_knobs(gelu, head)
         kw = dict(dtype=dtype, device=device)
         self.dtype, self.patch, self.hooks = dtype, patch, tuple(hooks)
+        self.low_res_head = head == "lowres"
         self.pretrain_grid = pretrain_grid
         self.resnet = HybridResNetStages(resnet_layers, **kw)
         self.patch_proj = Conv(1024, vit_dim, 1, **kw)
@@ -294,7 +322,8 @@ class DPTDepthModel(nn.Module):
             device=device))
         self.blocks = []
         for i in range(vit_blocks):
-            self.add_module(f"block{i}", ViTBlock(vit_dim, vit_heads, **kw))
+            self.add_module(f"block{i}", ViTBlock(vit_dim, vit_heads,
+                                                  gelu=gelu, **kw))
             self.blocks.append(f"block{i}")
         self.pp3_readout = ProjectReadout(vit_dim, **kw)
         self.pp3_conv = Conv(vit_dim, vit_dim, 1, **kw)
@@ -361,9 +390,12 @@ class DPTDepthModel(nn.Module):
         path = self.refinenet2(path, rn[1])
         path = self.refinenet1(path, rn[0])
         y = self.head_conv1(path)
-        y = resize_align_corners(y, (y.shape[1] * 2, y.shape[2] * 2))
+        if not self.low_res_head:
+            y = resize_align_corners(y, (y.shape[1] * 2, y.shape[2] * 2))
         y = F.relu(self.head_conv2(y))
         y = F.relu(self.head_conv3(y))
+        if self.low_res_head:     # the x2 on one channel instead of 128
+            y = resize_align_corners(y, (y.shape[1] * 2, y.shape[2] * 2))
         return y[..., 0]
 
 
@@ -373,7 +405,9 @@ TINY_DPT = dict(vit_blocks=3, hooks=(1, 2), resnet_layers=(1, 1, 1),
 
 class DPTDepthEstimator:
     """A DPT model and the standardized-depth function over it, on the CUDA
-    card unless ``device`` names another."""
+    card unless ``device`` names another. ``image_size`` is the DPT's input
+    side (384, or 224 for ``--dpt-size 224``); ``gelu`` and ``head`` go to
+    ``DPTDepthModel`` with the other ``model_kwargs``."""
 
     def __init__(self, dtype=torch.bfloat16, image_size: int = 384,
                  device="cuda", **model_kwargs):

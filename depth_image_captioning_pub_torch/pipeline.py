@@ -1,4 +1,4 @@
-"""One-call inference API: uint8 image arrays in, caption strings out
+"""One-call inference API: image paths or arrays in, caption strings out
 (counterpart of the JAX ``pipeline.py``).
 
     from depth_image_captioning_pub_torch.models.captioner import (
@@ -9,7 +9,8 @@
     cap.init(torch.Generator().manual_seed(0))      # or params_from_jax
     pipe = CaptionPipeline(cap, word_to_id, id_to_word,
                            batch_buckets=(1, 16, 64))
-    pipe(images_uint8)                              # -> list of captions
+    pipe("dog.jpg")                      # -> "a dog runs on the beach"
+    pipe(["a.png", "b.jpg", arr_hw3])    # -> list of captions
 
 ``kind`` may be any of the seven (``models/captioner.PORTED_KINDS``).
 ``CaptionPipeline(..., beam_size=5, length_penalty=0.7)`` captions with
@@ -41,8 +42,16 @@ captioner and loads one checkpoint set that the JAX trainer wrote (the
 components``); ``reload_weights`` swaps trees in place and
 ``reload_from_experiment`` re-reads the same files. The decoders repack
 their kernel weights on every call, so a swap reaches the next chunk.
-Several devices wait for a later slice (ROADMAP.md), as does decoding
-JPEG paths: images are uint8 [H, W, 3] arrays at ``image_hw``.
+Several devices wait for a later slice (ROADMAP.md).
+
+An image is a path, a uint8 [H, W, 3] array or a float array in [0, 1]
+(or [0, 255]), of any size: paths go through the native batch decoder
+(``data/native_loader.decode_batch``: libjpeg with DCT-domain scaling for
+JPEG files, the port's PNG reader and Pillow's bilinear resize for the
+rest, the JAX package's bytes either way), and arrays of another size are
+resized with ``data/image_io.resize_u8``, Pillow's bilinear filter byte
+for byte, as the JAX pipeline resizes them with Pillow. ``batch_size``
+with no ``batch_buckets`` is the one bucket, as in the JAX pipeline.
 """
 
 from __future__ import annotations
@@ -56,6 +65,8 @@ from depth_image_captioning_pub_torch.data.tokenizer import (
     SPECIAL, ids_to_caption)
 from depth_image_captioning_pub_torch.engine.evaluate import make_caption_fn
 
+ImageLike = Union[str, np.ndarray]
+
 
 class CaptionPipeline:
     """Batched captioning over one captioner (a depth kind with its
@@ -65,8 +76,8 @@ class CaptionPipeline:
 
     def __init__(self, cap, word_to_id: Dict[str, int],
                  id_to_word: Dict[int, str], *, depth_fn=None,
-                 max_length: int = 30, batch_buckets=(64,),
-                 image_hw=(224, 224), beam_size: int = 1,
+                 max_length: int = 30, batch_size: int = 64,
+                 batch_buckets=None, image_hw=(224, 224), beam_size: int = 1,
                  length_penalty: float = 0.0, sample: bool = False,
                  temperature: float = 1.0, top_k: int = 0,
                  top_p: float = 1.0, seed: int = 0):
@@ -75,8 +86,9 @@ class CaptionPipeline:
         self._experiment = None     # (save_dir, files) of from_experiment
         self.max_length = int(max_length)
         self.id_to_word = id_to_word
-        self.batch_buckets = tuple(sorted({int(b) for b in batch_buckets}))
-        if not self.batch_buckets or self.batch_buckets[0] < 1:
+        self.batch_buckets = tuple(sorted({int(b) for b in (
+            batch_buckets or (batch_size,))}))
+        if self.batch_buckets[0] < 1:
             raise ValueError(f"bad batch_buckets {batch_buckets}")
         self.batch_size = self.batch_buckets[-1]   # the chunk size
         self.image_hw = tuple(image_hw)
@@ -189,20 +201,38 @@ class CaptionPipeline:
             rows.append(toks.cpu().numpy()[:v])
         return np.concatenate(rows, axis=0)
 
-    def __call__(self, images: Union[np.ndarray, Sequence[np.ndarray]]
+    def _to_arrays(self, images: Sequence[ImageLike]) -> np.ndarray:
+        """Paths and arrays -> [N, H, W, 3] uint8 at ``image_hw`` (the JAX
+        pipeline's ``_to_arrays``, with the port's decoder and resize)."""
+        from depth_image_captioning_pub_torch.data.image_io import resize_u8
+        from depth_image_captioning_pub_torch.data.native_loader import (
+            decode_batch)
+        h, w = self.image_hw
+        out = np.zeros((len(images), h, w, 3), np.uint8)
+        paths = [(i, im) for i, im in enumerate(images) if isinstance(im, str)]
+        if paths:
+            decoded = decode_batch([p for _, p in paths], self.image_hw)
+            for (i, _), arr in zip(paths, decoded):
+                out[i] = arr
+        for i, im in enumerate(images):
+            if isinstance(im, str):
+                continue
+            arr = np.asarray(im)
+            if arr.dtype != np.uint8:
+                arr = np.clip(arr * 255.0 if arr.max() <= 1.0 else arr,
+                              0, 255).astype(np.uint8)
+            if arr.shape[:2] != (h, w):
+                arr = resize_u8(arr, (h, w))
+            out[i] = arr
+        return out
+
+    def __call__(self, images: Union[ImageLike, Sequence[ImageLike]]
                  ) -> Union[str, List[str]]:
-        """One [H,W,3] uint8 image -> a caption; [N,H,W,3] or a list of
-        images -> a list of captions."""
-        single = isinstance(images, np.ndarray) and images.ndim == 3
-        if single:
-            batch = images[None]
-        elif isinstance(images, np.ndarray):
-            batch = images
-        else:
-            if any(isinstance(im, str) for im in images):
-                raise TypeError("image paths are not supported yet: pass "
-                                "uint8 arrays")
-            batch = np.stack([np.asarray(im) for im in images])
+        """One path or [H,W,3] image -> a caption; [N,H,W,3] or a list of
+        paths and images -> a list of captions."""
+        single = isinstance(images, (str, np.ndarray)) and (
+            not isinstance(images, np.ndarray) or images.ndim == 3)
+        batch: List[ImageLike] = [images] if single else list(images)
         caps = [ids_to_caption(row, self.id_to_word)
-                for row in self.caption_tokens(batch)]
+                for row in self.caption_tokens(self._to_arrays(batch))]
         return caps[0] if single else caps

@@ -359,9 +359,9 @@ def test_kernel_wrappers_reject_strided_input(cuda):
                                            state.c, dec.seq_weights())
 
 
-F32_VIT_SHAPES = [(1, 1), (17, 17), (577, 577), (584, 577)]
+F32_VIT_SHAPES = [(1, 1), (17, 17), (197, 197), (577, 577), (584, 577)]
 BF16_VIT_SHAPES = [(1, 1), (17, 17), (63, 63), (64, 64), (65, 65),
-                   (577, 577), (584, 577), (2048, 2048)]
+                   (197, 197), (577, 577), (584, 577), (2048, 2048)]
 VIT_CASES = ([("float32", 64, n, nv) for n, nv in F32_VIT_SHAPES]
              + [("bfloat16", d, n, nv) for d in (32, 64, 128)
                 for n, nv in BF16_VIT_SHAPES])
@@ -391,6 +391,32 @@ def test_vit_attention_matches_plain(cuda, dtype, d, n, n_valid):
     assert got.dtype == v.dtype and got.shape == v.shape
     torch.testing.assert_close(got.float(), want.float(), atol=_vit_atol(v),
                                rtol=0)
+
+
+def test_vit_attention_at_dpt_224(cuda):
+    """The DPT at 224x224 (``--dpt-size 224``): 197 tokens, a 16-image
+    chunk's Z = 16 * 12 heads of 64, bf16; and the DPT's blocks launch the
+    kernel at that shape."""
+    from depth_image_captioning_pub_torch.models.dpt import (
+        TINY_DPT, DPTDepthEstimator)
+    q, k, v = _qkv(197, (16 * 12, 197, 64), cuda, "bfloat16")
+    got = vit_attention.fused_attention(q, k, v, scale=0.125, n_valid=197)
+    want = vit_attention.fused_attention_plain(q, k, v, scale=0.125,
+                                               n_valid=197)
+    torch.testing.assert_close(got.float(), want.float(), atol=_vit_atol(v),
+                               rtol=0)
+    # the tests' DPT with heads of 64 (K5 takes d = 32, 64, 128)
+    est = DPTDepthEstimator(image_size=224, device=cuda,
+                            **dict(TINY_DPT, vit_dim=128, vit_heads=2))
+    est.init(torch.Generator().manual_seed(0))
+    before = vit_attention.LAUNCHES
+    images = torch.randint(0, 256, (2, 224, 224, 3), dtype=torch.uint8,
+                           device=cuda)
+    depth = est.depth_fn()(images)
+    torch.cuda.synchronize()
+    assert vit_attention.LAUNCHES == before + TINY_DPT["vit_blocks"]
+    assert depth.shape == (2, 224, 224, 1)
+    assert bool(torch.isfinite(depth).all())
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -29,7 +29,8 @@ from depth_image_captioning_pub_tpu import config as jconfig
 from depth_image_captioning_pub_tpu.data import pipeline as jpipeline
 from depth_image_captioning_pub_tpu.data import tokenizer as jtokenizer
 from depth_image_captioning_pub_tpu.data import vocab as jvocab
-from depth_image_captioning_pub_torch import cli, evaluation
+from depth_image_captioning_pub_torch import (
+    caption, cli, evaluation, serve)
 from depth_image_captioning_pub_torch import config as tconfig
 from depth_image_captioning_pub_torch.data import pipeline as tpipeline
 from depth_image_captioning_pub_torch.data import tokenizer as ttokenizer
@@ -242,3 +243,26 @@ def test_evaluation_device_default_is_cuda(words, tmp_path, monkeypatch):
             np.zeros((0,), np.int64))
     with pytest.raises((RuntimeError, AssertionError)):
         evaluation.main(list(words))
+
+
+def test_serving_entry_points_default_to_cuda():
+    """``serve`` and ``caption`` caption on the card unless ``--device
+    cpu``; neither looks for a card to fall back from."""
+    assert serve.build_parser().parse_args([]).device == "cuda"
+    assert caption.build_parser().parse_args(["x.png"]).device == "cuda"
+    for module in (serve, caption):
+        assert "is_available" not in inspect.getsource(module)
+
+
+def test_new_modules_are_guarded():
+    """The serving modules and the image readers are among the sources
+    the import guard walks; the native source ships as package data."""
+    import tomllib
+    names = {p.relative_to(REPO).as_posix() for p in _port_sources()}
+    pkg = "depth_image_captioning_pub_torch"
+    assert {f"{pkg}/serve.py", f"{pkg}/caption.py",
+            f"{pkg}/data/image_io.py", f"{pkg}/data/native_loader.py"} <= names
+    with open(REPO / "pyproject.toml", "rb") as f:
+        data = tomllib.load(f)["tool"]["setuptools"]["package-data"]
+    assert "native/fastimage.cpp" in data[pkg]
+    assert (REPO / pkg / "native" / "fastimage.cpp").is_file()

@@ -138,7 +138,9 @@ def test_pipeline_rejects_wrong_images(vocab, models):
     pipe = CaptionPipeline(models[1], w2i, i2w, image_hw=(HW, HW))
     with pytest.raises(ValueError):
         pipe.caption_tokens(np.zeros((1, HW, HW, 3), np.float32))
-    with pytest.raises(TypeError):
+    # paths are decoded since the serving slice: a missing file raises as
+    # in the JAX pipeline (its decode_batch's on_error="raise")
+    with pytest.raises(FileNotFoundError):
         pipe(["dog.jpg"])
 
 
