@@ -4,9 +4,10 @@ depth-soft and NIC greedy captioning, base-soft beam-5 captioning,
 base-soft stochastic (nucleus) captioning, the scored evaluation of
 base-soft checkpoint sets, the hard-attention and MLP-depth kinds
 (base-hard, mdepth-soft, depth-hard, mdepth-hard) greedy, by beam search
-and sampled, scored too, and the serving surface: the HTTP caption server
+and sampled, scored too, the serving surface: the HTTP caption server
 (greedy and sampled) and the caption CLI over PNG files with the DPT at
-224x224.
+224x224, and training (depth-soft, base-soft, nic, base-hard,
+mdepth-soft).
 
 Run from the root of a checkout, on a machine with one CUDA card (written
 for an NVIDIA H100):
@@ -190,7 +191,37 @@ the script exits non-zero:
    card's machine has no libjpeg headers, so the native library is built
    without its JPEG part there.
 
-Each path (phases 5, 7, 9, 11-19: ``PATHS``) runs with every launch counter
+20. train-depth-soft, the main training path: ``engine/train.train`` at
+   full width (ResNet-152 bf16 at 224x224, ``DepthCNNEncoder`` bf16 with
+   f32 parameters and trained BN, K=196, D=2048, A=E=H=128, V=9956,
+   ``ConfigTrain``'s B=30 and 32 tokens: 31 teacher-forced steps, lr
+   1e-3, dropout 0.5) on an in-memory synthetic set (``data/synthetic.
+   SyntheticCaptions``: 90 train and 30 val 224x224 uint8 images, five
+   captions each), 2 epochs. First the depth cache of the train images is
+   built through phase 7's DPT-hybrid at 384x384 (``engine/depth_cache``,
+   batches of 32), validation depth is computed per batch, and the
+   best-val files are read back by ``cli.load_eval_components`` and
+   scored by ``evaluate`` over the val images: K5 12 launches a DPT chunk
+   (3 cache + 2 validation + 1 scoring), K2 1, no plain version; the CSV
+   losses finite. Then, on a seeded captioner of the same configuration:
+   one train forward + backward on the card against the same on the CPU
+   (same features, their regions rescaled by seeded factors, depth maps,
+   weights and dropout masks; the depth CNN in f32 on both): loss within
+   1e-4 relative, each gradient within 1e-3 of its own max |g| (the
+   attention scorer's 1e-2, the depth CNN's 5e-2; the zero-by-symmetry
+   gradients below 1e-2 of their module's), BN statistics 1e-4; the
+   step's device time by stage (RGB encoder, depth encoder + decoder
+   forward, backward, AdamW; CUDA events); 50 steps at lr 1e-2 on one
+   batch must halve CE. Printed: train images/s (last epoch and run),
+   cache-build images/s and K5's share of it, peak memory.
+21-24. train-base-soft, train-nic, train-base-hard (two seeds; and one
+   batch's train-mode loss at two generator seeds and two temperatures,
+   which must differ, beside the temperature schedule) and
+   train-mdepth-soft (per-batch DPT depth: K5 12 a chunk): one epoch of 2
+   steps (60 images) and validation each, finite losses, the best-val set
+   read back and scored (K2, K3 or none).
+
+Each path (phases 5, 7, 9, 11-24: ``PATHS``) runs with every launch counter
 set to 0 just before it and read just after. The line before the last is a JSON
 object with the five ported kernels (K1 step, K2 greedy, K3 NIC greedy, K4
 beam, K5 ViT attention): launches per path, error, time beside the plain
@@ -249,7 +280,8 @@ PATHS = ("base-soft", "depth-soft", "nic", "base-soft-beam5",
          "mdepth-soft-sample", "depth-hard", "depth-hard-beam5",
          "mdepth-hard", "mdepth-hard-beam5", "score-base-hard",
          "score-mdepth-soft", "serve", "serve-sample",
-         "caption-depth224-beam3")
+         "caption-depth224-beam3", "train-depth-soft", "train-base-soft",
+         "train-nic", "train-base-hard", "train-mdepth-soft")
 TOP_P = 0.9          # the sampling path's nucleus
 SCORE_IMAGES, SCORE_SETS, SCORE_BATCH = 256, 3, 64
 SEED = 0             # the serving phases' request images
@@ -2869,6 +2901,511 @@ def phase_caption_depth224(smi, vit):
     return {"caption-depth224-beam3": launches}
 
 
+TRAIN_IMAGES, TRAIN_VAL, TRAIN_EPOCHS = 90, 30, 2
+SHORT_IMAGES = 60          # the other train paths: one epoch of 2 steps
+OVERFIT_STEPS, OVERFIT_LR = 50, 1e-2
+CACHE_BATCH = 32           # DepthMapCache.build's batch (the JAX default)
+CARD_CPU_LOSS_RTOL, CARD_CPU_STATS_ATOL = 1e-4, 1e-4
+CARD_CPU_GRAD = 1e-3       # of each gradient's own max |g|
+CARD_CPU_ATT_GRAD = 1e-2   # the attention's, through the softmax Jacobian
+CARD_CPU_DEPTH_GRAD = 5e-2  # the depth CNN's, after its BNs' cancellation
+ATT_GRADS = ("decoder.att_w_enc", "decoder.att_b_enc", "decoder.att_w_dec",
+             "decoder.att_b_dec")
+
+
+def train_vocab():
+    """V words: the synthetic captions' words, placeholder words, then the
+    four special tokens (``cli.placeholder_vocab``'s order)."""
+    from depth_image_captioning_pub_torch.cli import placeholder_vocab
+    from depth_image_captioning_pub_torch.data.synthetic import (
+        synthetic_words)
+    words = synthetic_words()
+    w2i, _ = placeholder_vocab(VOCAB - len(words))
+    names = words + list(w2i)
+    return ({w: i for i, w in enumerate(names)},
+            {i: w for i, w in enumerate(names)})
+
+
+def train_cfg(root):
+    """``ConfigTrain`` defaults (B=30, 32 tokens, lr 1e-3, dropout 0.5),
+    every path under ``root``."""
+    import os
+    from depth_image_captioning_pub_torch.config import ConfigTrain
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        return ConfigTrain()
+    finally:
+        os.chdir(cwd)
+
+
+def counted(tag, fn):
+    """fn() with every launch counter set to 0 just before and read just
+    after, and no plain version allowed to run."""
+    import torch
+    torch.cuda.synchronize()
+    reset_counts()
+    with PlainCalls() as plain:
+        out = fn()
+    torch.cuda.synchronize()
+    launches = read_counts()
+    if plain.calls:
+        raise RuntimeError(f"plain versions ran on the {tag} path: "
+                           f"{sorted(set(plain.calls))}")
+    return out, launches
+
+
+def read_losses(save_dir, prefix, suffix="_coco0"):
+    """The CSV losses of run 0 (NIC's files have no "_" before it)."""
+    import os
+    out = {}
+    for split in ("train", "val"):
+        path = os.path.join(save_dir, f"{prefix}_{split}_loss{suffix}.csv")
+        with open(path) as f:
+            out[split] = [float(line.split(", ")[1])
+                          for line in f.read().splitlines()]
+    if not all(np.isfinite(v).all() and v for v in out.values()):
+        raise RuntimeError(f"{prefix} losses not finite: {out}")
+    return out
+
+
+def read_back(kind, cfg, root, w2i, i2w, depth_fn, smi, tag):
+    """The best-val files through ``cli.load_eval_components`` and
+    ``evaluate`` over the val images: (scores, captioner)."""
+    from depth_image_captioning_pub_torch import cli
+    from depth_image_captioning_pub_torch.config import ConfigEval
+    from depth_image_captioning_pub_torch.engine.evaluate import evaluate
+    from depth_image_captioning_pub_torch.models.captioner import (
+        build_captioner)
+    import torch
+    ecfg = ConfigEval()
+    ecfg.max_length = MAX_LEN
+    for field in ("save_directory_soft", "save_directory_hard",
+                  "save_directory_Cdep_soft", "save_directory_Cdep_hard",
+                  "save_directory_nic"):
+        setattr(ecfg, field, getattr(cfg, field))
+    if kind == "nic":
+        save_dir, files = cfg.save_directory_nic, ecfg.nic_parameter_files
+    else:
+        base, atten = kind.split("-")
+        save_dir, files = cli.eval_tables(
+            ecfg, atten, False, base != "base",
+            encoder="mlp" if base == "mdepth" else "cnn")
+    cap = build_captioner(kind, VOCAB, device=torch.device("cuda"))
+    t0 = time.perf_counter()
+    scores = evaluate(kind, "coco", cap,
+                      lambda i: cli.load_eval_components(save_dir, files[i],
+                                                         cap),
+                      root["val"], w2i, i2w, ecfg, depth_fn=depth_fn,
+                      num_sets=1, quiet=True)
+    if not all(len(v) == 1 and np.isfinite(v[0]) for v in scores.values()):
+        raise RuntimeError(f"{tag}: scores of the trained set {scores}")
+    log(tag, f"best-val set read back and scored over {len(root['val'])} "
+        f"val images in {time.perf_counter() - t0:.1f} s: "
+        + ", ".join(f"{k} {v[0]:.4f}" for k, v in scores.items())
+        + f" [{smi}]")
+    return scores, cap
+
+
+def step_split(cap, batch, smi, tag):
+    """The train step's device time by stage (CUDA events, each timed
+    alone): RGB encoder, depth encoder + decoder forward, backward, AdamW."""
+    import torch
+    from depth_image_captioning_pub_torch.engine import steps
+    from depth_image_captioning_pub_torch.ops.precision import full_f32
+    opt = steps.make_optimizer(cap, 1e-3)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    ev = Events()
+    with full_f32():
+        feats = ev.ms("rgb encoder", lambda: steps.frozen_features(
+            cap, batch["images"]))
+
+        def forward():
+            return steps.attention_loss(cap, feats, batch, train=True,
+                                        alpha_reg=0.7, generator=gen)[0]
+
+        def forward_backward():
+            opt.zero_grad(set_to_none=True)
+            forward().backward()
+
+        ev.ms("depth encoder + decoder forward", forward)
+        ev.ms("forward + backward", forward_backward)
+        ev.ms("AdamW", opt.step)
+    t = ev.times
+    backward = t["forward + backward"] - t["depth encoder + decoder forward"]
+    total = (t["rgb encoder"] + t["forward + backward"] + t["AdamW"])
+    log(tag, f"train step at B={batch['images'].shape[0]}, "
+        f"{batch['captions'].shape[1] - 1} teacher-forced steps (device ms, "
+        f"each stage timed alone): RGB encoder {t['rgb encoder']:.2f}, "
+        f"depth encoder + decoder forward "
+        f"{t['depth encoder + decoder forward']:.2f}, backward "
+        f"{backward:.2f}, AdamW {t['AdamW']:.2f}; step {total:.2f} ms "
+        f"[{smi}]")
+    return total
+
+
+def overfit(cap, batch, smi, tag):
+    """OVERFIT_STEPS steps at lr 1e-2 on one fixed batch, the same dropout
+    masks each step, no alpha penalty: CE must fall below half its first
+    value."""
+    import torch
+    from depth_image_captioning_pub_torch.engine import steps
+    opt = steps.make_optimizer(cap, OVERFIT_LR)
+    gen = torch.Generator(device="cuda")
+    ces = []
+    t0 = time.perf_counter()
+    for _ in range(OVERFIT_STEPS):
+        gen.manual_seed(0)
+        ces.append(steps.attention_train_step(cap, opt, batch,
+                                              generator=gen)["ce"])
+    ces = torch.stack(ces).cpu().numpy()
+    dt = time.perf_counter() - t0
+    log(tag, f"overfit {OVERFIT_STEPS} steps at lr {OVERFIT_LR} on one "
+        f"batch: CE {ces[0]:.4f} -> {ces[-1]:.4f} (min {ces.min():.4f}); "
+        f"{dt * 1e3 / OVERFIT_STEPS:.1f} ms a step [{smi}]")
+    if not np.isfinite(ces).all() or ces[-1] >= 0.5 * ces[0]:
+        raise RuntimeError(f"{tag}: CE {ces[0]} -> {ces[-1]} in "
+                           f"{OVERFIT_STEPS} steps, not below half")
+
+
+ZERO_GRADS = ("decoder.att_b_full", "depth_module.conv1.bias",
+              "depth_module.conv2.bias", "depth_module.conv3.bias")
+
+
+def card_vs_cpu(cap, cfg, batch, smi, tag):
+    """One depth-soft train forward and backward on the card and on the
+    CPU from the same weights, frozen features, depth maps and dropout
+    masks, the depth CNN in f32 on both: loss, each gradient and the BN
+    running statistics. The attention scorer's gradients (``ATT_GRADS``)
+    pass through the softmax Jacobian, alpha_k (g_k - sum alpha g), a
+    difference of nearly equal terms, and the depth CNN's through its
+    BNs' mean subtraction: each has a bound of its own.
+
+    The encoder's features are rescaled region by region by seeded
+    factors in [0.5, 1.5): a random-weight ResNet-152's regions are nearly
+    alike, which leaves the attention parameters' gradients a
+    cancellation at rounding level. ``ZERO_GRADS`` are zero but for
+    rounding (the softmax is shift-invariant; each BN subtracts its batch
+    mean, so a conv bias's gradient is a sum over up to 160k positions
+    that cancels): they are held below 1e-2 of the largest gradient of
+    their module on both devices (a BN that did not subtract its mean
+    would leave them at its scale)."""
+    import torch
+    from depth_image_captioning_pub_torch.engine import steps
+    from depth_image_captioning_pub_torch.models.captioner import (
+        build_captioner)
+    from depth_image_captioning_pub_torch.ops.precision import full_f32
+    feats = steps.frozen_features(cap, batch["images"])
+    gen = torch.Generator().manual_seed(5)
+    factors = 0.5 + torch.rand(feats.shape[:2] + (1,), generator=gen)
+    feats = (feats.float() * factors.to(feats.device)).to(feats.dtype)
+    b, h = feats.shape[0], cfg.dim_hidden
+    masks = [torch.rand((b, h), generator=gen) < 1.0 - cfg.dropout
+             for _ in range(batch["captions"].shape[1] - 1)]
+    state = {k: v.detach().float().cpu() for k, v in cap.state_dict().items()
+             if k.startswith(("decoder.", "depth_module."))}
+    out = {}
+    for dev in ("cuda", "cpu"):
+        twin = build_captioner("depth-soft", VOCAB, cfg,
+                               encoder_dtype=torch.float32,
+                               resnet_layers=(1, 1, 1, 1), device=dev)
+        missing = twin.load_state_dict(state, strict=False)
+        if missing.unexpected_keys:
+            raise RuntimeError(f"{tag}: {missing.unexpected_keys}")
+        b_dev = {k: v.to(dev) for k, v in batch.items()}
+        t0 = time.perf_counter()
+        with full_f32():
+            loss, _ = steps.attention_loss(
+                twin, feats.to(dev), b_dev, train=True, alpha_reg=0.7,
+                dropout_keep=lambda t, shape: masks[t].to(dev))
+            loss.backward()
+        grads = {n: p.grad.float().cpu()
+                 for n, p in twin.named_parameters() if p.grad is not None}
+        stats = {n: v.cpu() for n, v in twin.depth_module.state_dict().items()
+                 if "running" in n}
+        out[dev] = (loss.item(), grads, stats, time.perf_counter() - t0)
+    (lc, gc, sc, tc), (lp, gp, sp, tp) = out["cuda"], out["cpu"]
+    rel = abs(lc - lp) / abs(lp)
+    worst, zeros = {}, {}
+    for name, g in gp.items():
+        if name in ZERO_GRADS:
+            module = name.split(".")[0]
+            top = max(v.abs().max().item() for n, v in gp.items()
+                      if n.startswith(module) and n not in ZERO_GRADS)
+            zeros[name] = max(g.abs().max().item(),
+                              gc[name].abs().max().item()) / top
+            continue
+        err = (gc[name] - g).abs().max().item() / max(g.abs().max().item(),
+                                                        1e-30)
+        worst[name] = err
+    stat_err = max((sc[n] - sp[n]).abs().max().item() for n in sp)
+    dec = max(v for n, v in worst.items()
+              if n.startswith("decoder.") and n not in ATT_GRADS)
+    att = max(worst[n] for n in ATT_GRADS)
+    dep = max(v for n, v in worst.items() if n.startswith("depth_module."))
+    log(tag, f"card vs CPU, one train forward + backward (B={b}, depth CNN "
+        f"f32): loss {lc:.6f} vs {lp:.6f} (rel {rel:.2e}, max "
+        f"{CARD_CPU_LOSS_RTOL}); gradient error / own max |g|: decoder "
+        f"{dec:.2e} (max {CARD_CPU_GRAD}), its attention scorer {att:.2e} "
+        f"(max {CARD_CPU_ATT_GRAD}), depth CNN {dep:.2e} (max "
+        f"{CARD_CPU_DEPTH_GRAD}; worst "
+        f"{max((v, n) for n, v in worst.items())[1]}); BN statistics "
+        f"{stat_err:.2e} (max {CARD_CPU_STATS_ATOL}); zero gradients / "
+        f"their module's max: {max(zeros.values()):.2e} (max 1e-2); card "
+        f"{tc:.2f} s, CPU {tp:.2f} s (host clock) [{smi}]")
+    log(tag, "per gradient: " + ", ".join(
+        f"{n.split('.', 1)[1]} {v:.1e}" for n, v in sorted(worst.items())))
+    bad = [n for n, v in worst.items()
+           if v > (CARD_CPU_DEPTH_GRAD if n.startswith("depth_module.")
+                   else CARD_CPU_ATT_GRAD if n in ATT_GRADS
+                   else CARD_CPU_GRAD)]
+    bad += [n for n, v in zeros.items() if v > 1e-2]
+    if rel > CARD_CPU_LOSS_RTOL or bad or stat_err > CARD_CPU_STATS_ATOL:
+        raise RuntimeError(f"{tag}: card vs CPU step: loss rel {rel}, "
+                           f"gradients {bad}, statistics {stat_err}")
+
+
+def phase_train_depth_soft(smi, est, root, w2i, i2w):
+    """The main training path: depth-soft, its depth cache built by the
+    DPT, 2 epochs, the best-val set scored; then the step checks."""
+    import os
+    import torch
+    from depth_image_captioning_pub_torch.data.pipeline import train_batches
+    from depth_image_captioning_pub_torch.engine import depth_cache, steps
+    from depth_image_captioning_pub_torch.engine import train as tr
+    from depth_image_captioning_pub_torch.models.captioner import (
+        build_captioner)
+    from depth_image_captioning_pub_torch.ops.kernels import vit_attention
+    tag = "train-depth-soft"
+    dev = torch.device("cuda")
+    cfg = train_cfg(root["dir"])
+    depth_fn = est.depth_fn()
+    cache = depth_cache.DepthMapCache(
+        os.path.join(cfg.save_dir("depth_soft", False),
+                     "depth_cache_coco.npy"), TRAIN_IMAGES)
+    online = depth_cache.online_depth_provider(depth_fn, dev)
+    times = {}
+
+    # the DPT's first call at the cache's batch shape, outside the count
+    depth_fn(torch.from_numpy(np.stack([root["train"].load_image(i)
+                                        for i in range(CACHE_BATCH)])).to(dev))
+
+    def run():
+        times["cache"] = cache.build(root["train"], depth_fn, dev,
+                                     batch_size=CACHE_BATCH, quiet=True)
+        torch.cuda.reset_peak_memory_stats()
+        summary = tr.train("depth-soft", 0, cfg=cfg,
+                           depth_provider=depth_cache.cached_depth_provider(
+                               cache),
+                           val_depth_provider=online,
+                           datasets=(root["train"], root["val"]),
+                           word_to_id=w2i, num_epochs=TRAIN_EPOCHS,
+                           quiet=True, device=dev)
+        times["peak"] = torch.cuda.max_memory_allocated()
+        scores, cap = read_back("depth-soft", cfg, root, w2i, i2w, depth_fn,
+                                smi, tag)
+        return summary, cap
+
+    (summary, ecap), launches = counted(tag, run)
+    cache_chunks = -(-TRAIN_IMAGES // CACHE_BATCH)
+    val_chunks = TRAIN_EPOCHS * -(-TRAIN_VAL // cfg.batch_size)
+    eval_chunks = -(-TRAIN_VAL // 50)
+    want = dict.fromkeys(launches, 0)
+    want.update(vit_attention=DPT_BLOCKS * (cache_chunks + val_chunks
+                                            + eval_chunks),
+                decode_seq=eval_chunks)
+    if launches != want:
+        raise RuntimeError(f"{tag} launches {launches}, expected {want}")
+    losses = read_losses(cfg.save_dir("depth_soft", False), "depth_soft")
+    rate = summary["train_rows"] / summary["train_seconds"]
+    last = TRAIN_IMAGES / summary["epoch_train_seconds"][-1]
+    log(tag, f"launches {launches}: K5 {DPT_BLOCKS} x ({cache_chunks} cache "
+        f"+ {val_chunks} validation + {eval_chunks} scoring DPT chunks), K2 "
+        f"{eval_chunks} on the trained weights; plain calls 0")
+    log(tag, f"{TRAIN_EPOCHS} epochs of {TRAIN_IMAGES} images (B="
+        f"{cfg.batch_size}, {cfg.max_caption_len - 1} teacher-forced steps): "
+        f"train losses {losses['train']}, val losses {losses['val']}; "
+        f"{last:.1f} train images/s in the last epoch, {rate:.1f} over the "
+        f"run ({summary['train_seconds']:.2f} s for {summary['train_rows']} "
+        f"rows, host clock, first steps included); peak memory "
+        f"{times['peak'] / 2**30:.2f} GiB [{smi}]")
+
+    # K5's share of the cache build: its 12 launches a chunk, alone
+    n_tok = 1 + (est.image_size // est.model.patch) ** 2
+    blk = getattr(est.model, est.model.blocks[0])
+    dim, heads = blk.qkv.in_features, blk.heads
+    qkv = torch.zeros(3, CACHE_BATCH * heads, n_tok, dim // heads,
+                      device=dev, dtype=torch.bfloat16).normal_()
+    ev = Events()
+    ev.ms("K5", lambda: [vit_attention.fused_attention(
+        *qkv, scale=(dim // heads) ** -0.5, n_valid=n_tok)
+        for _ in range(DPT_BLOCKS)])
+    k5_s = ev.times["K5"] * cache_chunks / 1e3
+    log(tag, f"depth cache: {TRAIN_IMAGES} images in {times['cache']:.2f} s "
+        f"= {TRAIN_IMAGES / times['cache']:.1f} images/s (host clock, "
+        f"loader and f16 write included); K5 {k5_s * 1e3:.2f} ms of it "
+        f"({100 * k5_s / times['cache']:.1f}%) [{smi}]")
+
+    # the step's checks on a captioner of the path's configuration
+    cap = build_captioner("depth-soft", VOCAB, cfg, device=dev)
+    cap.init(torch.Generator().manual_seed(3))
+    batch = next(train_batches(root["train"], w2i, cfg.batch_size,
+                               cfg.max_caption_len, shuffle=False, seed=0))
+    dmaps = depth_cache.cached_depth_provider(cache)(batch.images,
+                                                     batch.indices)
+    dbatch = steps.batch_to_device(batch, dev, dmaps)
+    card_vs_cpu(cap, cfg, dbatch, smi, tag)
+    step_ms = step_split(cap, dbatch, smi, tag)
+    overfit(cap, dbatch, smi, tag)
+    del ecap, cap
+    return launches, step_ms
+
+
+def short_train(kind, smi, root, w2i, i2w, depth_fn=None, seed=None):
+    """One epoch of 2 steps + validation of ``kind`` (counters reset and
+    read around it), its best-val set scored; returns (launches,
+    losses)."""
+    import torch
+    from depth_image_captioning_pub_torch.engine import depth_cache
+    from depth_image_captioning_pub_torch.engine import train as tr
+    tag = f"train-{kind}"
+    cfg = train_cfg(root["dir"])
+    if seed is not None:
+        cfg.seed = seed
+    dev = torch.device("cuda")
+    provider = (None if depth_fn is None
+                else depth_cache.online_depth_provider(depth_fn, dev))
+
+    def run():
+        t0 = time.perf_counter()
+        summary = tr.train(kind, 0, cfg=cfg, depth_provider=provider,
+                           datasets=(root["short"], root["val"]),
+                           word_to_id=w2i, num_epochs=1, quiet=True,
+                           device=dev)
+        dt = time.perf_counter() - t0
+        read_back(kind, cfg, root, w2i, i2w, depth_fn, smi, tag)
+        return summary, dt
+
+    (summary, dt), launches = counted(tag, run)
+    prefix = kind.replace("-", "_")
+    losses = read_losses(cfg.save_dir(tr._save_dir_kind(kind), False),
+                         prefix, "0" if kind == "nic" else "_coco0")
+    log(tag, f"1 epoch of {SHORT_IMAGES} images + {TRAIN_VAL} val (seed "
+        f"{cfg.seed}): train loss {losses['train'][0]:.5f}, val loss "
+        f"{losses['val'][0]:.5f}; {dt:.1f} s with build, files and "
+        f"scoring; {summary['train_rows'] / summary['train_seconds']:.1f} "
+        f"train images/s; launches {launches} [{smi}]")
+    return launches, losses
+
+
+def hard_noise(smi, root, w2i):
+    """base-hard's training noise moves its loss: one train forward on one
+    batch and weights at two generator seeds, and at temperature 1.0 and
+    0.5 on one seed."""
+    import torch
+    from depth_image_captioning_pub_torch.data.pipeline import train_batches
+    from depth_image_captioning_pub_torch.engine import steps
+    from depth_image_captioning_pub_torch.engine.train import (
+        gumbel_temperature)
+    from depth_image_captioning_pub_torch.models.captioner import (
+        build_captioner)
+    cfg = train_cfg(root["dir"])
+    cap = build_captioner("base-hard", VOCAB, cfg, device="cuda")
+    cap.init(torch.Generator().manual_seed(4))
+    batch = steps.batch_to_device(next(train_batches(
+        root["short"], w2i, cfg.batch_size, cfg.max_caption_len,
+        shuffle=False, seed=0)), "cuda")
+    feats = steps.frozen_features(cap, batch["images"])
+    # regions rescaled by seeded factors, as in ``card_vs_cpu``: a random
+    # ResNet-152's regions are nearly alike, so which one a draw picks
+    # would hardly move the loss
+    factors = 0.5 + torch.rand(feats.shape[:2] + (1,),
+                               generator=torch.Generator().manual_seed(5))
+    feats = (feats.float() * factors.to(feats.device)).to(feats.dtype)
+
+    def loss(seed, temp):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        with torch.no_grad():
+            return steps.attention_loss(cap, feats, batch, train=True,
+                                        temp=temp, generator=gen)[0].item()
+    got = {(s, t): loss(s, t) for s, t in ((0, 1.0), (0, 1.0), (1, 1.0),
+                                           (0, 0.5))}
+    sched = [round(gumbel_temperature(e, cfg.temp_sch), 4)
+             for e in (0, 10, 60, 120, 150)]
+    log("train-base-hard", f"train-mode loss on one batch: seed 0 "
+        f"{got[(0, 1.0)]:.6f}, seed 1 {got[(1, 1.0)]:.6f}, seed 0 at "
+        f"temperature 0.5 {got[(0, 0.5)]:.6f}; the schedule at epochs 0, 10, "
+        f"60, 120, 150: {sched} [{smi}]")
+    if not (got[(0, 1.0)] != got[(1, 1.0)] and got[(0, 1.0)] != got[(0, 0.5)]
+            and len({got[(0, 1.0)], loss(0, 1.0)}) == 1):
+        raise RuntimeError(f"base-hard noise did not move the loss: {got}")
+
+
+def phase_train(smi, est):
+    """Phases 20-24: training on the card (``PATHS``' train-*)."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+    from depth_image_captioning_pub_torch.data.synthetic import (
+        SyntheticCaptions)
+    import torch
+    w2i, i2w = train_vocab()
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=build, prefix="train_")
+    data = SyntheticCaptions(TRAIN_IMAGES + TRAIN_VAL, seed=21)
+    root = {"dir": tmp, "train": _Rows(data, range(TRAIN_IMAGES)),
+            "short": _Rows(data, range(SHORT_IMAGES)),
+            "val": _Rows(data, range(TRAIN_IMAGES, TRAIN_IMAGES + TRAIN_VAL))}
+    try:
+        out = {}
+        out["train-depth-soft"], step_ms = phase_train_depth_soft(
+            smi, est, root, w2i, i2w)
+        out["train-base-soft"], _ = short_train("base-soft", smi, root, w2i,
+                                                i2w)
+        out["train-nic"], _ = short_train("nic", smi, root, w2i, i2w)
+        out["train-base-hard"], a = short_train("base-hard", smi, root, w2i,
+                                                i2w)
+        _, b = short_train("base-hard", smi, root, w2i, i2w, seed=124)
+        if a == b:
+            raise RuntimeError(f"base-hard: seeds 123 and 124 gave the same "
+                               f"losses {a}")
+        hard_noise(smi, root, w2i)
+        depth_fn = est.depth_fn()
+        out["train-mdepth-soft"], _ = short_train(
+            "mdepth-soft", smi, root, w2i, i2w, depth_fn=depth_fn)
+        k5 = out["train-mdepth-soft"]["vit_attention"]
+        b = train_cfg(tmp).batch_size           # train, val, scoring chunks
+        chunks = (-(-SHORT_IMAGES // b) + -(-TRAIN_VAL // b)
+                  + -(-TRAIN_VAL // 50))
+        if k5 != DPT_BLOCKS * chunks:
+            raise RuntimeError(f"mdepth-soft training: K5 {k5} launches, "
+                               f"expected {DPT_BLOCKS * chunks}")
+        for tag in ("train-base-soft", "train-nic", "train-base-hard"):
+            if out[tag]["vit_attention"]:
+                raise RuntimeError(f"{tag} launched K5")
+        torch.cuda.synchronize()
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+class _Rows:
+    """Rows ``rows`` of an in-memory captions set, as a dataset."""
+
+    def __init__(self, data, rows):
+        self.data, self.rows = data, list(rows)
+
+    def __len__(self):
+        return len(self.rows)
+
+    def load_image(self, i):
+        return self.data.load_image(self.rows[i])
+
+    def captions(self, i):
+        return self.data.captions(self.rows[i])
+
+
 def main():
     smi = phase_env()
     import torch
@@ -2893,6 +3430,7 @@ def main():
     by_path.update(phase_score_new_kinds(smi, hard_cap, mdepth_cap, est))
     by_path.update(phase_serve(smi, base_cap))
     by_path.update(phase_caption_depth224(smi, vit))
+    by_path.update(phase_train(smi, est))
     if tuple(by_path) != PATHS:
         raise RuntimeError(f"paths run {tuple(by_path)}, expected {PATHS}")
     kernels = [step, seq, nic_k, beam_k, vit]

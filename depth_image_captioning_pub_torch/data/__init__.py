@@ -1,2 +1,2 @@
-"""Host-side data layer: special tokens and detokenizer, vocabulary
-loading, evaluation batches."""
+"""Host-side data layer: special tokens, tokenizer and detokenizer,
+vocabulary loading, train and evaluation batches, synthetic sets."""

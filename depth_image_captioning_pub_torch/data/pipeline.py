@@ -1,20 +1,81 @@
-"""Fixed-shape evaluation batches and a background prefetcher (the port's
-own copy of what it uses from the JAX package's ``data/pipeline.py``).
+"""Fixed-shape batches and a background prefetcher (the port's own copy of
+the JAX package's ``data/pipeline.py``): train batches (one of each
+image's captions, tokenized and <null>-padded to a fixed length, with the
+lengths beside them) and evaluation batches (images and their cleaned
+reference strings).
 
-Every batch has one shape: the last one is padded with repeated images and
-``pad_mask`` marks the repeats. Images stay uint8 on the host; the device
-converts them.
+Every batch has one shape: the last one is padded with repeated rows and
+``pad_mask`` marks the repeats, which the losses leave out. Images stay
+uint8 on the host; the device converts them. For the same seed, epoch and
+``pad_to``, ``train_batches`` yields the JAX package's batches array for
+array (the same ``random.Random`` draws in the same order).
 """
 
 from __future__ import annotations
 
 import queue as queue_mod
+import random
 import threading
 from typing import Dict, Iterator, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 
-from depth_image_captioning_pub_torch.data.tokenizer import untokenize_caption
+from depth_image_captioning_pub_torch.data.tokenizer import (
+    SPECIAL, tokenize_caption, untokenize_caption)
+
+
+class Batch(NamedTuple):
+    """One fixed-shape training batch (NHWC images, padded captions)."""
+
+    images: np.ndarray        # [B, H, W, 3] uint8
+    captions: np.ndarray      # [B, L] int32, <null>-padded
+    lengths: np.ndarray       # [B] int32 (includes <start> and <end>)
+    pad_mask: np.ndarray      # [B] bool, False for repeated padding rows
+    indices: np.ndarray = None  # [B] int32 dataset indices (depth-cache key)
+
+
+def pad_captions(token_lists: Sequence[Sequence[int]], null_id: int,
+                 max_len: int) -> "tuple[np.ndarray, np.ndarray]":
+    """<null>-pad token lists to [B, max_len]; a longer caption is cut to
+    max_len tokens that keep its final <end>."""
+    bsz = len(token_lists)
+    out = np.full((bsz, max_len), null_id, dtype=np.int32)
+    lengths = np.zeros((bsz,), dtype=np.int32)
+    for i, toks in enumerate(token_lists):
+        toks = list(toks)
+        if len(toks) > max_len:
+            toks = toks[: max_len - 1] + [toks[-1]]
+        out[i, : len(toks)] = toks
+        lengths[i] = len(toks)
+    return out, lengths
+
+
+def make_train_batch(images: Sequence[np.ndarray],
+                     caption_sets: Sequence[Sequence[str]],
+                     word_to_id: Dict[str, int],
+                     max_len: int,
+                     rng: random.Random,
+                     batch_size: Optional[int] = None,
+                     indices: Optional[Sequence[int]] = None) -> Batch:
+    """Pick one of each image's captions with ``rng``, tokenize, pad to
+    ``max_len``, and pad the rows to ``batch_size`` with repeats."""
+    tokens = [tokenize_caption(rng.choice(list(caps)), word_to_id)
+              for caps in caption_sets]
+    captions, lengths = pad_captions(tokens, word_to_id[SPECIAL.null], max_len)
+    imgs = np.stack(images)
+    n = imgs.shape[0]
+    target = batch_size or n
+    idx = np.asarray(list(indices) if indices is not None else range(n),
+                     dtype=np.int32)
+    pad_mask = np.ones((target,), dtype=bool)
+    if n < target:
+        reps = [i % n for i in range(n, target)]
+        imgs = np.concatenate([imgs, imgs[reps]], axis=0)
+        captions = np.concatenate([captions, captions[reps]], axis=0)
+        lengths = np.concatenate([lengths, lengths[reps]], axis=0)
+        idx = np.concatenate([idx, idx[reps]], axis=0)
+        pad_mask[n:] = False
+    return Batch(imgs, captions, lengths, pad_mask, idx)
 
 
 class EvalBatch(NamedTuple):
@@ -42,9 +103,44 @@ def make_eval_batch(images: Sequence[np.ndarray],
     return EvalBatch(imgs, refs, pad_mask)
 
 
-def batched_indices(n: int, batch_size: int) -> List[List[int]]:
-    return [list(range(i, min(i + batch_size, n)))
-            for i in range(0, n, batch_size)]
+def generate_subset(dataset, ratio: float, random_seed: int = 0):
+    """Two disjoint shuffled index lists split at ``ratio`` (the same seed
+    gives the same split)."""
+    size = int(len(dataset) * ratio)
+    indices = list(range(len(dataset)))
+    random.Random(random_seed).shuffle(indices)
+    return indices[:size], indices[size:]
+
+
+def batched_indices(n: int, batch_size: int, shuffle: bool = False,
+                    rng: Optional[random.Random] = None) -> List[List[int]]:
+    idx = list(range(n))
+    if shuffle:
+        (rng or random).shuffle(idx)
+    return [idx[i: i + batch_size] for i in range(0, n, batch_size)]
+
+
+def train_batches(dataset, word_to_id: Dict[str, int], batch_size: int,
+                  max_len: int, shuffle: bool, seed: int,
+                  epoch: int = 0,
+                  pad_to: Optional[int] = None,
+                  indices: Optional[Sequence[int]] = None) -> Iterator[Batch]:
+    """Fixed-shape train batches over a dataset with ``load_image(i)`` (or
+    ``load_images_batch``), ``captions(i)`` and ``len``: the order
+    shuffled by ``random.Random(seed * 100003 + epoch)``, which also picks
+    each image's caption; every batch padded to ``pad_to or batch_size``
+    rows."""
+    rng = random.Random(seed * 100003 + epoch)
+    order = list(indices) if indices is not None else list(range(len(dataset)))
+    if shuffle:
+        rng.shuffle(order)
+    chunks = [order[i: i + batch_size] for i in range(0, len(order), batch_size)]
+    for chunk in chunks:
+        imgs = _load_chunk(dataset, chunk)
+        caps = [dataset.captions(i) for i in chunk]
+        yield make_train_batch(imgs, caps, word_to_id, max_len, rng,
+                               batch_size=pad_to or batch_size,
+                               indices=chunk)
 
 
 def _load_chunk(dataset, chunk):

@@ -1,5 +1,5 @@
-"""Caption detokenizer and the special tokens (the port's own copy of what
-it uses from the JAX package's ``data/tokenizer.py``; the same behaviour)."""
+"""Caption tokenizer, detokenizer and the special tokens (the port's own
+copy of the JAX package's ``data/tokenizer.py``; the same behaviour)."""
 
 from __future__ import annotations
 
@@ -27,6 +27,14 @@ def clean_tokens(caption: str) -> List[str]:
             continue
         out.append(token.rstrip(".").rstrip(","))
     return out
+
+
+def tokenize_caption(caption: str, word_to_id: Dict[str, int]) -> List[int]:
+    """Caption string -> token ids wrapped in <start> ... <end>, cleaned as
+    above, out-of-vocabulary words as <unk>."""
+    tokens = [SPECIAL.start] + clean_tokens(caption) + [SPECIAL.end]
+    unk = word_to_id[SPECIAL.unk]
+    return [word_to_id.get(t, unk) for t in tokens]
 
 
 def untokenize_caption(caption: str, word_to_id: Dict[str, int]) -> str:

@@ -1,1 +1,2 @@
-"""Caption generation on top of the captioner."""
+"""Caption generation, scored evaluation and training on top of the
+captioner."""

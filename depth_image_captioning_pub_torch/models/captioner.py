@@ -10,13 +10,18 @@ global average pool, a trainable Linear 2048 -> 300 and a two-layer LSTM
 decoder). The DPT that makes the depth maps is not part of the
 ``Captioner``: ``make_caption_fn`` takes it as ``depth_fn``, as in the JAX
 package.
+
+Training differentiates ``trainable_parameters()``, the JAX package's
+``params`` tree: the decoder, NIC's projection and the depth encoder. The
+RGB backbone is frozen (its parameters do not require gradients, and the
+train step runs it under ``torch.no_grad()``), as is the DPT.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Callable, Dict, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 import torch.nn as nn
@@ -122,7 +127,7 @@ class Captioner(nn.Module):
             self.decoder = NICDecoder(
                 vocab_size, dim_embedding=cfg.nic_dim_embedding,
                 dim_hidden=cfg.dim_hidden, num_layers=cfg.num_layers,
-                device=self.device)
+                device=self.device, dropout=cfg.nic_dropout)
             return
         self.encoder = AttentionGridEncoder(
             cfg.enc_img_size, dtype=encoder_dtype, layers=layers,
@@ -132,7 +137,7 @@ class Captioner(nn.Module):
             dim_embedding=cfg.dim_embedding, dim_encoder=cfg.dim_encoder,
             dim_decoder=cfg.dim_hidden, fusion=spec.fusion,
             device=self.device, attention_kind=spec.attention,
-            dim_depth=cfg.dim_out)
+            dim_depth=cfg.dim_out, dropout=cfg.dropout)
         if spec.depth_encoder == "cnn":
             self.depth_module = DepthCNNEncoder(
                 cfg.enc_img_size, dtype=encoder_dtype, device=self.device)
@@ -164,14 +169,28 @@ class Captioner(nn.Module):
         return self.encoder
 
     def depth_encoder_apply(
-            self) -> Optional[Callable[[torch.Tensor], torch.Tensor]]:
+            self, train: bool = False
+    ) -> Optional[Callable[[torch.Tensor], torch.Tensor]]:
         """standardized depth maps [B, 224, 224, 1] -> depth features: the
-        CNN's [B, K, 2048] (encoder dtype, on the BN running statistics) or
-        the MLP's [B, K, 32] f32 on the maps' 16x16 patches (it has no
-        batch statistics); None for kinds without depth."""
+        CNN's [B, K, 2048] (encoder dtype; on the BN running statistics,
+        or with ``train`` on the batch's, moving the running ones) or the
+        MLP's [B, K, 32] f32 on the maps' 16x16 patches (it has no batch
+        statistics); None for kinds without depth."""
         if self.spec.depth_encoder == "mlp":
             return lambda depth: self.depth_module(img_to_patch(depth))
+        if train and self.depth_module is not None:
+            return functools.partial(self.depth_module, train=True)
         return self.depth_module
+
+    def trainable_parameters(self) -> List[nn.Parameter]:
+        """The parameters training updates (the JAX ``params`` tree): the
+        decoder's, NIC's projection's, the depth encoder's."""
+        modules = [self.decoder]
+        if self.spec.is_nic:
+            modules.append(self.projection)
+        if self.depth_module is not None:
+            modules.append(self.depth_module)
+        return [p for m in modules for p in m.parameters()]
 
     def sample_apply(self, sampling: Optional[Dict] = None
                      ) -> Callable[..., torch.Tensor]:

@@ -23,6 +23,14 @@ context, the LSTM cell and the head. Encoder features may stay bf16 in
 device memory: the projection, the initial state, the kernels and the
 gather upcast them exactly, and all decoder arithmetic is f32. Concat
 fusion promotes bf16 RGB and f32 depth features to f32, as JAX does.
+
+Training runs ``forward``, the teacher-forced pass of the JAX module's
+``__call__``, on PyTorch ops under autograd: one Python loop over the
+caption's steps (no kernel; the JAX package runs it as one ``lax.scan`` of
+XLA ops), its dropout keep-masks and hard attention's Gumbel noise from a
+``torch.Generator`` or from the ``dropout_keep(t, shape)`` and
+``att_noise(t, shape)`` hooks, through which the tests replay the JAX
+package's draws.
 """
 
 from __future__ import annotations
@@ -35,10 +43,11 @@ import torch.nn as nn
 from depth_image_captioning_pub_torch.models.initializers import (
     torch_bias, torch_linear_kernel, uniform_pm)
 from depth_image_captioning_pub_torch.ops.attention import (
-    AttentionParams, gumbel_max_attention, project_features)
+    AttentionParams, gumbel_max_attention, gumbel_softmax_attention,
+    project_features, soft_attention)
 from depth_image_captioning_pub_torch.ops.decode import (
-    beam_search, filtered_logits, gumbel_argmax, gumbel_noise, log_softmax,
-    region_noise, tile_for_beams)
+    beam_search, dropout_masks, filtered_logits, gumbel_argmax, gumbel_noise,
+    log_softmax, region_noise, tile_for_beams)
 from depth_image_captioning_pub_torch.ops.kernels.beam_seq import (
     fused_beam_decode, select_best)
 from depth_image_captioning_pub_torch.ops.kernels.decode_seq import (
@@ -68,7 +77,8 @@ class AttentionDecoder(nn.Module):
     def __init__(self, vocab_size: int, dim_attention: int = 128,
                  dim_embedding: int = 128, dim_encoder: int = 2048,
                  dim_decoder: int = 128, fusion: str = "none", device=None,
-                 attention_kind: str = "soft", dim_depth: int = 32):
+                 attention_kind: str = "soft", dim_depth: int = 32,
+                 dropout: float = 0.5):
         super().__init__()
         if fusion not in FUSIONS:
             raise ValueError(f"unknown fusion {fusion!r}; one of {FUSIONS}")
@@ -78,6 +88,7 @@ class AttentionDecoder(nn.Module):
         self.vocab_size = vocab_size
         self.fusion = fusion
         self.attention_kind = attention_kind
+        self.dropout = dropout          # training only, on h before the head
         self.dim_embedding = dim_embedding
         self.dim_enc_eff = dim_encoder + (dim_depth if fusion == "concat"
                                           else 0)
@@ -152,17 +163,82 @@ class AttentionDecoder(nn.Module):
         return DecodeSeqWeights(step, self.out_w, self.out_b[None, :],
                                 self.embed)
 
-    def _tail(self, context: torch.Tensor, emb: torch.Tensor,
+    def _cell(self, context: torch.Tensor, emb: torch.Tensor,
               h: torch.Tensor, c: torch.Tensor
-              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """The step after the attention (JAX ``_step``): the f_beta gate on
-        the context, the LSTM cell on [emb | gate * context] and the vocab
-        head -> (h', c', logits)."""
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The f_beta gate on the context and the LSTM cell on [emb | gate
+        * context] -> (h', c')."""
         gate = torch.sigmoid(h @ self.f_beta_w + self.f_beta_b)
         lstm = LSTMCellParams(self.lstm_w_ih, self.lstm_w_hh, self.lstm_b_ih,
                               self.lstm_b_hh)
-        h, c = lstm_cell(lstm, torch.cat([emb, gate * context], dim=-1), h, c)
+        return lstm_cell(lstm, torch.cat([emb, gate * context], dim=-1), h, c)
+
+    def _tail(self, context: torch.Tensor, emb: torch.Tensor,
+              h: torch.Tensor, c: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The step after the attention (JAX ``_step``): ``_cell`` and the
+        vocab head -> (h', c', logits)."""
+        h, c = self._cell(context, emb, h, c)
         return h, c, h @ self.out_w + self.out_b
+
+    @full_f32()   # every f32 product, forward (and the caller's backward)
+    def forward(self, features: torch.Tensor, captions: torch.Tensor,
+                depth_features: Optional[torch.Tensor] = None, *,
+                train: bool = False, temp=1.0,
+                hard_eval_sampling: bool = False,
+                generator: Optional[torch.Generator] = None,
+                dropout_keep: Optional[AttNoise] = None,
+                att_noise: Optional[AttNoise] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Teacher forcing over the padded captions [B, L]: (logits [B, L-1,
+        V] f32, alphas [B, L-1, K] f32); step t reads captions[:, t] and
+        predicts captions[:, t+1] (the JAX module's ``__call__``).
+
+        The fused features are upcast to f32 once (exact; every step's
+        attention product reads that copy, which autograd saves once);
+        their projection and the initial state come from it. ``train``
+        turns on the training noise unless ``hard_eval_sampling`` (the JAX
+        flag of the hard validation pass) is set: dropout (rate
+        ``self.dropout``) on h before the head, with keep-masks
+        ``dropout_keep(t, [B, H])``, and hard attention's Gumbel-softmax at
+        temperature ``temp`` on ``att_noise(t, [B, K])``; without the
+        training noise hard attention takes the Gumbel-max region on the
+        same noise source. Hooks left None draw from ``generator``. The
+        vocab head runs once over all steps.
+        """
+        fused = self.fuse(features, depth_features)
+        feats = fused.to(torch.float32)
+        att = self.att_params()
+        proj = project_features(att, feats)
+        h, c = self.init_state(feats)
+        emb = self.embed[captions[:, :-1].long()]            # [B, L-1, E]
+        stochastic = train and not hard_eval_sampling
+        hard = self.attention_kind == "hard"
+        if hard and att_noise is None:
+            att_noise = region_noise(generator)
+        drop = stochastic and self.dropout > 0.0
+        if drop and dropout_keep is None:
+            dropout_keep = dropout_masks(generator, self.dropout)
+        bsz, k = feats.shape[:2]
+        outs, alphas = [], []
+        for t in range(emb.shape[1]):
+            if not hard:
+                ctx, alpha = soft_attention(att, feats, proj, h)
+            elif stochastic:
+                ctx, alpha = gumbel_softmax_attention(
+                    att, feats, proj, h, temp, att_noise(t, (bsz, k)))
+            else:
+                ctx, alpha = gumbel_max_attention(
+                    att, feats, proj, h, att_noise(t, (bsz, k)))
+            h, c = self._cell(ctx, emb[:, t], h, c)
+            out = h
+            if drop:
+                keep = dropout_keep(t, tuple(h.shape))
+                out = torch.where(keep, out / (1.0 - self.dropout), 0.0)
+            outs.append(out)
+            alphas.append(alpha)
+        logits = torch.stack(outs, 1) @ self.out_w + self.out_b
+        return logits, torch.stack(alphas, 1)
 
     def _prepare(self, features, depth_features):
         """(fused features, f32 projection, h0, c0)."""

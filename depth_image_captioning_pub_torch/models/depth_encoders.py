@@ -1,8 +1,13 @@
-"""Depth-map encoders (counterpart of the JAX ``models/depth_encoders.py``),
-at inference: ``DepthCNNEncoder`` (the ``depth-*`` kinds: BatchNorm on its
-running statistics, eps 1e-5, f32 math, convs in the compute dtype on
-channels_last tensors) and ``img_to_patch`` + ``DepthMLPEncoder`` (the
+"""Depth-map encoders (counterpart of the JAX ``models/depth_encoders.py``):
+``DepthCNNEncoder`` (the ``depth-*`` kinds: three convs in the compute
+dtype on channels_last tensors, each followed by a trainable BatchNorm
+with flax's semantics) and ``img_to_patch`` + ``DepthMLPEncoder`` (the
 ``mdepth-*`` kinds: a per-patch MLP in f32, no batch statistics).
+
+Parameters are float32, as the JAX module's (``param_dtype=float32``): the
+convs cast their weights to the compute dtype at the call, which rounds
+exactly as storing them in that dtype would, and AdamW updates the f32
+values.
 """
 
 from __future__ import annotations
@@ -13,10 +18,59 @@ import torch.nn.functional as F
 
 from depth_image_captioning_pub_torch.models.initializers import (
     torch_bias, torch_conv_kernel, torch_linear_kernel)
-from depth_image_captioning_pub_torch.models.resnet import FrozenBatchNorm2d
 from depth_image_captioning_pub_torch.ops.pooling import (
     adaptive_avg_pool2d, nchw, nhwc)
 from depth_image_captioning_pub_torch.ops.precision import full_f32
+
+
+class BatchNorm2d(nn.Module):
+    """flax's ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` over NCHW
+    tensors: f32 ``weight`` and ``bias`` parameters (flax's ``scale`` and
+    ``bias``), f32 ``running_mean`` and ``running_var`` buffers, output in
+    x's dtype.
+
+    ``train=False`` normalizes with the running statistics. ``train=True``
+    normalizes with the batch's statistics over (N, H, W), computed in f32
+    as flax does (``use_fast_variance``: E[x²] − E[x]², clipped at 0, the
+    biased variance), gradients flowing through them, and moves the
+    buffers to ``momentum * running + (1 - momentum) * batch``. Every row
+    counts, the batch's repeated pad rows too, as in the JAX step.
+    """
+
+    def __init__(self, channels: int, *, device=None, eps: float = 1e-5,
+                 momentum: float = 0.9):
+        super().__init__()
+        self.eps, self.momentum = eps, momentum
+        f32 = dict(dtype=torch.float32, device=device)
+        self.weight = nn.Parameter(torch.ones(channels, **f32))
+        self.bias = nn.Parameter(torch.zeros(channels, **f32))
+        self.register_buffer("running_mean", torch.zeros(channels, **f32))
+        self.register_buffer("running_var", torch.ones(channels, **f32))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """flax's BatchNorm init: scale 1, bias 0, mean 0, var 1."""
+        with torch.no_grad():
+            self.weight.fill_(1.0)
+            self.bias.fill_(0.0)
+            self.running_mean.fill_(0.0)
+            self.running_var.fill_(1.0)
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if not train:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, self.eps)
+        x32 = x.to(torch.float32)
+        axes = (0, 2, 3)
+        mean = x32.mean(axes)
+        var = torch.clamp((x32 * x32).mean(axes) - mean * mean, min=0.0)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+            self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        shape = (1, -1, 1, 1)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (x32 - mean.reshape(shape)) * mul.reshape(shape)
+        return (y + self.bias.reshape(shape)).to(x.dtype)
 
 
 class DepthCNNEncoder(nn.Module):
@@ -32,13 +86,13 @@ class DepthCNNEncoder(nn.Module):
                  device=None):
         super().__init__()
         self.enc_img_size, self.dtype = enc_img_size, dtype
-        kw = dict(dtype=dtype, device=device)
+        kw = dict(dtype=torch.float32, device=device)
         self.conv1 = nn.Conv2d(1, 128, 7, stride=3, **kw)
-        self.bn1 = FrozenBatchNorm2d(128, device=device)
+        self.bn1 = BatchNorm2d(128, device=device)
         self.conv2 = nn.Conv2d(128, 512, 3, **kw)
-        self.bn2 = FrozenBatchNorm2d(512, device=device)
+        self.bn2 = BatchNorm2d(512, device=device)
         self.conv3 = nn.Conv2d(512, 2048, 1, **kw)
-        self.bn3 = FrozenBatchNorm2d(2048, device=device)
+        self.bn3 = BatchNorm2d(2048, device=device)
         self.to(memory_format=torch.channels_last)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -52,12 +106,19 @@ class DepthCNNEncoder(nn.Module):
         for bn in (self.bn1, self.bn2, self.bn3):
             bn.reset_parameters(generator)
 
+    def _conv(self, conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+        return F.conv2d(x, conv.weight.to(self.dtype),
+                        conv.bias.to(self.dtype), conv.stride)
+
     @full_f32()   # f32 convs in full f32, not cuDNN's default TF32
-    def forward(self, depth: torch.Tensor) -> torch.Tensor:
+    def forward(self, depth: torch.Tensor, train: bool = False
+                ) -> torch.Tensor:
+        """``train`` normalizes with the batch's statistics and moves the
+        BNs' running statistics (``BatchNorm2d``)."""
         x = nchw(depth.to(self.dtype))
-        x = F.max_pool2d(F.relu(self.bn1(self.conv1(x))), 3)
-        x = F.max_pool2d(F.relu(self.bn2(self.conv2(x))), 3)
-        x = F.relu(self.bn3(self.conv3(x)))
+        for conv, bn in ((self.conv1, self.bn1), (self.conv2, self.bn2)):
+            x = F.max_pool2d(F.relu(bn(self._conv(conv, x), train)), 3)
+        x = F.relu(self.bn3(self._conv(self.conv3, x), train))
         x = adaptive_avg_pool2d(nhwc(x), self.enc_img_size)
         return x.reshape(x.shape[0], self.enc_img_size ** 2, x.shape[-1])
 

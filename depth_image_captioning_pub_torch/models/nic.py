@@ -10,7 +10,10 @@ the whole-sequence kernel of ``ops/kernels/nic_seq.py``
 search runs the generic search of ``ops/decode.py``, and stochastic
 sampling a loop of plain ops with its filters and draw. The image embedding
 takes the place of a token at step 0, so step 0 usually predicts <start>,
-which the detokenizer skips.
+which the detokenizer skips. Training runs ``forward``, the teacher-forced
+pass, on PyTorch ops under autograd (the JAX package's ``stacked_lstm``
+scan of XLA ops; no kernel), its output dropout from a ``torch.Generator``
+or a ``dropout_keep`` hook.
 """
 
 from __future__ import annotations
@@ -23,8 +26,8 @@ import torch.nn as nn
 from depth_image_captioning_pub_torch.models.initializers import (
     normal, torch_bias, torch_linear_kernel)
 from depth_image_captioning_pub_torch.ops.decode import (
-    beam_search, filtered_logits, gumbel_argmax, gumbel_noise, log_softmax,
-    tile_for_beams)
+    beam_search, dropout_masks, filtered_logits, gumbel_argmax, gumbel_noise,
+    log_softmax, tile_for_beams)
 from depth_image_captioning_pub_torch.ops.kernels.nic_seq import (
     NICSeqWeights, fused_nic_greedy_decode, pack_nic_weights)
 from depth_image_captioning_pub_torch.ops.precision import full_f32
@@ -36,9 +39,11 @@ class NICDecoder(nn.Module):
     """Stacked-LSTM decoder, float32 parameters."""
 
     def __init__(self, vocab_size: int, dim_embedding: int = 300,
-                 dim_hidden: int = 128, num_layers: int = 2, device=None):
+                 dim_hidden: int = 128, num_layers: int = 2, device=None,
+                 dropout: float = 0.1):
         super().__init__()
         self.vocab_size = vocab_size
+        self.dropout = dropout      # training only, on the LSTM outputs
         self.dim_hidden = dim_hidden
         self.num_layers = num_layers
         p, b = torch_linear_kernel, torch_bias
@@ -75,6 +80,36 @@ class NICDecoder(nn.Module):
     def seq_weights(self) -> NICSeqWeights:
         return pack_nic_weights(self.lstm(), self.out_w, self.out_b,
                                 self.embed)
+
+    @full_f32()   # every f32 product, forward (and the caller's backward)
+    def forward(self, features: torch.Tensor, captions: torch.Tensor, *,
+                train: bool = False,
+                generator: Optional[torch.Generator] = None,
+                dropout_keep: Optional[Callable] = None) -> torch.Tensor:
+        """Teacher forcing: logits [B, L, V] f32 for image embeddings [B,
+        E] and padded captions [B, L]. Step 0 reads the image embedding and
+        predicts captions[:, 0] (<start>); step t > 0 reads captions[:,
+        t-1] and predicts captions[:, t]. ``train`` drops out the top
+        layer's outputs (rate ``self.dropout``) with one keep-mask
+        ``dropout_keep(0, [B, L, H])``, drawn from ``generator`` when the
+        hook is None."""
+        emb = self.embed[captions[:, :-1].long()]
+        xs = torch.cat([features[:, None, :].to(emb.dtype), emb], dim=1)
+        bsz = xs.shape[0]
+        zeros = torch.zeros((self.num_layers, bsz, self.dim_hidden),
+                            dtype=torch.float32, device=xs.device)
+        hs, cs = zeros, zeros
+        lstm = self.lstm()
+        outs = []
+        for t in range(xs.shape[1]):
+            out, hs, cs = stacked_lstm_step(lstm, xs[:, t], hs, cs)
+            outs.append(out)
+        outs = torch.stack(outs, dim=1)
+        if train and self.dropout > 0.0:
+            keep = (dropout_keep or dropout_masks(generator, self.dropout))(
+                0, tuple(outs.shape))
+            outs = torch.where(keep, outs / (1.0 - self.dropout), 0.0)
+        return outs @ self.out_w + self.out_b
 
     @torch.no_grad()
     def greedy_sample(self, features: torch.Tensor, *,

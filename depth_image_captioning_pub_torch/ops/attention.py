@@ -1,7 +1,7 @@
 """Bahdanau grid attention as functions over explicit weight tensors
 (counterpart of the JAX ``ops/attention.py``): soft attention, and hard
-attention's Gumbel-max one-hot sample (eval and captioning; the
-Gumbel-softmax relaxation of training comes with the training slice).
+attention's Gumbel-softmax relaxation (training) and Gumbel-max one-hot
+sample (validation and captioning).
 
 The encoder-side projection is computed once per image by
 ``project_features``; each decode step pays only the decoder projection and
@@ -61,6 +61,24 @@ def soft_attention(p: AttentionParams, features: torch.Tensor,
     cd = compute_dtype or features.dtype
     logits = attention_logits(p, features_proj, hidden)
     alpha = torch.softmax(logits.to(torch.float32), dim=1).to(cd)
+    context = torch.bmm(alpha[:, None, :], features.to(cd))[:, 0, :]
+    return context, alpha
+
+
+def gumbel_softmax_attention(p: AttentionParams, features: torch.Tensor,
+                             features_proj: torch.Tensor,
+                             hidden: torch.Tensor, temp,
+                             noise: torch.Tensor,
+                             compute_dtype: Optional[torch.dtype] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Hard attention's training path: alpha = softmax((logits + noise) /
+    temp) over K in f32, and the context as in ``soft_attention``.
+    ``noise`` is [B, K] standard Gumbel; ``temp`` the scheduled
+    temperature (a float or a 0-d tensor)."""
+    cd = compute_dtype or features.dtype
+    logits = attention_logits(p, features_proj, hidden)
+    alpha = torch.softmax((logits.to(torch.float32) + noise) / temp,
+                          dim=1).to(cd)
     context = torch.bmm(alpha[:, None, :], features.to(cd))[:, 0, :]
     return context, alpha
 

@@ -100,6 +100,20 @@ def region_noise(generator: torch.Generator
     return lambda t, shape: gumbel_noise(shape, generator)
 
 
+def dropout_masks(generator: torch.Generator, rate: float
+                 ) -> Callable[[int, Sequence[int]], torch.Tensor]:
+    """Training dropout's keep-masks drawing from ``generator`` (on the
+    activations' device): ``keep(t, shape)`` -> bool of ``shape``, True
+    with probability 1 - ``rate``. The decoders take any such hook; the
+    tests replay the JAX package's ``bernoulli`` draws through one."""
+    if generator is None:
+        raise ValueError("training dropout needs a generator or a "
+                         "dropout_keep hook for its masks")
+    return lambda t, shape: torch.rand(
+        tuple(shape), generator=generator, device=generator.device,
+        dtype=torch.float32) < 1.0 - rate
+
+
 def gumbel_argmax(filt: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
     """The draw from softmax(filt): argmax(filt + noise) over the last dim,
     the lowest index on ties, as int32."""

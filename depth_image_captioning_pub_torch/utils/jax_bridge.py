@@ -114,6 +114,16 @@ def _check_keys(name: str, tree: Tree, allowed) -> None:
                        f"{sorted(extra)}")
 
 
+def encoder_from_jax(cap, enc_vars: Tree) -> None:
+    """Copy the flax frozen RGB encoder tree ``frozen["encoder"]`` (NIC:
+    the backbone's own ``{"params", "batch_stats"}``) into ``cap``."""
+    if cap.spec.is_nic:
+        _load(cap.backbone, flax_state_dict(enc_vars["params"],
+                                            enc_vars["batch_stats"]))
+    else:
+        _load(cap.encoder, encoder_state_dict(enc_vars))
+
+
 def params_from_jax(cap, trainable: Tree, frozen: Tree,
                     batch_stats: Optional[Tree] = None) -> None:
     """Copy the JAX package's (trainable, frozen, batch_stats) trees into
@@ -122,18 +132,15 @@ def params_from_jax(cap, trainable: Tree, frozen: Tree,
     ``dpt_params_from_jax``."""
     depth = cap.depth_module
     _check_keys("frozen", frozen, ("encoder", "dpt"))
+    encoder_from_jax(cap, frozen["encoder"])
     if cap.spec.is_nic:
         _check_keys("trainable", trainable, ("enc_linear", "decoder"))
-        enc = frozen["encoder"]
-        _load(cap.backbone, flax_state_dict(enc["params"],
-                                            enc["batch_stats"]))
         _load(cap.projection, flax_state_dict(trainable["enc_linear"]))
         _load(cap.decoder, dict(trainable["decoder"]))
         return
     _check_keys("trainable", trainable,
                 ("decoder",) + (("depth_encoder",) if depth is not None
                                 else ()))
-    _load(cap.encoder, encoder_state_dict(frozen["encoder"]))
     _load(cap.decoder, dict(trainable["decoder"]))
     if depth is not None:
         if cap.spec.depth_encoder == "mlp" and batch_stats:

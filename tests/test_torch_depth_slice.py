@@ -225,7 +225,9 @@ def test_cli_from_npz(vocab, trees, images, tmp_path, capsys):
     out = capsys.readouterr()
     assert "WARNING" not in out.err       # the DPT came from the file
     cap, depth_fn = _port(vocab, trees, dtype=torch.bfloat16)
-    assert cap.depth_module.conv1.weight.dtype == torch.bfloat16
+    # f32 parameters, as the JAX module's; the convs compute in bf16
+    assert cap.depth_module.conv1.weight.dtype == torch.float32
+    assert cap.depth_module.dtype == torch.bfloat16
     pipe = CaptionPipeline(cap, w2i, i2w, depth_fn=depth_fn,
                            max_length=MAX_LEN, batch_buckets=(4,),
                            image_hw=(HW, HW))

@@ -266,3 +266,29 @@ def test_new_modules_are_guarded():
         data = tomllib.load(f)["tool"]["setuptools"]["package-data"]
     assert "native/fastimage.cpp" in data[pkg]
     assert (REPO / pkg / "native" / "fastimage.cpp").is_file()
+
+
+def test_training_modules_are_guarded(tmp_path, monkeypatch):
+    """The training slice's modules are among the sources the import guard
+    and the Pillow rule walk; the trainer and its CLI train on the card
+    unless asked for the CPU, and look for no card to fall back from."""
+    from depth_image_captioning_pub_torch import training
+    from depth_image_captioning_pub_torch.engine import train
+    names = {p.relative_to(REPO).as_posix() for p in _port_sources()}
+    pkg = "depth_image_captioning_pub_torch"
+    assert {f"{pkg}/training.py", f"{pkg}/engine/train.py",
+            f"{pkg}/engine/steps.py", f"{pkg}/engine/losses.py",
+            f"{pkg}/engine/depth_cache.py", f"{pkg}/utils/logging.py",
+            f"{pkg}/data/synthetic.py"} <= names
+    assert inspect.signature(train.train).parameters["device"].default == \
+        "cuda"
+    assert training.build_parser().parse_args(["base", "nic"]).device == \
+        "cuda"
+    for module in (train, training):
+        assert "is_available" not in inspect.getsource(module)
+    if torch.cuda.is_available():
+        return
+    monkeypatch.chdir(tmp_path)     # the default config's output paths
+    with pytest.raises((RuntimeError, AssertionError)):
+        train.train("nic", 0, datasets=([], []), word_to_id={"a": 0},
+                    num_epochs=0, resnet_layers=(1, 1, 1, 1))
