@@ -6,8 +6,9 @@ base-soft checkpoint sets, the hard-attention and MLP-depth kinds
 (base-hard, mdepth-soft, depth-hard, mdepth-hard) greedy, by beam search
 and sampled, scored too, the serving surface: the HTTP caption server
 (greedy and sampled) and the caption CLI over PNG files with the DPT at
-224x224, and training (depth-soft, base-soft, nic, base-hard,
-mdepth-soft).
+224x224, training (depth-soft, base-soft, nic, base-hard, mdepth-soft),
+reference-layout weight files (torchvision, Omnidata, the reference's own
+``.pth`` sets) through every loader, and resumable training.
 
 Run from the root of a checkout, on a machine with one CUDA card (written
 for an NVIDIA H100):
@@ -220,8 +221,37 @@ the script exits non-zero:
    train-mdepth-soft (per-batch DPT depth: K5 12 a chunk): one epoch of 2
    steps (60 images) and validation each, finite losses, the best-val set
    read back and scored (K2, K3 or none).
+25. reference-weights: files in the reference's own layouts, written
+   from seeded port modules at full width with the script's inverses of
+   ``utils/torch_bridge``'s maps, under ``build/``: set 1 of base-soft
+   (phase 5's weights), depth-soft (the depth CNN's ``.pth`` with its BN
+   statistics) and nic (the encoder ``.pth`` bundling the projection) as
+   ``.pth`` state dicts only, torchvision's ResNet-152 state dict and the
+   Omnidata DPT-hybrid ``.ckpt`` of phase 7's DPT (``model.``-prefixed,
+   beside a pickled object). Read through ``cli.eval_depth_fn``
+   (``dpt_weights``), ``cli.load_eval_components`` + ``params_from_jax``,
+   ``cli.load_resnet_variables`` and ``utils.convert`` then
+   ``load_component`` / ``DPTDepthEstimator.load_weights``: loaded weights
+   bit-equal to the writers', 64 images' tokens (base-soft through K2,
+   depth-soft through K5 and K2, nic through K3) and depth maps
+   bit-identical to the writers', and the DPT's maps at ``--dpt-size 224
+   --gelu tanh --dpt-head lowres`` equal to the written weights' at those
+   knobs; K5 36, K2 2, K3 1 launches, no plain version; each file's MB and
+   read seconds, each load's seconds.
+26. train-resume: base-soft training at phase 20's settings (B=30, full
+   width) on 240 + 30 synthetic 224x224 JPEGs read through the config's
+   paths, 2 epochs: straight, with ``checkpoint_every=1`` (twice), straight
+   again, after a first straight run that is the reference and warms up;
+   preempted through ``preempt_event`` after batch 3 of epoch 1
+   and resumed; the training CLI (``--checkpoint-every 1``) in a child
+   process SIGTERM'd once its epoch-0 checkpoint is on disk, then run with
+   ``--resume``. Each run's CSV rows must equal the straight run's within
+   1e-5 relative (the largest difference printed, and whether the final
+   parameters and AdamW state are bit-equal); the checkpoint's MB, the
+   loop's blocking time in ``save`` and the writer thread's seconds, and
+   train images/s with and without checkpoints. No kernel launches.
 
-Each path (phases 5, 7, 9, 11-24: ``PATHS``) runs with every launch counter
+Each path (phases 5, 7, 9, 11-26: ``PATHS``) runs with every launch counter
 set to 0 just before it and read just after. The line before the last is a JSON
 object with the five ported kernels (K1 step, K2 greedy, K3 NIC greedy, K4
 beam, K5 ViT attention): launches per path, error, time beside the plain
@@ -281,7 +311,8 @@ PATHS = ("base-soft", "depth-soft", "nic", "base-soft-beam5",
          "mdepth-hard", "mdepth-hard-beam5", "score-base-hard",
          "score-mdepth-soft", "serve", "serve-sample",
          "caption-depth224-beam3", "train-depth-soft", "train-base-soft",
-         "train-nic", "train-base-hard", "train-mdepth-soft")
+         "train-nic", "train-base-hard", "train-mdepth-soft",
+         "reference-weights", "train-resume")
 TOP_P = 0.9          # the sampling path's nucleus
 SCORE_IMAGES, SCORE_SETS, SCORE_BATCH = 256, 3, 64
 SEED = 0             # the serving phases' request images
@@ -2382,6 +2413,20 @@ class Server:
         self.thread.join(timeout=60)
 
 
+def eval_cfg(root):
+    """``ConfigEval`` defaults with every path under ``root``."""
+    import os
+    from depth_image_captioning_pub_torch.config import ConfigEval
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        cfg = ConfigEval()
+    finally:
+        os.chdir(cwd)
+    cfg.max_length = MAX_LEN
+    return cfg
+
+
 def write_experiment(root, kind, cap, w2i):
     """``cap``'s weights as checkpoint set 1 of ``kind`` in the JAX
     trainer's files under ``root`` (the reference's working-directory
@@ -2390,17 +2435,11 @@ def write_experiment(root, kind, cap, w2i):
     import os
     import pickle
     from depth_image_captioning_pub_torch import cli
-    from depth_image_captioning_pub_torch.config import ConfigEval
     from depth_image_captioning_pub_torch.utils.checkpoint import (
         save_component)
     from depth_image_captioning_pub_torch.utils.jax_bridge import (
         params_to_jax)
-    cwd = os.getcwd()
-    os.chdir(root)
-    try:
-        cfg = ConfigEval()
-    finally:
-        os.chdir(cwd)
+    cfg = eval_cfg(root)
     os.makedirs(os.path.dirname(cfg.word_to_id_file), exist_ok=True)
     with open(cfg.word_to_id_file, "wb") as f:
         pickle.dump(w2i, f)
@@ -3390,6 +3429,721 @@ def phase_train(smi, est):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---- phase 25: reference weights ------------------------------------------
+
+REF_SEQ = {"conv1": "0", "bn1": "1", "layer1": "4", "layer2": "5",
+           "layer3": "6", "layer4": "7"}
+
+
+def _ref_t(a):
+    return np.ascontiguousarray(np.asarray(a, np.float32).T)
+
+
+def _ref_conv(a):
+    return np.ascontiguousarray(np.asarray(a, np.float32).transpose(3, 2, 0, 1))
+
+
+def _ref_bn(sd, dst, p, s):
+    sd[dst + ".weight"], sd[dst + ".bias"] = p["scale"], p["bias"]
+    sd[dst + ".running_mean"], sd[dst + ".running_var"] = s["mean"], s["var"]
+    sd[dst + ".num_batches_tracked"] = np.array(0, np.int64)
+
+
+def ref_resnet(variables, fc_classes=1000):
+    """The inverse of ``torch_bridge.resnet_to_flax``: a backbone's flax
+    ``{"params", "batch_stats"}`` -> torchvision's ResNet state dict
+    (``layerS.B.``, ``downsample.0/1``, with ``num_batches_tracked`` and a
+    zero ``fc`` head that the bridge skips)."""
+    p, s = variables["params"], variables["batch_stats"]
+    sd = {"conv1.weight": _ref_conv(p["conv1"]["kernel"])}
+    _ref_bn(sd, "bn1", p["bn1"], s["bn1"])
+    for name, blk in p.items():
+        if not name.startswith("layer"):
+            continue
+        stage, b = name[len("layer"):].split("_")
+        src = f"layer{stage}.{b}"
+        for ci in (1, 2, 3):
+            sd[f"{src}.conv{ci}.weight"] = _ref_conv(blk[f"conv{ci}"]["kernel"])
+            _ref_bn(sd, f"{src}.bn{ci}", blk[f"bn{ci}"], s[name][f"bn{ci}"])
+        if "ds_conv" in blk:
+            sd[f"{src}.downsample.0.weight"] = _ref_conv(
+                blk["ds_conv"]["kernel"])
+            _ref_bn(sd, f"{src}.downsample.1", blk["ds_bn"],
+                    s[name]["ds_bn"])
+    if fc_classes:
+        sd["fc.weight"] = np.zeros((fc_classes, 2048), np.float32)
+        sd["fc.bias"] = np.zeros((fc_classes,), np.float32)
+    return sd
+
+
+def ref_encoder(enc_variables):
+    """The inverse of ``torch_bridge.encoder_to_flax``: the grid encoder's
+    flax variables -> the reference's encoder ``.pth`` (the backbone as an
+    ``nn.Sequential``: ``backbone.0.``, ``backbone.4.0.``, ...)."""
+    sd = ref_resnet({"params": enc_variables["params"]["backbone"],
+                     "batch_stats": enc_variables["batch_stats"]["backbone"]},
+                    fc_classes=0)
+    out = {}
+    for k, v in sd.items():
+        head, rest = k.split(".", 1)
+        out[f"backbone.{REF_SEQ[head]}.{rest}"] = v
+    return out
+
+
+def ref_nic_encoder(backbone_variables, enc_linear):
+    """The reference NIC encoder ``.pth``: the Sequential backbone and its
+    ``linear`` projection in one file."""
+    sd = ref_encoder({"params": {"backbone": backbone_variables["params"]},
+                      "batch_stats": {
+                          "backbone": backbone_variables["batch_stats"]}})
+    sd["linear.weight"] = _ref_t(enc_linear["linear"]["kernel"])
+    sd["linear.bias"] = enc_linear["linear"]["bias"]
+    return sd
+
+
+REF_DECODER = (("embed", "embed.weight", False),
+               ("att_w_enc", "attention.encoder_att.weight", True),
+               ("att_b_enc", "attention.encoder_att.bias", False),
+               ("att_w_dec", "attention.decoder_att.weight", True),
+               ("att_b_dec", "attention.decoder_att.bias", False),
+               ("att_w_full", "attention.full_att.weight", True),
+               ("att_b_full", "attention.full_att.bias", False),
+               ("lstm_w_ih", "decode_step.weight_ih", True),
+               ("lstm_w_hh", "decode_step.weight_hh", True),
+               ("lstm_b_ih", "decode_step.bias_ih", False),
+               ("lstm_b_hh", "decode_step.bias_hh", False),
+               ("init_w", "init_linear.weight", True),
+               ("init_b", "init_linear.bias", False),
+               ("f_beta_w", "f_beta.weight", True),
+               ("f_beta_b", "f_beta.bias", False),
+               ("out_w", "linear.weight", True),
+               ("out_b", "linear.bias", False))
+
+
+def ref_decoder(params):
+    """The inverse of ``torch_bridge.attention_decoder_to_flax``."""
+    return {ref: (_ref_t(params[name]) if t else np.asarray(params[name]))
+            for name, ref, t in REF_DECODER}
+
+
+def ref_nic_decoder(params, num_layers=2):
+    """The inverse of ``torch_bridge.nic_decoder_to_flax``."""
+    sd = {"embed.weight": np.asarray(params["embed"]),
+          "linear.weight": _ref_t(params["out_w"]),
+          "linear.bias": np.asarray(params["out_b"])}
+    for li in range(num_layers):
+        for w in ("ih", "hh"):
+            sd[f"lstm.weight_{w}_l{li}"] = _ref_t(params[f"lstm{li}_w_{w}"])
+            sd[f"lstm.bias_{w}_l{li}"] = np.asarray(params[f"lstm{li}_b_{w}"])
+    return sd
+
+
+def ref_depth_cnn(params, stats):
+    """The inverse of ``torch_bridge.depth_cnn_to_flax``."""
+    sd = {}
+    for ci in (1, 2, 3):
+        sd[f"conv{ci}.weight"] = _ref_conv(params[f"conv{ci}"]["kernel"])
+        sd[f"conv{ci}.bias"] = params[f"conv{ci}"]["bias"]
+        _ref_bn(sd, f"bn{ci}", params[f"bn{ci}"], stats[f"bn{ci}"])
+    return sd
+
+
+def ref_depth_mlp(params):
+    """The inverse of ``torch_bridge.depth_mlp_to_flax``."""
+    sd = {}
+    for li in ("l1", "l2", "l3"):
+        sd[f"{li}.weight"] = _ref_t(params[li]["kernel"])
+        sd[f"{li}.bias"] = params[li]["bias"]
+    return sd
+
+
+def ref_dpt(params):
+    """The inverse of ``torch_bridge.dpt_to_flax``: the DPT's flax params ->
+    the Omnidata DPT-hybrid state dict (the ``model.`` prefix not added).
+    A model without ``refinenet4``'s first residual unit (the forward
+    never runs it) gets zeros of its second unit's shapes there, as a
+    checkpoint holds that unit."""
+    sd = {}
+
+    def lin(dst, t):
+        sd[dst + ".weight"], sd[dst + ".bias"] = _ref_t(t["kernel"]), t["bias"]
+
+    def conv(dst, t):
+        sd[dst + ".weight"] = _ref_conv(t["kernel"])
+        if "bias" in t:
+            sd[dst + ".bias"] = t["bias"]
+
+    def norm(dst, t):
+        t = t.get("gn", t)
+        sd[dst + ".weight"], sd[dst + ".bias"] = t["scale"], t["bias"]
+
+    pre = "pretrained.model."
+    rb = pre + "patch_embed.backbone."
+    res = params["resnet"]
+    conv(rb + "stem.conv", res["stem_conv"])
+    norm(rb + "stem.norm", res["stem_norm"])
+    for name, blk in res.items():
+        if not name.startswith("stage"):
+            continue
+        si, bi = name[len("stage"):].split("_")
+        src = f"{rb}stages.{si}.blocks.{bi}."
+        for ci in (1, 2, 3):
+            conv(src + f"conv{ci}", blk[f"conv{ci}"])
+            norm(src + f"norm{ci}", blk[f"norm{ci}"])
+        if "ds_conv" in blk:
+            conv(src + "downsample.conv", blk["ds_conv"])
+            norm(src + "downsample.norm", blk["ds_norm"])
+    conv(pre + "patch_embed.proj", params["patch_proj"])
+    sd[pre + "cls_token"] = params["cls_token"]
+    sd[pre + "pos_embed"] = params["pos_embed"]
+    for name, blk in params.items():
+        if not (name.startswith("block") and name[5:].isdigit()):
+            continue
+        src = f"{pre}blocks.{name[5:]}."
+        norm(src + "norm1", blk["norm1"])
+        lin(src + "attn.qkv", blk["qkv"])
+        lin(src + "attn.proj", blk["proj"])
+        norm(src + "norm2", blk["norm2"])
+        lin(src + "mlp.fc1", blk["fc1"])
+        lin(src + "mlp.fc2", blk["fc2"])
+    for i in (3, 4):
+        lin(f"pretrained.act_postprocess{i}.0.project.0",
+            params[f"pp{i}_readout"]["project"])
+        conv(f"pretrained.act_postprocess{i}.3", params[f"pp{i}_conv"])
+    conv("pretrained.act_postprocess4.4", params["pp4_down"])
+    for i in range(1, 5):
+        conv(f"scratch.layer{i}_rn", params[f"layer{i}_rn"])
+        blk = params[f"refinenet{i}"]
+        src = f"scratch.refinenet{i}."
+        conv(src + "out_conv", blk["out_conv"])
+        for unit in (1, 2):
+            res_unit = blk.get(f"res{unit}") or {
+                c: {k: np.zeros_like(v) for k, v in t.items()}
+                for c, t in blk["res2"].items()}
+            for c in ("conv1", "conv2"):
+                conv(f"{src}resConfUnit{unit}.{c}", res_unit[c])
+    for i, name in enumerate(("head_conv1", "head_conv2", "head_conv3")):
+        conv(f"scratch.output_conv.{2 * i}", params[name])
+    return sd
+
+
+# ---- phases 25 and 26 ------------------------------------------------------
+
+REF_IMAGES = 64            # phase 25's captioned images: one chunk
+
+
+def _flat_equal(got, want):
+    """Two flax trees hold the same leaves, bit for bit."""
+    from depth_image_captioning_pub_torch.utils.jax_bridge import (
+        flatten_tree)
+    fg, fw = flatten_tree(got), flatten_tree(want)
+    return set(fg) == set(fw) and all(
+        np.asarray(fg[k]).dtype == np.asarray(fw[k]).dtype
+        and np.array_equal(fg[k], fw[k]) for k in fw)
+
+
+def write_reference_files(root, writers, est):
+    """Phase 25's files from seeded port modules: a reference set per
+    captioner of ``writers`` (set 1 of ``eval_tables``' layout, ``.pth``
+    state dicts only), torchvision's ResNet-152 (base-soft's backbone) and
+    the Omnidata DPT-hybrid ``.ckpt`` (``est``'s DPT, with a pickled object
+    beside its state dict, as a Lightning checkpoint has). Returns
+    (ConfigEval, {kind: (save_dir, files)}, torchvision path, DPT path,
+    {file: bytes})."""
+    import argparse
+    import os
+    import torch
+    from depth_image_captioning_pub_torch import cli
+    from depth_image_captioning_pub_torch.utils.jax_bridge import (
+        flax_trees, params_to_jax)
+    cfg = eval_cfg(root)
+    sizes = {}
+
+    def save(path, sd, wrap=lambda sd: sd):
+        torch.save(wrap({k: torch.from_numpy(np.ascontiguousarray(v))
+                         for k, v in sd.items()}), path)
+        sizes[path] = os.path.getsize(path)
+
+    tables = {}
+    for kind, cap in writers.items():
+        trainable, frozen, stats = params_to_jax(cap)
+        if kind == "nic":
+            save_dir, files = cfg.save_directory_nic, \
+                cfg.nic_parameter_files[1]
+            sds = [ref_nic_encoder(frozen["encoder"], trainable["enc_linear"]),
+                   ref_nic_decoder(trainable["decoder"])]
+        else:
+            save_dir, table = cli.eval_tables(cfg, "soft", False,
+                                              kind == "depth-soft")
+            files = table[1]
+            sds = [ref_encoder(frozen["encoder"]),
+                   ref_decoder(trainable["decoder"])]
+            if kind == "depth-soft":
+                sds.append(ref_depth_cnn(trainable["depth_encoder"], stats))
+        os.makedirs(save_dir, exist_ok=True)
+        for name, sd in zip(files, sds):
+            save(os.path.join(save_dir, name), sd)
+        tables[kind] = (save_dir, files)
+    enc = params_to_jax(writers["base-soft"])[1]["encoder"]
+    tv = os.path.join(root, "resnet152-torchvision.pth")
+    save(tv, ref_resnet({"params": enc["params"]["backbone"],
+                         "batch_stats": enc["batch_stats"]["backbone"]}))
+    ckpt = os.path.join(root, "omnidata_dpt_hybrid.ckpt")
+    save(ckpt, ref_dpt(flax_trees(est.model)[0]), wrap=lambda sd: {
+        "state_dict": {"model." + k: v for k, v in sd.items()},
+        "epoch": 0,
+        "hyper_parameters": argparse.Namespace(backbone="vitb_rn50_384")})
+    return cfg, tables, tv, ckpt, sizes
+
+
+def phase_reference_weights(smi, base_cap, est):
+    """Phase 25: reference-layout files at full width through the port's
+    entry points, to bit-identical captions and depth maps."""
+    import os
+    import shutil
+    import tempfile
+    from pathlib import Path
+    import torch
+    from depth_image_captioning_pub_torch import cli
+    from depth_image_captioning_pub_torch.cli import placeholder_vocab
+    from depth_image_captioning_pub_torch.models.captioner import (
+        build_captioner)
+    from depth_image_captioning_pub_torch.models.dpt import DPTDepthEstimator
+    from depth_image_captioning_pub_torch.pipeline import CaptionPipeline
+    from depth_image_captioning_pub_torch.utils import convert
+    from depth_image_captioning_pub_torch.utils import torch_bridge as tb
+    from depth_image_captioning_pub_torch.utils.checkpoint import (
+        load_component)
+    from depth_image_captioning_pub_torch.utils.jax_bridge import (
+        dpt_params_from_jax, flax_trees, params_from_jax, params_to_jax)
+    tag = "reference-weights"
+    dev = torch.device("cuda")
+    w2i, i2w = placeholder_vocab(VOCAB)
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=build, prefix="reference_")
+    try:
+        writers = {"base-soft": base_cap}
+        for kind, seed in (("depth-soft", 2), ("nic", 3)):
+            writers[kind] = build_captioner(kind, VOCAB, device=dev)
+            writers[kind].init(torch.Generator().manual_seed(seed))
+        t0 = time.perf_counter()
+        cfg, tables, tv, ckpt, sizes = write_reference_files(
+            tmp, writers, est)
+        log(tag, f"wrote {len(sizes)} reference-layout files "
+            f"({sum(sizes.values()) / 1e6:.1f} MB) in "
+            f"{time.perf_counter() - t0:.1f} s")
+        for path, size in sizes.items():
+            t0 = time.perf_counter()
+            tb.load_state_dict(path)
+            log(tag, f"{os.path.relpath(path, tmp)}: {size / 1e6:.1f} MB, "
+                f"read by torch_bridge.load_state_dict in "
+                f"{time.perf_counter() - t0:.2f} s (host clock)")
+
+        images = np.random.default_rng(25).integers(
+            0, 256, (REF_IMAGES, 224, 224, 3), dtype=np.uint8)
+        x = torch.from_numpy(images).to(dev)
+
+        def pipeline(cap, depth_fn=None):
+            return CaptionPipeline(
+                cap, w2i, i2w, depth_fn=depth_fn if cap.spec.uses_depth
+                else None, max_length=MAX_LEN, batch_buckets=(REF_IMAGES,))
+
+        want = {k: pipeline(c, est.depth_fn()).caption_tokens(images)
+                for k, c in writers.items()}
+        # the same weights at the DPT's knobs: 224x224 input (position
+        # embeddings resized 24 -> 14), tanh GELU, the low-resolution head
+        knobs = eval_cfg(tmp)
+        knobs.dpt_image_size, knobs.dpt_gelu, knobs.dpt_head = (
+            224, "tanh", "lowres")
+        writer224 = DPTDepthEstimator(device=dev, image_size=224,
+                                      gelu="tanh", head="lowres")
+        dpt_params_from_jax(writer224, {"params": flax_trees(est.model)[0]})
+        with torch.inference_mode():
+            want_depth = est.depth_fn()(x).cpu()
+            want_knobs = writer224.depth_fn()(x).cpu()
+        del writer224
+
+        def run():
+            got, secs = {}, {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cfg.dpt_weights = knobs.dpt_weights = ckpt
+            depth_fn = cli.eval_depth_fn(cfg, dev)
+            torch.cuda.synchronize()
+            secs["DPT .ckpt (eval_depth_fn)"] = time.perf_counter() - t0
+            with torch.inference_mode():
+                got["depth"] = depth_fn(x).cpu()
+                got["knobs"] = cli.eval_depth_fn(knobs, dev)(x).cpu()
+            for kind in writers:
+                cap = build_captioner(kind, VOCAB, device=dev)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                enc, params, stats = cli.load_eval_components(*tables[kind],
+                                                              cap)
+                params_from_jax(cap, params, {"encoder": enc}, stats)
+                torch.cuda.synchronize()
+                secs[f"{kind} set (load_eval_components + "
+                     f"params_from_jax)"] = time.perf_counter() - t0
+                got[f"{kind} weights"] = cap
+                got[kind] = pipeline(cap, depth_fn).caption_tokens(images)
+            return got, secs
+
+        (got, secs), launches = counted(tag, run)
+        want_launches = dict.fromkeys(launches, 0)
+        want_launches.update(vit_attention=3 * DPT_BLOCKS, decode_seq=2,
+                             nic_seq=1)
+        if launches != want_launches:
+            raise RuntimeError(f"{tag} launches {launches}, expected "
+                               f"{want_launches}")
+        for kind, cap in writers.items():
+            sd_w, sd_g = cap.state_dict(), got[f"{kind} weights"].state_dict()
+            if list(sd_w) != list(sd_g) or not all(
+                    torch.equal(sd_w[k], sd_g[k]) for k in sd_w):
+                raise RuntimeError(f"{tag}: {kind}'s loaded weights differ "
+                                   f"from the writer's")
+            same = np.array_equal(got[kind], want[kind])
+            log(tag, f"{kind}: {REF_IMAGES} images from the .pth set: "
+                f"tokens {'bit-identical' if same else 'DIFFER'} to the "
+                f"writer's ({len(set(map(tuple, want[kind])))} distinct "
+                f"captions); weights bit-equal")
+            if not same:
+                raise RuntimeError(f"{tag}: {kind} tokens differ")
+        if not torch.equal(got["depth"], want_depth):
+            raise RuntimeError(f"{tag}: depth maps of the .ckpt differ, max "
+                               f"{(got['depth'] - want_depth).abs().max()}")
+        if not torch.equal(got["knobs"], want_knobs):
+            raise RuntimeError(f"{tag}: depth maps of the .ckpt at 224x224, "
+                               f"tanh, lowres differ, max "
+                               f"{(got['knobs'] - want_knobs).abs().max()}")
+        log(tag, f"depth maps from the Omnidata .ckpt: bit-identical to the "
+            f"writer's DPT ({tuple(want_depth.shape)}), and at --dpt-size "
+            f"224 --gelu tanh --dpt-head lowres to the writer's weights at "
+            f"those knobs; launches {launches} (K5 {DPT_BLOCKS} for each "
+            f"map set + {DPT_BLOCKS} for depth-soft, K2 base-soft + "
+            f"depth-soft, K3 nic); plain calls 0")
+        for name, s in secs.items():
+            log(tag, f"load {name}: {s:.2f} s to weights on the card "
+                f"(host clock) [{smi}]")
+
+        # torchvision ResNet-152 for training, and utils.convert's files
+        enc = params_to_jax(base_cap)[1]["encoder"]
+        t0 = time.perf_counter()
+        tree = cli.load_resnet_variables(tv)
+        dt = time.perf_counter() - t0
+        nic_tree = cli.load_resnet_variables(tv, nic=True)
+        if not (_flat_equal(tree, enc) and _flat_equal(nic_tree, {
+                "params": enc["params"]["backbone"],
+                "batch_stats": enc["batch_stats"]["backbone"]})):
+            raise RuntimeError(f"{tag}: load_resnet_variables differs from "
+                               f"the backbone that wrote the file")
+        log(tag, f"torchvision ResNet-152 .pth ({sizes[tv] / 1e6:.1f} MB) "
+            f"through load_resnet_variables: {dt:.2f} s, bit-equal to "
+            f"base-soft's encoder (and NIC's backbone tree) [{smi}]")
+        sets = {k: [os.path.join(d, f) for f in files]
+                for k, (d, files) in tables.items()}
+        for kind, src, bridge in (
+                ("resnet152", tv, lambda sd: tb.encoder_to_flax(sd)),
+                ("dpt", ckpt, lambda sd: tb.dpt_to_flax(sd)),
+                ("decoder", sets["base-soft"][1],
+                 tb.attention_decoder_to_flax),
+                ("nic-decoder", sets["nic"][1], tb.nic_decoder_to_flax),
+                ("depth-cnn", sets["depth-soft"][2], tb.depth_cnn_to_flax)):
+            out = os.path.join(tmp, f"{kind}.msgpack")
+            t0 = time.perf_counter()
+            convert.main(["--kind", kind, "--src", src, "--out", out])
+            t_convert = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            tree = load_component(out)
+            t_load = time.perf_counter() - t0
+            if not _flat_equal(tree, bridge(tb.load_state_dict(src))):
+                raise RuntimeError(f"{tag}: utils.convert --kind {kind}'s "
+                                   f"file reads back different leaves")
+            log(tag, f"utils.convert --kind {kind}: {t_convert:.2f} s; "
+                f"{os.path.getsize(out) / 1e6:.1f} MB msgpack read back in "
+                f"{t_load:.2f} s, leaves equal to the bridge's [{smi}]")
+            if kind == "dpt":
+                t0 = time.perf_counter()
+                est2 = DPTDepthEstimator(device=dev)
+                est2.load_weights(out)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                with torch.inference_mode():
+                    maps = est2.depth_fn()(x).cpu()
+                if not torch.equal(maps, want_depth):
+                    raise RuntimeError(f"{tag}: the DPT msgpack's depth "
+                                       f"maps differ")
+                log(tag, f"DPT from the converted msgpack: {dt:.2f} s to "
+                    f"the card, depth maps bit-identical")
+                del est2
+        del got
+        torch.cuda.empty_cache()
+        return {tag: launches}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+RESUME_IMAGES, RESUME_VAL = 240, 30   # 8 steps an epoch at B=30
+RESUME_PREEMPT = 3                    # the event's step in epoch 1
+RESUME_RTOL = 1e-5
+
+
+def _csv_rows(save_dir):
+    rows = {}
+    for split in ("train", "val"):
+        path = f"{save_dir}/base_soft_{split}_loss_coco0.csv"
+        with open(path) as f:
+            rows[split] = [line.split(", ") for line in f.read().splitlines()]
+    return rows
+
+
+def _rows_rel(got, want):
+    """Largest relative difference of two runs' CSV losses; raises when
+    the epochs differ."""
+    worst = 0.0
+    for split in want:
+        if [r[0] for r in got[split]] != [r[0] for r in want[split]]:
+            raise RuntimeError(f"CSV epochs {got[split]} vs {want[split]}")
+        for (_, g), (_, w) in zip(got[split], want[split]):
+            worst = max(worst, abs(float(g) - float(w)) / abs(float(w)))
+    return worst
+
+
+def _state_diff(got, want):
+    """(largest difference of the trainable modules' tensors relative to
+    each tensor's max |w|, whether the AdamW states are bit-equal) of two
+    train checkpoints. AdamW's moments of gradients that are rounding
+    noise (zero by symmetry) are not compared relatively."""
+    import torch
+    worst = 0.0
+    for name, sd in want["modules"].items():
+        for k, w in sd.items():
+            g = got["modules"][name][k]
+            if w.is_floating_point():
+                scale = max(w.abs().max().item(), 1e-30)
+                worst = max(worst, (g - w).abs().max().item() / scale)
+    same_opt = all(
+        torch.equal(got["optimizer"]["state"][i][k], v)
+        for i, s in want["optimizer"]["state"].items() for k, v in s.items())
+    return worst, same_opt
+
+
+def write_resume_data(root):
+    """A synthetic COCO of 224x224 JPEGs under ``root/dataset/coco2014``
+    (``RESUME_IMAGES`` train, ``RESUME_VAL`` val) with phase 20's
+    vocabulary."""
+    import os
+    import pickle
+    from depth_image_captioning_pub_torch.data.synthetic import (
+        make_synthetic_coco)
+    base = os.path.join(root, "dataset", "coco2014")
+    make_synthetic_coco(base, RESUME_IMAGES, (224, 224), seed=31)
+    make_synthetic_coco(base, RESUME_VAL, (224, 224), seed=32,
+                        split="val2014")
+    w2i, i2w = train_vocab()
+    for name, table in (("word_to_id.pkl", w2i), ("id_to_word.pkl", i2w)):
+        with open(os.path.join(base, name), "wb") as f:
+            pickle.dump(table, f)
+
+
+def phase_resume(smi):
+    """Phase 26: base-soft training at phase 20's settings, straight, with
+    checkpoints, preempted and resumed in process and through a SIGTERM
+    to the training CLI."""
+    import os
+    import shutil
+    import signal
+    import subprocess
+    import tempfile
+    import threading
+    from pathlib import Path
+    import torch
+    from depth_image_captioning_pub_torch.engine import train as tr
+    from depth_image_captioning_pub_torch.utils.checkpoint import (
+        TrainCheckpointer)
+    tag = "train-resume"
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=build, prefix="resume_")
+    children = []
+    times = {"save": [], "write": []}
+    real = {"save": TrainCheckpointer.save, "write": TrainCheckpointer._write}
+
+    def timed(name):
+        def fn(self, step, state):
+            t0 = time.perf_counter()
+            real[name](self, step, state)
+            times[name].append(time.perf_counter() - t0)
+        return fn
+    try:
+        t0 = time.perf_counter()
+        write_resume_data(os.path.join(tmp, "data"))
+        log(tag, f"{RESUME_IMAGES} + {RESUME_VAL} synthetic 224x224 JPEGs "
+            f"written in {time.perf_counter() - t0:.1f} s")
+
+        def rundir(name):
+            d = os.path.join(tmp, name)
+            os.makedirs(d)
+            os.symlink(os.path.join(tmp, "data", "dataset"),
+                       os.path.join(d, "dataset"))
+            return d
+
+        def save_dir(d):
+            return os.path.join(d, "exp_result", "base_soft")
+
+        def ckpt_file(d, step):
+            return os.path.join(save_dir(d), "full_state_base_soft_coco0",
+                                f"state_{step}.pt")
+
+        def run(name, **kw):
+            d = rundir(name)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = tr.train("base-soft", 0, cfg=train_cfg(d), num_epochs=2,
+                           quiet=True, device=torch.device("cuda"), **kw)
+            torch.cuda.synchronize()
+            out["wall"] = time.perf_counter() - t0
+            return d, out
+
+        def execute():
+            # the reference run (it also warms up), then checkpointing off
+            # and on in turns: off, on, on, off
+            runs = {"straight": run("straight"), "off": run("off")}
+            TrainCheckpointer.save = timed("save")
+            TrainCheckpointer._write = timed("write")
+            try:
+                runs["ckpt"] = run("ckpt", checkpoint_every=1)
+                runs["ckpt2"] = run("ckpt2", checkpoint_every=1)
+            finally:
+                TrainCheckpointer.save = real["save"]
+                TrainCheckpointer._write = real["write"]
+            runs["off2"] = run("off2")
+
+            event, steps = threading.Event(), []
+            real_step = tr.attention_train_step
+
+            def step(*args, **kwargs):
+                out = real_step(*args, **kwargs)
+                steps.append(1)
+                if len(steps) == RESUME_IMAGES // 30 + RESUME_PREEMPT:
+                    event.set()
+                return out
+            tr.attention_train_step = step
+            try:
+                d, out = run("event", checkpoint_every=1,
+                             preempt_event=event)
+            finally:
+                tr.attention_train_step = real_step
+            state = torch.load(ckpt_file(d, 1), weights_only=True)
+            if out.get("preempted") != 1.0 or not state["mid_epoch"] or \
+                    state["batches_done"] != RESUME_PREEMPT:
+                raise RuntimeError(f"{tag}: the event did not preempt at "
+                                   f"batch {RESUME_PREEMPT}: {out}")
+            del state
+            t0 = time.perf_counter()
+            out = tr.train("base-soft", 0, cfg=train_cfg(d), num_epochs=2,
+                           quiet=True, device=torch.device("cuda"),
+                           checkpoint_every=1, resume=True)
+            out["wall"] = time.perf_counter() - t0
+            runs["event"] = (d, out)
+            return runs
+
+        runs, launches = counted(tag, execute)
+        if any(launches.values()):
+            raise RuntimeError(f"{tag} launched kernels {launches}")
+
+        # the training CLI, SIGTERM'd once its epoch-0 checkpoint is written
+        child_dir = rundir("sigterm")
+        cmd = [sys.executable, "-m", "depth_image_captioning_pub_torch."
+               "training", "base", "soft", "coco", "--epochs", "2",
+               "--exp-time", "1", "--checkpoint-every", "1"]
+        repo = str(Path(__file__).resolve().parent)
+        env = dict(os.environ, PYTHONPATH=repo + os.pathsep
+                   + os.environ.get("PYTHONPATH", ""))
+        t0 = time.perf_counter()
+        child = subprocess.Popen(cmd, cwd=child_dir, env=env, text=True,
+                                 stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE)
+        children.append(child)
+        first = ckpt_file(child_dir, 0)
+        while not os.path.exists(first) and child.poll() is None:
+            if time.perf_counter() - t0 > 600:
+                raise RuntimeError(f"{tag}: no epoch-0 checkpoint in 600 s")
+            time.sleep(0.005)
+        child.send_signal(signal.SIGTERM)
+        out, err = child.communicate(timeout=600)
+        t_child = time.perf_counter() - t0
+        if child.returncode != 0 or "preempted: checkpoint saved" not in out:
+            raise RuntimeError(f"{tag}: SIGTERM'd child exit "
+                               f"{child.returncode}: {out[-2000:]} "
+                               f"{err[-2000:]}")
+        where = out.split("preempted: checkpoint saved at ")[1].split("\n")[0]
+        t0 = time.perf_counter()
+        child = subprocess.Popen(cmd + ["--resume"], cwd=child_dir, env=env,
+                                 text=True, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE)
+        children.append(child)
+        out, err = child.communicate(timeout=600)
+        t_resume = time.perf_counter() - t0
+        if child.returncode != 0 or "resumed" not in out:
+            raise RuntimeError(f"{tag}: resumed child exit "
+                               f"{child.returncode}: {out[-2000:]} "
+                               f"{err[-2000:]}")
+        log(tag, f"training CLI (--checkpoint-every 1) SIGTERM'd after its "
+            f"epoch-0 checkpoint: exit 0 in {t_child:.1f} s, saved at "
+            f"{where}; --resume exit 0 in {t_resume:.1f} s (processes "
+            f"included)")
+
+        want_rows = _csv_rows(save_dir(runs["straight"][0]))
+        want_state = torch.load(ckpt_file(runs["ckpt"][0], 1),
+                                weights_only=True)
+        for name, d in (("straight run repeated", runs["off2"][0]),
+                        ("checkpointed run", runs["ckpt"][0]),
+                        ("preempt_event mid-epoch + resume",
+                         runs["event"][0]),
+                        ("SIGTERM'd CLI + --resume", child_dir)):
+            rel = _rows_rel(_csv_rows(save_dir(d)), want_rows)
+            line = (f"{name}: CSV rows "
+                    f"{'bit-equal' if rel == 0 else f'max rel {rel:.3e}'} "
+                    f"to the straight run's")
+            if os.path.exists(ckpt_file(d, 1)) and d != runs["ckpt"][0]:
+                srel, same_opt = _state_diff(torch.load(
+                    ckpt_file(d, 1), weights_only=True), want_state)
+                line += (f"; final parameters and BN statistics "
+                         f"{'bit-equal' if srel == 0 else f'max rel {srel:.3e}'}"
+                         f", AdamW state "
+                         f"{'bit-equal' if same_opt else 'not bit-equal'}, "
+                         f"to the checkpointed run's")
+            log(tag, line)
+            if rel > RESUME_RTOL:
+                raise RuntimeError(f"{tag}: {name} CSV rows differ by "
+                                   f"{rel} (> {RESUME_RTOL})")
+        ckpt_bytes = os.path.getsize(ckpt_file(runs["ckpt"][0], 1))
+        log(tag, f"one checkpoint: {ckpt_bytes / 1e6:.1f} MB; the loop "
+            f"blocked in save (host copy) "
+            f"{', '.join(f'{t:.3f}' for t in times['save'])} s; the "
+            f"writer thread's torch.save + rename "
+            f"{', '.join(f'{t:.3f}' for t in times['write'])} s (host "
+            f"clock) [{smi}]")
+        for name in ("straight", "off", "ckpt", "ckpt2", "off2"):
+            out = runs[name][1]
+            last = RESUME_IMAGES / out["epoch_train_seconds"][-1]
+            log(tag, f"{name} (checkpoints "
+                f"{'every epoch' if name.startswith('ckpt') else 'off'}): "
+                f"{last:.1f} train images/s in epoch 1 "
+                f"({out['train_rows'] / out['train_seconds']:.1f} over both "
+                f"epochs), train() {out['wall']:.2f} s (host clock) [{smi}]")
+        return {tag: launches}
+    finally:
+        TrainCheckpointer.save = real["save"]
+        TrainCheckpointer._write = real["write"]
+        for child in children:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 class _Rows:
     """Rows ``rows`` of an in-memory captions set, as a dataset."""
 
@@ -3431,6 +4185,8 @@ def main():
     by_path.update(phase_serve(smi, base_cap))
     by_path.update(phase_caption_depth224(smi, vit))
     by_path.update(phase_train(smi, est))
+    by_path.update(phase_reference_weights(smi, base_cap, est))
+    by_path.update(phase_resume(smi))
     if tuple(by_path) != PATHS:
         raise RuntimeError(f"paths run {tuple(by_path)}, expected {PATHS}")
     kernels = [step, seq, nic_k, beam_k, vit]

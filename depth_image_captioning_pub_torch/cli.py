@@ -64,11 +64,14 @@ def _ints(text: str) -> Tuple[int, ...]:
 def make_depth_fn(dpt_variables=None, *, cfg=None, tiny: bool = False,
                   device="cuda", seed: int = 0,
                   hint: str = "pass DPT weights under frozen/dpt of "
-                              "--weights"):
+                              "--weights, or set $DPT_WEIGHTS"):
     """The bf16 DPT's standardized-depth function (counterpart of the JAX
     ``cli.make_depth_fn``). ``dpt_variables`` is the flax DPT tree
-    ({"params": ...}); without it the weights are drawn from ``seed``, with
-    the JAX CLI's warning (``hint`` says where weights would come from).
+    ({"params": ...}); without it the weights come from the file that
+    ``cfg.dpt_weights`` or $DPT_WEIGHTS names (an Omnidata ``.ckpt``, or
+    ``utils.convert``'s ``.msgpack``: ``DPTDepthEstimator.load_weights``)
+    and, without an existing file, are drawn from ``seed``, with the JAX
+    CLI's warning (``hint`` says where weights would come from).
     ``cfg`` (a ``ConfigEval``, default values without it) gives the DPT's
     input side ``dpt_image_size``, its GELU ``dpt_gelu`` ("erf" or "tanh")
     and its head ``dpt_head`` ("full" or "lowres"); another GELU or head
@@ -83,8 +86,11 @@ def make_depth_fn(dpt_variables=None, *, cfg=None, tiny: bool = False,
     if tiny:
         kw.update(TINY_DPT, image_size=64)
     est = DPTDepthEstimator(device=device, **kw)
+    weights = cfg.dpt_weights or os.environ.get("DPT_WEIGHTS")
     if dpt_variables is not None:
         dpt_params_from_jax(est, dpt_variables)
+    elif weights and os.path.exists(weights):
+        est.load_weights(weights)
     else:
         print(f"WARNING: no DPT weights found ({hint}); using random init "
               f"— depth maps will be noise", file=sys.stderr)
@@ -100,19 +106,45 @@ def resnet_layers_from_env() -> Optional[Tuple[int, ...]]:
 
 
 def eval_depth_fn(cfg, device="cuda"):
-    """The DPT of a scored depth evaluation, at ``cfg``'s ``dpt_image_size``,
-    ``dpt_gelu`` and ``dpt_head``: the Omnidata weights of
-    ``cfg.dpt_weights`` / $DPT_WEIGHTS are not readable yet, so without
-    them the DPT is drawn from seed 0 with the JAX warning;
-    $DCAP_TINY_DPT builds the tests' DPT."""
-    weights = cfg.dpt_weights or os.environ.get("DPT_WEIGHTS")
-    if weights and os.path.exists(weights):
-        raise NotImplementedError(
-            f"DPT weights {weights}: the Omnidata checkpoint loader is not "
-            f"yet ported (ROADMAP.md, Queue A item 3)")
+    """The DPT of a scored depth evaluation, of the serving entry points and
+    of training, at ``cfg``'s ``dpt_image_size``, ``dpt_gelu`` and
+    ``dpt_head``, on the weights of ``cfg.dpt_weights`` / $DPT_WEIGHTS
+    (``make_depth_fn``); $DCAP_TINY_DPT builds the tests' DPT."""
     return make_depth_fn(cfg=cfg, tiny=bool(os.environ.get("DCAP_TINY_DPT")),
                          device=device,
                          hint="set --dpt-weights or $DPT_WEIGHTS")
+
+
+def load_resnet_variables(path: Optional[str], nic: bool = False,
+                          layers: Optional[Tuple[int, ...]] = None):
+    """The frozen encoder's flax tree for training (counterpart of the JAX
+    ``cli.load_resnet_variables``): from ``path`` or $RESNET152_WEIGHTS,
+    a torchvision ResNet ``.pth`` (IMAGENET1K_V2; through
+    ``torch_bridge.encoder_to_flax`` with the backbone's ``layers``,
+    default ResNet-152) or an encoder msgpack file (a trainer's
+    ``*_encoder_best_*.pth.msgpack``, or ``utils.convert --kind
+    resnet152``'s). None, with a warning, without a file. NIC takes the
+    backbone's own ``{"params", "batch_stats"}``."""
+    from depth_image_captioning_pub_torch.models.resnet import (
+        RESNET152_LAYERS)
+    from depth_image_captioning_pub_torch.utils import torch_bridge as tb
+    from depth_image_captioning_pub_torch.utils.checkpoint import (
+        load_component)
+    path = path or os.environ.get("RESNET152_WEIGHTS")
+    if not path or not os.path.exists(path):
+        print("WARNING: no ResNet-152 weights (set --resnet-weights or "
+              "$RESNET152_WEIGHTS); encoder uses random init",
+              file=sys.stderr)
+        return None
+    if path.endswith(".msgpack"):
+        tree = load_component(path)
+    else:
+        tree = tb.encoder_to_flax(tb.load_state_dict(path),
+                                  layers or RESNET152_LAYERS)
+    if nic and "backbone" in tree["params"]:
+        return {"params": tree["params"]["backbone"],
+                "batch_stats": tree["batch_stats"]["backbone"]}
+    return tree
 
 
 def eval_data_selection(cfg: ConfigEval, use_data: str
@@ -161,26 +193,60 @@ def eval_tables(cfg: ConfigEval, atten: str, use_ori: bool, depth: bool,
 
 
 def load_eval_components(save_directory: str, files, cap):
-    """One checkpoint set that the JAX trainer wrote: (frozen encoder,
-    trainable params, batch_stats), the trees ``params_from_jax`` takes
-    (with ``frozen={"encoder": ...}``). ``files`` is a row of a
+    """One checkpoint set: (frozen encoder, trainable params,
+    batch_stats), the trees ``params_from_jax`` takes (with
+    ``frozen={"encoder": ...}``). ``files`` is a row of a
     ``*_parameter_files`` table: encoder, decoder and, for depth kinds,
-    the depth encoder's ``{"params", "batch_stats"}`` bundle (the MLP's
-    statistics are empty); NIC's projection is a file of its own, the
-    encoder's name with "encoder" replaced by "enc_linear"."""
+    the depth encoder. Each component is read from its msgpack twin (the
+    JAX trainer's files, or this one's) where there is one, else from the
+    reference's own ``.pth`` file through ``utils/torch_bridge``, else
+    raises ``FileNotFoundError`` (counterpart of the JAX
+    ``cli.load_eval_components``). The depth encoder's msgpack is a
+    ``{"params", "batch_stats"}`` bundle (the MLP's statistics are
+    empty); the reference's depth CNN ``.pth`` holds both, its MLP
+    ``.pth`` the weights alone. NIC's projection is a msgpack file of its
+    own, the encoder's name with "encoder" replaced by "enc_linear", or
+    the ``linear`` layer of the reference's encoder ``.pth``, which
+    bundles the backbone and the projection."""
+    from depth_image_captioning_pub_torch.utils import torch_bridge as tb
     from depth_image_captioning_pub_torch.utils.checkpoint import (
         load_component)
+    backbone = cap.backbone if cap.spec.is_nic else cap.encoder.backbone
+    layers = backbone.layers
 
-    def load(name):
-        return load_component(os.path.join(save_directory, name))
+    def path(name):
+        return os.path.join(save_directory, name)
 
-    frozen_enc = load(files[0])
-    params = {"decoder": load(files[1])}
+    def load(name, bridge):
+        if os.path.exists(path(name) + ".msgpack"):
+            return load_component(path(name))
+        if os.path.exists(path(name)):
+            return bridge(tb.load_state_dict(path(name)))
+        raise FileNotFoundError(path(name) + "(.msgpack)")
+
     stats: Dict = {}
     if cap.spec.is_nic:
-        params["enc_linear"] = load(files[0].replace("encoder", "enc_linear"))
-    elif cap.spec.uses_depth:
-        bundle = load(files[2])
+        frozen_enc = load(files[0],
+                          lambda sd: tb.resnet_to_flax(sd, layers))
+        lin = files[0].replace("encoder", "enc_linear")
+        if os.path.exists(path(lin) + ".msgpack"):
+            enc_linear = load_component(path(lin))
+        elif os.path.exists(path(files[0])):
+            enc_linear = tb.nic_encoder_linear_to_flax(
+                tb.load_state_dict(path(files[0])))
+        else:
+            raise FileNotFoundError(
+                f"{path(lin)}.msgpack, or the reference's encoder "
+                f"{path(files[0])} that bundles the projection")
+        params = {"enc_linear": enc_linear,
+                  "decoder": load(files[1], tb.nic_decoder_to_flax)}
+        return frozen_enc, params, stats
+    frozen_enc = load(files[0], lambda sd: tb.encoder_to_flax(sd, layers))
+    params = {"decoder": load(files[1], tb.attention_decoder_to_flax)}
+    if cap.spec.uses_depth:
+        bridge = (tb.depth_cnn_to_flax if cap.spec.depth_encoder == "cnn"
+                  else lambda sd: {"params": tb.depth_mlp_to_flax(sd)})
+        bundle = load(files[2], bridge)
         params["depth_encoder"] = bundle["params"]
         stats = bundle.get("batch_stats", {})
     return frozen_enc, params, stats

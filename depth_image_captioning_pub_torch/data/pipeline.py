@@ -124,22 +124,28 @@ def train_batches(dataset, word_to_id: Dict[str, int], batch_size: int,
                   max_len: int, shuffle: bool, seed: int,
                   epoch: int = 0,
                   pad_to: Optional[int] = None,
-                  indices: Optional[Sequence[int]] = None) -> Iterator[Batch]:
+                  indices: Optional[Sequence[int]] = None,
+                  start: int = 0) -> Iterator[Batch]:
     """Fixed-shape train batches over a dataset with ``load_image(i)`` (or
     ``load_images_batch``), ``captions(i)`` and ``len``: the order
     shuffled by ``random.Random(seed * 100003 + epoch)``, which also picks
     each image's caption; every batch padded to ``pad_to or batch_size``
-    rows."""
+    rows. ``start`` > 0 yields from batch ``start`` on, the batches after
+    it as without ``start``: the skipped batches' caption draws are made,
+    their images are not decoded (a resumed epoch)."""
     rng = random.Random(seed * 100003 + epoch)
     order = list(indices) if indices is not None else list(range(len(dataset)))
     if shuffle:
         rng.shuffle(order)
     chunks = [order[i: i + batch_size] for i in range(0, len(order), batch_size)]
-    for chunk in chunks:
-        imgs = _load_chunk(dataset, chunk)
+    for n, chunk in enumerate(chunks):
         caps = [dataset.captions(i) for i in chunk]
-        yield make_train_batch(imgs, caps, word_to_id, max_len, rng,
-                               batch_size=pad_to or batch_size,
+        if n < start:
+            for c in caps:      # make_train_batch's draws, in its order
+                rng.choice(list(c))
+            continue
+        yield make_train_batch(_load_chunk(dataset, chunk), caps, word_to_id,
+                               max_len, rng, batch_size=pad_to or batch_size,
                                indices=chunk)
 
 

@@ -47,7 +47,7 @@ def check_accum_steps(accum_steps: int) -> None:
     if accum_steps != 1:
         raise NotImplementedError(
             f"gradient accumulation (accum_steps={accum_steps}) is not "
-            f"ported yet ({TRAIN_REST_ITEM})")
+            f"ported yet ({TRAIN_REST_ITEM}.3)")
 
 
 def batch_to_device(batch, device, depth=None) -> DeviceBatch:

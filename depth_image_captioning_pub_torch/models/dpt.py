@@ -417,6 +417,30 @@ class DPTDepthEstimator:
     def init(self, generator: torch.Generator) -> None:
         self.model.reset_parameters(generator)
 
+    def load_weights(self, path: str) -> None:
+        """Load DPT-hybrid weights from ``path``: an Omnidata ``.ckpt``
+        (through ``utils/torch_bridge.dpt_to_flax``, at the model's own
+        stage and block counts, so a small model reads a small checkpoint)
+        or a ``.msgpack`` of that tree (``utils.convert --kind dpt``).
+        ``refinenet4``'s first residual unit, which the checkpoint holds
+        but the forward never runs (it takes no skip), is left out."""
+        from depth_image_captioning_pub_torch.utils import torch_bridge as tb
+        from depth_image_captioning_pub_torch.utils.checkpoint import (
+            load_component)
+        from depth_image_captioning_pub_torch.utils.jax_bridge import (
+            dpt_params_from_jax)
+        model = self.model
+        if path.endswith(".msgpack"):
+            tree = load_component(path)
+        else:
+            tree = tb.dpt_to_flax(
+                tb.load_state_dict(path),
+                resnet_layers=tuple(len(s) for s in model.resnet.stages),
+                vit_blocks=len(model.blocks))
+        if not hasattr(model.refinenet4, "res1"):
+            tree["params"]["refinenet4"].pop("res1", None)
+        dpt_params_from_jax(model, tree)
+
     def depth_fn(self) -> Callable[[torch.Tensor], torch.Tensor]:
         """fn(images [B,H,W,3], uint8 or [0,1] float) -> standardized depth
         maps [B,224,224,1]: resize to ``image_size``, DPT-normalize, DPT,

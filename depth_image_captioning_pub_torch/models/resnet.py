@@ -105,7 +105,7 @@ class ResNetBackbone(nn.Module):
     def __init__(self, layers: Sequence[int] = RESNET152_LAYERS, *,
                  dtype=torch.bfloat16, device=None):
         super().__init__()
-        self.dtype = dtype
+        self.dtype, self.layers = dtype, tuple(layers)
         self.conv1 = FrozenConv2d(3, 64, 7, 2, 3, dtype=dtype, device=device)
         self.bn1 = FrozenBatchNorm2d(64, device=device)
         self.block_names = []

@@ -19,24 +19,31 @@ DPT (``engine/depth_cache.py``, under the configuration's save directory;
 reused when complete) and computes validation depth per batch;
 ``--no-depth-cache`` computes both per batch. ``--dpt-size``, ``--gelu`` and
 ``--dpt-head`` set the DPT's input side and knobs (``cli.add_dpt_flags``);
-``--dpt-weights`` behaves as in ``evaluation.py`` (the Omnidata loader is
-not ported, so an existing file raises; without weights the DPT is drawn
-at random with a warning). ``--resnet-weights`` takes an encoder file in
-the JAX trainer's msgpack format (``*_encoder_best_*.pth.msgpack``);
-without it, or $RESNET152_WEIGHTS, the backbone is drawn at random with a
+``--dpt-weights`` (or $DPT_WEIGHTS) names the Omnidata DPT-hybrid
+``.ckpt`` (or ``utils.convert``'s ``.msgpack`` of it); without weights
+the DPT is drawn at random with a warning. ``--resnet-weights`` (or
+$RESNET152_WEIGHTS) takes torchvision's ResNet-152 ``.pth``
+(IMAGENET1K_V2) or an encoder msgpack file (a trainer's
+``*_encoder_best_*.pth.msgpack``, or ``utils.convert --kind
+resnet152``'s); without it the backbone is drawn at random with a
 warning. $DCAP_RESNET_LAYERS and $DCAP_TINY_DPT shrink the backbone and
 the DPT.
 
-Not ported yet, each exits with status 2 naming its ROADMAP.md item: a
-torchvision ``.pth`` for ``--resnet-weights``, ``--grad-accum`` above 1,
-``--decoder-dtype bfloat16``, ``--checkpoint-every``, ``--checkpoint-keep``,
-``--resume``, ``--feature-cache`` and ``--profile*``.
+``--checkpoint-every N`` writes a full-state checkpoint every N epochs
+(``--checkpoint-keep K`` keeps the newest K) and arms the SIGTERM save: a
+preempted run saves where it stopped, mid-epoch or at an epoch's end,
+and exits with status 0. ``--resume`` continues each run from its latest
+checkpoint, a mid-epoch one at the next batch, as the straight run would
+have gone on (``engine/train.train``).
+
+Not ported yet, each exits with status 2 naming its ROADMAP.md item:
+``--feature-cache``, ``--grad-accum`` above 1, ``--decoder-dtype
+bfloat16`` and ``--profile*``.
 """
 
 from __future__ import annotations
 
 import argparse
-import os
 import random
 import sys
 from typing import List, Optional
@@ -46,14 +53,10 @@ import torch
 
 from depth_image_captioning_pub_torch import cli
 from depth_image_captioning_pub_torch.config import ConfigTrain
+from depth_image_captioning_pub_torch.engine.steps import TRAIN_REST_ITEM
 
 EXP_TIME = 3
 DATAS = ("coco", "original")
-TRAIN_REST = ("ROADMAP.md, Queue A item 7: full-state checkpoints, resume "
-              "and preemption, the feature cache, gradient accumulation, "
-              "the bf16 decoder and the profiler")
-PTH_ITEM = ("reading a torchvision .pth is not ported yet (ROADMAP.md, "
-            "Queue A item 3)")
 USAGE = ("training base {soft|hard} {coco|original} | base nic | "
          "depth {soft|hard} {cnn|mlp} {coco|original}")
 
@@ -71,13 +74,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dpt-weights", default=None)
     p.add_argument("--resnet-weights", default=None)
     cli.add_dpt_flags(p)
+    p.add_argument("--checkpoint-every", type=int, default=0,
+                   help="full-state checkpoint every N epochs; arms the "
+                        "SIGTERM save")
+    p.add_argument("--checkpoint-keep", type=int, default=0,
+                   help="keep the newest K checkpoints (0: all)")
+    p.add_argument("--resume", action="store_true",
+                   help="continue from the latest full-state checkpoint")
     # not ported yet: exit 2 when asked for
     p.add_argument("--grad-accum", type=int, default=1)
     p.add_argument("--decoder-dtype", default="float32",
                    choices=("float32", "bfloat16"))
-    p.add_argument("--checkpoint-every", type=int, default=0)
-    p.add_argument("--checkpoint-keep", type=int, default=0)
-    p.add_argument("--resume", action="store_true")
     p.add_argument("--feature-cache", action="store_true")
     p.add_argument("--profile", default=None)
     p.add_argument("--profile-start", type=int, default=None)
@@ -86,16 +93,17 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _unported(args: argparse.Namespace) -> List[str]:
+    """The unported flags asked for, each with its ROADMAP.md item."""
     asked = []
+    if args.feature_cache:
+        asked.append(f"--feature-cache ({TRAIN_REST_ITEM}.2)")
     if args.grad_accum != 1:
-        asked.append("--grad-accum")
+        asked.append(f"--grad-accum ({TRAIN_REST_ITEM}.3)")
     if args.decoder_dtype != "float32":
-        asked.append("--decoder-dtype bfloat16")
-    for flag in ("checkpoint_every", "checkpoint_keep", "resume",
-                 "feature_cache", "profile", "profile_start",
-                 "profile_stop"):
-        if getattr(args, flag):
-            asked.append("--" + flag.replace("_", "-"))
+        asked.append(f"--decoder-dtype bfloat16 ({TRAIN_REST_ITEM}.4)")
+    for flag in ("profile", "profile_start", "profile_stop"):
+        if getattr(args, flag) is not None:
+            asked.append(f"--{flag.replace('_', '-')} ({TRAIN_REST_ITEM}.5)")
     return asked
 
 
@@ -112,25 +120,6 @@ def _kind(words: List[str]):
         prefix = "depth" if words[2] == "cnn" else "mdepth"
         return f"{prefix}-{words[1]}", words[3], words[2]
     return None
-
-
-def load_resnet_variables(path: Optional[str], nic: bool):
-    """The frozen encoder's flax tree from an encoder file that the JAX
-    trainer (or this one) wrote; None, with a warning, without a file.
-    NIC takes the backbone's own ``{"params", "batch_stats"}``."""
-    from depth_image_captioning_pub_torch.utils.checkpoint import (
-        load_component)
-    path = path or os.environ.get("RESNET152_WEIGHTS")
-    if not path or not os.path.exists(path):
-        print("WARNING: no ResNet-152 weights (set --resnet-weights or "
-              "$RESNET152_WEIGHTS); encoder uses random init",
-              file=sys.stderr)
-        return None
-    tree = load_component(path)
-    if nic and "backbone" in tree["params"]:
-        return {"params": tree["params"]["backbone"],
-                "batch_stats": tree["batch_stats"]["backbone"]}
-    return tree
 
 
 def depth_providers(cfg: ConfigTrain, atten: str, use_data: str, device,
@@ -160,14 +149,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
     asked = _unported(args)
     if asked:
-        print(f"{', '.join(asked)}: not ported yet ({TRAIN_REST})",
-              file=sys.stderr)
-        return 2
-    if args.resnet_weights and args.resnet_weights.endswith(
-            (".pth", ".pt", ".ckpt")) and not os.path.exists(
-                args.resnet_weights + ".msgpack"):
-        print(f"--resnet-weights {args.resnet_weights}: {PTH_ITEM}",
-              file=sys.stderr)
+        print(f"{', '.join(asked)}: not ported yet", file=sys.stderr)
         return 2
     parsed = _kind(args.words)
     if parsed is None:
@@ -175,6 +157,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         return 1
     kind, use_data, _ = parsed
     cfg = ConfigTrain()
+    cfg.checkpoint_keep = args.checkpoint_keep
     cfg.dpt_image_size, cfg.dpt_gelu, cfg.dpt_head = (
         args.dpt_size, args.gelu, args.dpt_head)
     if args.dpt_weights:
@@ -187,13 +170,18 @@ def main(argv: Optional[List[str]] = None) -> int:
         provider, val_provider = depth_providers(
             cfg, args.words[1], use_data, args.device,
             cache=not args.no_depth_cache)
-    resnet = load_resnet_variables(args.resnet_weights, kind == "nic")
+    layers = cli.resnet_layers_from_env()
+    resnet = cli.load_resnet_variables(args.resnet_weights, kind == "nic",
+                                       layers)
     for ext in range(args.exp_time):
-        train(kind, ext=ext, use_data=use_data, cfg=cfg,
-              depth_provider=provider, val_depth_provider=val_provider,
-              num_epochs=args.epochs, resnet_variables=resnet,
-              resnet_layers=cli.resnet_layers_from_env(),
-              device=args.device)
+        out = train(kind, ext=ext, use_data=use_data, cfg=cfg,
+                    depth_provider=provider, val_depth_provider=val_provider,
+                    num_epochs=args.epochs, resnet_variables=resnet,
+                    resnet_layers=layers, device=args.device,
+                    checkpoint_every=args.checkpoint_every,
+                    resume=args.resume)
+        if out.get("preempted"):    # stop cleanly; --resume continues
+            return 0
     return 0
 
 

@@ -242,7 +242,8 @@ def test_load_component_paths(tmp_path):
     with pytest.raises(FileNotFoundError, match="nope.pth.msgpack"):
         load_component(str(tmp_path / "nope.pth"))
     (tmp_path / "ref.pth").write_bytes(b"torch zip")
-    with pytest.raises(ValueError, match="ROADMAP.md, Queue A item 12"):
+    with pytest.raises(ValueError, match="cli.load_eval_components or "
+                       "convert it with utils.convert"):
         load_component(str(tmp_path / "ref.pth"))
     path = save_component(str(tmp_path / "x.msgpack"), {"a": [1.0, 2]})
     assert path == str(tmp_path / "x.msgpack")

@@ -582,8 +582,36 @@ def test_entry_point_refusals(coco_dir, tmp_path, monkeypatch, capsys):
     assert evaluation.main(["base", "soft", "score", "original",
                             "--device", "cpu"]) == 1
     assert evaluation.main(["base", "soft", "train", "coco"]) == 1
+
+
+def test_entry_point_reads_dpt_weights(coco_dir, experiments, tiny_dpt,
+                                       tmp_path, monkeypatch, capsys):
+    """``--dpt-weights`` and $DPT_WEIGHTS name an Omnidata checkpoint (the
+    tests' tiny DPT in its layout, through ``chip_smoke.py``'s inverse
+    map): no random-DPT warning, and the same scores either way (the maps
+    themselves are held to the JAX DPT's in
+    ``tests/test_torch_pth_sets.py``)."""
+    import chip_smoke
+    root = coco_dir[0]
+    monkeypatch.chdir(root)
+    monkeypatch.setenv("DCAP_RESNET_LAYERS", "1,1,1,1")
+    monkeypatch.setenv("DCAP_TINY_DPT", "1")
+    monkeypatch.delenv("DPT_WEIGHTS", raising=False)
     ckpt = tmp_path / "omnidata.ckpt"
-    ckpt.write_bytes(b"weights")
-    with pytest.raises(NotImplementedError, match="Queue A item 3"):
-        evaluation.main(["depth", "soft", "score", "coco", "--device", "cpu",
-                         "--dpt-weights", str(ckpt)])
+    torch.save({"state_dict": {
+        "model." + k: torch.from_numpy(np.array(v)) for k, v in
+        chip_smoke.ref_dpt(tiny_dpt[1]["params"]).items()}}, ckpt)
+    pkl = root / "exp_result" / "CNN_depth_soft" / "coco_scores.pkl"
+    argv = ["depth", "soft", "score", "coco", "--num-sets", "1", "--device",
+            "cpu", "--batch-size", "3"]
+    got = []
+    for flags, env in ((["--dpt-weights", str(ckpt)], None),
+                       ([], str(ckpt))):
+        if env:
+            monkeypatch.setenv("DPT_WEIGHTS", env)
+        assert evaluation.main(argv + flags) == 0
+        assert "WARNING: no DPT weights" not in capsys.readouterr().err
+        with open(pkl, "rb") as f:
+            got.append(pickle.load(f))
+    assert got[0] == got[1]
+    assert all(len(v) == 1 and np.isfinite(v[0]) for v in got[0].values())
