@@ -8,7 +8,10 @@ and sampled, scored too, the serving surface: the HTTP caption server
 (greedy and sampled) and the caption CLI over PNG files with the DPT at
 224x224, training (depth-soft, base-soft, nic, base-hard, mdepth-soft),
 reference-layout weight files (torchvision, Omnidata, the reference's own
-``.pth`` sets) through every loader, and resumable training.
+``.pth`` sets) through every loader, resumable training, and the
+frozen-stage caches and the rest of training: the train-time feature
+cache, gradient accumulation, the bf16 decoder, the profiler window and
+the eval set cache with its disk store.
 
 Run from the root of a checkout, on a machine with one CUDA card (written
 for an NVIDIA H100):
@@ -251,7 +254,41 @@ the script exits non-zero:
    loop's blocking time in ``save`` and the writer thread's seconds, and
    train images/s with and without checkpoints. No kernel launches.
 
-Each path (phases 5, 7, 9, 11-26: ``PATHS``) runs with every launch counter
+27. train-feature-cache: base-soft at phase 20's settings (B=30, full
+   width) on 240 + 30 in-memory synthetic images, 2 epochs, online and
+   with ``feature_cache=True``: the cache built first and timed alone
+   (images/s; 802,816 bytes an image, the bf16 [196, 2048] grid), which
+   ``train`` then opens without a rebuild; the CSV losses of the two runs
+   (bit-equal, or their largest relative difference printed; more than
+   1e-2 fails); the step online and on cached features (device ms, in
+   turns) and each run's last-epoch train images/s. No kernel launches.
+28. train-accum: depth-soft at B=30 on one batch (depth maps from phase
+   7's DPT), 5 steps with k=1 and with k=3 microbatches: the losses and
+   the peak memory of each; then ``train`` with ``grad_accum=3`` for one
+   epoch of 60 images with per-batch depth. K5 12 a DPT chunk (1 + 2 + 1).
+29. train-bf16: base-soft's bf16 decoder against f32 on one batch's
+   cached features: 50 steps, the bf16 loss within 3% of f32's at every
+   step (the JAX test's bound) and falling; step ms and peak memory of
+   each; parameters stay f32; then ``train`` with
+   ``decoder_dtype="bfloat16"`` for one epoch, its best-val files (f32)
+   scored through K2 by an f32 captioner.
+30. train-profile: the training CLI in a child process (``--profile DIR
+   --profile-start 2 --profile-stop 4``, one epoch of 8 steps on phase
+   26's JPEGs): exit 0 and one Chrome trace naming aten ops, the AdamW
+   step and CUDA kernels. A child, since a process that ran
+   ``torch.profiler`` times later work slower.
+31. score-cached: three depth-soft sets (one encoder and depth CNN,
+   seeded decoders) over phase 13's 256 images kept in ``.npy`` files,
+   scored by ``evaluate`` with the eval cache off, on, and twice through
+   a disk store (``eval_cache_dir``: filled, then replayed); then three
+   NIC sets off and on. Hypotheses and the seven scores ``==`` in every
+   mode; per set K5 48 (12 a chunk) on set 1 and 0 after with the cache
+   (0 on every set of the disk replay), the frozen encoder's chunks 4 and
+   0; K2 (K3 for NIC) 4 a set; per set the caption and copy seconds and
+   whether the frozen encoder was copied (sets 2-3 keep it: equal
+   trees), beside the time of that copy.
+
+Each path (phases 5, 7, 9, 11-31: ``PATHS``) runs with every launch counter
 set to 0 just before it and read just after. The line before the last is a JSON
 object with the five ported kernels (K1 step, K2 greedy, K3 NIC greedy, K4
 beam, K5 ViT attention): launches per path, error, time beside the plain
@@ -312,7 +349,8 @@ PATHS = ("base-soft", "depth-soft", "nic", "base-soft-beam5",
          "score-mdepth-soft", "serve", "serve-sample",
          "caption-depth224-beam3", "train-depth-soft", "train-base-soft",
          "train-nic", "train-base-hard", "train-mdepth-soft",
-         "reference-weights", "train-resume")
+         "reference-weights", "train-resume", "train-feature-cache",
+         "train-accum", "train-bf16", "train-profile", "score-cached")
 TOP_P = 0.9          # the sampling path's nucleus
 SCORE_IMAGES, SCORE_SETS, SCORE_BATCH = 256, 3, 64
 SEED = 0             # the serving phases' request images
@@ -1689,9 +1727,10 @@ class SetTimes:
                      "load_textfiles"):
             self.saved[name] = getattr(ev, name)
 
-        def loaded(cap, trainable, frozen, stats):
+        def loaded(cap, trainable, frozen, stats, load_encoder=True):
             t0 = time.perf_counter()
-            self.saved["params_from_jax"](cap, trainable, frozen, stats)
+            self.saved["params_from_jax"](cap, trainable, frozen, stats,
+                                          load_encoder=load_encoder)
             torch.cuda.synchronize()
             self.rows[-1]["copy"] = time.perf_counter() - t0
             want = self.expected[len(self.rows)]
@@ -4144,6 +4183,616 @@ def phase_resume(smi):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---- phases 27-31: the frozen-stage caches and the rest of training -------
+
+FC_IMAGES, FC_VAL, FC_EPOCHS = 240, 30, 2   # 8 steps an epoch at B=30
+FEATURE_BYTES = 196 * 2048 * 2              # a bf16 grid on disk
+STEP_ITERS = 10
+ACCUM_K, ACCUM_STEPS = 3, 5
+BF16_STEPS, BF16_RTOL = 50, 3e-2            # the JAX test's bound
+PROFILE_START, PROFILE_STOP = 2, 4
+LOOSE_LOSS_RTOL = 1e-2      # cached vs online losses: a broken cache's bound
+
+
+def call_counter(module):
+    """[calls]: a forward pre-hook on ``module`` adds one a call."""
+    n = [0]
+    module.register_forward_pre_hook(lambda *a: n.__setitem__(0, n[0] + 1))
+    return n
+
+
+def peak_bytes(fn):
+    """(fn(), the peak device bytes allocated during it)."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated()
+
+
+def phase_train_feature_cache(smi, root, w2i):
+    """Phase 27: base-soft at B=30 for 2 epochs of 8 steps, online and from
+    the feature cache, with the cache's build timed alone first."""
+    import os
+    import torch
+    from depth_image_captioning_pub_torch.data.pipeline import train_batches
+    from depth_image_captioning_pub_torch.engine import feature_cache as fc
+    from depth_image_captioning_pub_torch.engine import steps
+    from depth_image_captioning_pub_torch.engine import train as tr
+    from depth_image_captioning_pub_torch.models.captioner import (
+        build_captioner)
+    tag = "train-feature-cache"
+    dev = torch.device("cuda")
+    cfgs = {}
+    for mode in ("online", "cached"):
+        os.makedirs(os.path.join(root["dir"], mode))
+        cfgs[mode] = train_cfg(os.path.join(root["dir"], mode))
+    datasets = (root["fc_train"], root["fc_val"])
+    save_dir = cfgs["cached"].save_dir("soft", False)
+    fdir = os.path.join(save_dir, "feat_cache")
+    # the build alone, on the weights train() draws from the same seed:
+    # train() then finds both splits complete and only opens them
+    cap = build_captioner("base-soft", VOCAB, cfgs["cached"], device=dev)
+    cap.init(torch.Generator().manual_seed(cfgs["cached"].seed))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fc.frozen_digest(cap.encoder, torch.bfloat16, (196, 2048))
+    digest_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    provider, _ = tr.feature_providers(cap, *datasets, fdir,
+                                       cfgs["cached"].batch_size, quiet=True)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    files = {f.split("_")[1]: os.path.join(fdir, f)
+             for f in os.listdir(fdir) if f.endswith(".bin")}
+    per_image = os.path.getsize(files["train"]) / FC_IMAGES
+    if sorted(files) != ["train", "val"] or per_image != FEATURE_BYTES:
+        raise RuntimeError(f"{tag}: cache files {files}, {per_image} bytes "
+                           f"an image, expected {FEATURE_BYTES}")
+    stamps = {k: os.stat(p).st_mtime_ns for k, p in files.items()}
+
+    def run():
+        return {mode: tr.train("base-soft", 0, cfg=cfgs[mode],
+                               datasets=datasets, word_to_id=w2i,
+                               num_epochs=FC_EPOCHS, quiet=True, device=dev,
+                               feature_cache=mode == "cached")
+                for mode in ("online", "cached")}
+    runs, launches = counted(tag, run)
+    if any(launches.values()):
+        raise RuntimeError(f"{tag} launched kernels {launches}")
+    if {k: os.stat(p).st_mtime_ns for k, p in files.items()} != stamps:
+        raise RuntimeError(f"{tag}: train() rebuilt a complete cache")
+    losses = {m: read_losses(cfgs[m].save_dir("soft", False), "base_soft")
+              for m in runs}
+    flat = {m: np.array(v["train"] + v["val"]) for m, v in losses.items()}
+    rel = np.abs(flat["cached"] - flat["online"]) / np.abs(flat["online"])
+    equal = bool((flat["cached"] == flat["online"]).all())
+    if not rel.max() <= LOOSE_LOSS_RTOL:
+        raise RuntimeError(f"{tag}: cached losses {losses['cached']} vs "
+                           f"online {losses['online']}")
+    batch = next(train_batches(root["fc_train"], w2i, cfgs["cached"]
+                               .batch_size, cfgs["cached"].max_caption_len,
+                               shuffle=False, seed=0))
+    # the cache's rows against the encoder on the same images, at the
+    # batch size of the build and of the step
+    images = torch.from_numpy(batch.images).to(dev)
+    with torch.inference_mode():
+        fresh = steps.frozen_features(cap, images)
+    served = provider(batch.indices).to(dev)
+    rows_equal = bool(torch.equal(served, fresh))
+    if not rows_equal:
+        diff = (served.float() - fresh.float()).abs().max().item()
+        raise RuntimeError(f"{tag}: the cache's rows of images "
+                           f"{batch.indices.tolist()} differ from the "
+                           f"encoder's by up to {diff:.3e}")
+    # the step, online and on cached features, timed in turns, each with
+    # its batch's copy to the card as train() makes it (tr.device_batch:
+    # the images online, the memmap's features cached)
+    opt = steps.make_optimizer(cap, 1e-3)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    ev = Events(iters=STEP_ITERS)
+
+    def step(cached):
+        db, feats = tr.device_batch(cap, batch,
+                                    feature_provider=provider if cached
+                                    else None)
+        return steps.attention_train_step(cap, opt, db, alpha_reg=0.7,
+                                          generator=gen, features=feats)
+    for mode in ("online", "cached", "online ", "cached "):
+        ev.ms(mode, lambda cached=mode.startswith("cached"): step(cached))
+    t = {m: min(ev.times[m], ev.times[m + " "]) for m in ("online", "cached")}
+    rates = {m: FC_IMAGES / runs[m]["epoch_train_seconds"][-1] for m in runs}
+    n_built = FC_IMAGES + FC_VAL
+    log(tag, f"feature cache built: {n_built} images in {build_s:.2f} s = "
+        f"{n_built / build_s:.1f} images/s (host clock: the weights' digest "
+        f"{digest_s:.2f} s, loader, ResNet-152 bf16, copy to the host, "
+        f"memmap write), {n_built / (build_s - digest_s):.1f} images/s "
+        f"without the digest; {per_image:.0f} bytes an image; train() "
+        f"opened it without a rebuild [{smi}]")
+    log(tag, f"B={cfgs['cached'].batch_size} step (device ms, the better "
+        f"of two turns of {STEP_ITERS}): online {t['online']:.2f}, cached "
+        f"{t['cached']:.2f} (the batch's copy to the card included: the "
+        f"uint8 images online, the memmap's features cached); last-epoch "
+        f"train images/s online "
+        f"{rates['online']:.1f}, cached {rates['cached']:.1f} [{smi}]")
+    log(tag, f"the cache's rows of batch 0 bit-equal to the encoder's "
+        f"output on its images: {rows_equal}; {FC_EPOCHS} epochs of "
+        f"{FC_IMAGES} images: cached CSV losses "
+        f"{'bit-equal to' if equal else 'differ from'} the online ones "
+        f"(largest relative difference {rel.max():.3e}); train "
+        f"{losses['cached']['train']}, val {losses['cached']['val']}; "
+        f"launches {launches}")
+    return launches
+
+
+def phase_train_accum(smi, est, root, w2i):
+    """Phase 28: depth-soft steps at B=30 with k=1 and k=ACCUM_K
+    microbatches on one batch (losses, peak memory), and train() with
+    ``grad_accum`` = ACCUM_K for one epoch of 2 steps."""
+    import torch
+    from depth_image_captioning_pub_torch.data.pipeline import train_batches
+    from depth_image_captioning_pub_torch.engine import depth_cache, steps
+    from depth_image_captioning_pub_torch.engine import train as tr
+    from depth_image_captioning_pub_torch.models.captioner import (
+        build_captioner)
+    tag = "train-accum"
+    dev = torch.device("cuda")
+    cfg = train_cfg(root["dir"])
+    online = depth_cache.online_depth_provider(est.depth_fn(), dev)
+    batch = next(train_batches(root["fc_train"], w2i, cfg.batch_size,
+                               cfg.max_caption_len, shuffle=False, seed=0))
+
+    def run():
+        db = steps.batch_to_device(batch, dev, online(batch.images,
+                                                      batch.indices))
+        res = {}
+        for k in (1, ACCUM_K):
+            cap = build_captioner("depth-soft", VOCAB, cfg, device=dev)
+            cap.init(torch.Generator().manual_seed(3))
+            opt = steps.make_optimizer(cap, cfg.lr)
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            resident = torch.cuda.memory_allocated()
+            losses, peak = peak_bytes(lambda: torch.stack([
+                steps.attention_train_step(cap, opt, db, alpha_reg=0.7,
+                                           generator=gen,
+                                           accum_steps=k)["loss"]
+                for _ in range(ACCUM_STEPS)]).cpu().numpy())
+            res[k] = (losses, peak, peak - resident)
+            del cap, opt
+        cfg.grad_accum = ACCUM_K
+        summary = tr.train("depth-soft", 0, cfg=cfg, depth_provider=online,
+                           datasets=(root["short"], root["val"]),
+                           word_to_id=w2i, num_epochs=1, quiet=True,
+                           device=dev)
+        return res, summary
+    (res, summary), launches = counted(tag, run)
+    b = cfg.batch_size
+    chunks = 1 + -(-SHORT_IMAGES // b) + -(-TRAIN_VAL // b)
+    want = dict.fromkeys(launches, 0)
+    want["vit_attention"] = DPT_BLOCKS * chunks
+    if launches != want:
+        raise RuntimeError(f"{tag} launches {launches}, expected {want}")
+    losses = read_losses(cfg.save_dir("depth_soft", False), "depth_soft")
+    if not all(np.isfinite(r[0]).all() for r in res.values()):
+        raise RuntimeError(f"{tag}: losses {res}")
+    one, acc = res[1], res[ACCUM_K]
+    log(tag, f"depth-soft B={b}, {ACCUM_STEPS} steps on one batch: k=1 "
+        f"losses {np.round(one[0], 5).tolist()}, k={ACCUM_K} "
+        f"{np.round(acc[0], 5).tolist()}; step-1 difference "
+        f"{acc[0][0] - one[0][0]:.3e} (dropout draws and each microbatch's "
+        f"BN statistics differ); peak memory k=1 {one[1] / 2**30:.3f} GiB "
+        f"({one[2] / 2**30:.3f} above the resident weights), k={ACCUM_K} "
+        f"{acc[1] / 2**30:.3f} GiB ({acc[2] / 2**30:.3f}) [{smi}]")
+    log(tag, f"train(grad_accum={ACCUM_K}) 1 epoch of {SHORT_IMAGES}: train "
+        f"loss {losses['train'][0]:.5f}, val {losses['val'][0]:.5f}, "
+        f"{summary['train_rows'] / summary['train_seconds']:.1f} images/s; "
+        f"launches {launches} (K5 {DPT_BLOCKS} x {chunks} DPT chunks)")
+    return launches
+
+
+def phase_train_bf16(smi, root, w2i, i2w):
+    """Phase 29: base-soft's bf16 decoder against f32 on one batch: step ms,
+    peak memory, a BF16_STEPS-step trajectory within BF16_RTOL; then
+    train() with ``decoder_dtype="bfloat16"`` for one epoch and its f32
+    best-val set scored."""
+    import torch
+    from depth_image_captioning_pub_torch.data.pipeline import train_batches
+    from depth_image_captioning_pub_torch.engine import steps
+    from depth_image_captioning_pub_torch.engine import train as tr
+    from depth_image_captioning_pub_torch.models.captioner import (
+        build_captioner)
+    tag = "train-bf16"
+    dev = torch.device("cuda")
+    cfg = train_cfg(root["dir"])
+    batch = next(train_batches(root["fc_train"], w2i, cfg.batch_size,
+                               cfg.max_caption_len, shuffle=False, seed=0))
+    db = steps.batch_to_device(batch, dev)
+    res = {}
+    feats = None
+    for dtype in (torch.float32, torch.bfloat16):
+        cap = build_captioner("base-soft", VOCAB, cfg, device=dev,
+                              decoder_dtype=dtype)
+        cap.init(torch.Generator().manual_seed(3))
+        if feats is None:
+            feats = steps.frozen_features(cap, db["images"])
+        opt = steps.make_optimizer(cap, cfg.lr)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        resident = torch.cuda.memory_allocated()
+        losses, peak = peak_bytes(lambda: torch.stack([
+            steps.attention_train_step(cap, opt, db, alpha_reg=0.7,
+                                       generator=gen, features=feats)["loss"]
+            for _ in range(BF16_STEPS)]).cpu().numpy())
+        ev = Events(iters=STEP_ITERS)
+        ev.ms("step", lambda: steps.attention_train_step(
+            cap, opt, db, alpha_reg=0.7, generator=gen, features=feats))
+        res[dtype] = (losses, peak - resident, ev.times["step"])
+        if not all(p.dtype == torch.float32
+                   for p in cap.trainable_parameters()):
+            raise RuntimeError(f"{tag}: a {dtype} decoder's parameters left "
+                               f"f32")
+        del cap, opt
+    l32, l16 = res[torch.float32][0], res[torch.bfloat16][0]
+    rel = np.abs(l16 - l32) / np.abs(l32)
+    if not (np.isfinite(l16).all() and rel.max() <= BF16_RTOL
+            and l16[-1] < l16[0]):
+        raise RuntimeError(f"{tag}: bf16 losses {l16} vs f32 {l32}")
+
+    def run():
+        ecfg = train_cfg(root["dir"])
+        ecfg.decoder_dtype = "bfloat16"
+        ecfg.save_directory_soft += "_bf16"
+        tr.train("base-soft", 0, cfg=ecfg,
+                 datasets=(root["short"], root["val"]), word_to_id=w2i,
+                 num_epochs=1, quiet=True, device=dev)
+        scores, _ = read_back("base-soft", ecfg, root, w2i, i2w, None, smi,
+                              tag)
+        return read_losses(ecfg.save_dir("soft", False), "base_soft")
+    losses, launches = counted(tag, run)
+    want = dict.fromkeys(launches, 0)
+    want["decode_seq"] = -(-TRAIN_VAL // 50)
+    if launches != want:
+        raise RuntimeError(f"{tag} launches {launches}, expected {want}")
+    s32, s16 = res[torch.float32], res[torch.bfloat16]
+    log(tag, f"base-soft B={cfg.batch_size} step on cached features "
+        f"(device ms, {STEP_ITERS} steps): f32 decoder {s32[2]:.2f}, bf16 "
+        f"{s16[2]:.2f}; peak memory above the resident weights f32 "
+        f"{s32[1] / 2**30:.3f} GiB, bf16 {s16[1] / 2**30:.3f} GiB [{smi}]")
+    log(tag, f"{BF16_STEPS} steps on one batch: loss f32 {l32[0]:.5f} -> "
+        f"{l32[-1]:.5f}, bf16 {l16[0]:.5f} -> {l16[-1]:.5f}; largest "
+        f"relative difference {rel.max():.3e} (step {int(rel.argmax())}; "
+        f"bound {BF16_RTOL}) [{smi}]")
+    log(tag, f"train(decoder_dtype=bfloat16) 1 epoch: train loss "
+        f"{losses['train'][0]:.5f}, val {losses['val'][0]:.5f}; its f32 "
+        f"best-val set scored on K2; launches {launches}")
+    return launches
+
+
+def phase_train_profile(smi, root):
+    """Phase 30: the training CLI in a child process with ``--profile DIR
+    --profile-start 2 --profile-stop 4``: the Chrome trace names the
+    step's ops and CUDA kernels."""
+    import json as js
+    import os
+    import subprocess
+    from pathlib import Path
+    import torch
+    tag = "train-profile"
+    d = os.path.join(root["dir"], "profile")
+    os.makedirs(d)
+    write_resume_data(d)
+    prof = os.path.join(d, "prof")
+    cmd = [sys.executable, "-m", "depth_image_captioning_pub_torch.training",
+           "base", "soft", "coco", "--epochs", "1", "--exp-time", "1",
+           "--profile", prof, "--profile-start", str(PROFILE_START),
+           "--profile-stop", str(PROFILE_STOP)]
+    repo = str(Path(__file__).resolve().parent)
+    env = dict(os.environ, PYTHONPATH=repo + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+
+    def run():
+        t0 = time.perf_counter()
+        child = subprocess.run(cmd, cwd=d, env=env, text=True,
+                               capture_output=True, timeout=600)
+        return child, time.perf_counter() - t0
+    (child, dt), launches = counted(tag, run)
+    if child.returncode != 0:
+        raise RuntimeError(f"{tag}: child exit {child.returncode}: "
+                           f"{child.stdout[-2000:]} {child.stderr[-2000:]}")
+    traces = sorted(os.listdir(prof)) if os.path.isdir(prof) else []
+    if len(traces) != 1:
+        raise RuntimeError(f"{tag}: traces {traces} in {prof}")
+    path = os.path.join(prof, traces[0])
+    with open(path) as f:
+        events = js.load(f)["traceEvents"]
+    names = [e.get("name", "") for e in events]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    ops = {n for n in names if n.startswith("aten::")}
+    need = ("aten::convolution", "aten::mm", "aten::lstm_cell")
+    found = [n for n in need if n in ops]
+    if not kernels or "aten::convolution" not in ops or not any(
+            "AdamW" in n or "Optimizer.step" in n for n in names):
+        raise RuntimeError(f"{tag}: the trace lacks the step's ops: "
+                           f"{len(kernels)} kernels, ops {sorted(ops)[:30]}")
+    log(tag, f"training CLI child (--profile, steps [{PROFILE_START}, "
+        f"{PROFILE_STOP})) exit 0 in {dt:.1f} s; {traces[0]}: "
+        f"{os.path.getsize(path) / 1e6:.1f} MB, {len(events)} events, "
+        f"{len(kernels)} CUDA kernels, {len(ops)} aten ops ({found} among "
+        f"them, and the AdamW step); torch.profiler ran in the child only "
+        f"[{smi}]")
+    torch.cuda.synchronize()
+    return launches
+
+
+class FileImages(ScoreImages):
+    """``ScoreImages`` kept in files, one ``.npy`` an image: the eval
+    cache's disk store fingerprints a dataset by its files' paths, sizes
+    and mtimes."""
+
+    def __init__(self, root, n, words, seed):
+        import os
+        super().__init__(n, words, seed)
+        self.paths = []
+        for i, img in enumerate(self.images):
+            self.paths.append(os.path.join(root, f"img_{i:04d}.npy"))
+            np.save(self.paths[-1], img)
+        self.image_size = self.images.shape[1:3]
+        self.images = None
+
+    def __len__(self):
+        return len(self.paths)
+
+    def image_path(self, i):
+        return self.paths[i]
+
+    def load_image(self, i):
+        return np.load(self.paths[i])
+
+
+def write_sets(kind, cap, cfg, seeds):
+    """Checkpoint sets of ``kind`` in the JAX trainer's files: ``cap``'s
+    frozen encoder (and depth CNN) in every set, the decoder of set i
+    drawn from ``seeds[i - 1]``. Returns (save dir, file table)."""
+    import torch
+    from depth_image_captioning_pub_torch import cli
+    from depth_image_captioning_pub_torch.utils.checkpoint import (
+        save_component)
+    from depth_image_captioning_pub_torch.utils.jax_bridge import (
+        params_to_jax)
+    if kind == "nic":
+        save_dir, files = cfg.save_directory_nic, cfg.nic_parameter_files
+    else:
+        save_dir, files = cli.eval_tables(cfg, "soft", False,
+                                          kind == "depth-soft")
+    state = {k: v.clone() for k, v in cap.decoder.state_dict().items()}
+    for i, seed in enumerate(seeds, 1):
+        cap.decoder.reset_parameters(torch.Generator().manual_seed(seed))
+        trainable, frozen, stats = params_to_jax(cap)
+        names = files[i]
+        save_component(f"{save_dir}/{names[0]}", frozen["encoder"])
+        save_component(f"{save_dir}/{names[1]}", trainable["decoder"])
+        if kind == "nic":
+            save_component(f"{save_dir}/" + names[0].replace(
+                "encoder", "enc_linear"), trainable["enc_linear"])
+        if kind == "depth-soft":
+            save_component(f"{save_dir}/{names[2]}",
+                           {"params": trainable["depth_encoder"],
+                            "batch_stats": stats})
+    cap.decoder.load_state_dict(state)
+    return save_dir, files
+
+
+class PerSet:
+    """Per set of ``engine/evaluate.evaluate`` (host clock): ``prep``, the
+    seconds from the checkpoint loader's return to the start of
+    captioning (the frozen encoder's equality guards and the weights'
+    copy to the card), ``copy`` (that copy alone), whether the frozen
+    encoder was copied, ``caption`` (tokens on the host), and the K5
+    launches and frozen encoder calls of the set."""
+
+    def __init__(self, ev, enc_calls):
+        self.ev, self.enc_calls, self.rows = ev, enc_calls, []
+
+    def loader(self, fn):
+        """The checkpoint loader: each call starts a set's row."""
+        def load(set_idx):
+            out = fn(set_idx)
+            self.rows.append({"loaded": time.perf_counter()})
+            return out
+        return load
+
+    def __enter__(self):
+        import torch
+        from depth_image_captioning_pub_torch.ops.kernels import (
+            vit_attention)
+        self.saved = (self.ev.params_from_jax, self.ev.generate_captions)
+        copy, gen = self.saved
+
+        def loaded(*a, **k):
+            t0 = time.perf_counter()
+            copy(*a, **k)
+            torch.cuda.synchronize()
+            self.rows[-1].update(copy=time.perf_counter() - t0,
+                                 copied=k.get("load_encoder", True))
+
+        def caption(*a, **k):
+            k5, enc = vit_attention.LAUNCHES, self.enc_calls[0]
+            t0 = time.perf_counter()
+            row = self.rows[-1]
+            row["prep"] = t0 - row.pop("loaded")
+            out = gen(*a, **k)
+            row.update(caption=time.perf_counter() - t0,
+                       k5=vit_attention.LAUNCHES - k5,
+                       encoder=self.enc_calls[0] - enc)
+            return out
+        self.ev.params_from_jax, self.ev.generate_captions = loaded, caption
+        return self
+
+    def __exit__(self, *exc):
+        self.ev.params_from_jax, self.ev.generate_captions = self.saved
+
+
+def phase_score_cached(smi, est):
+    """Phase 31: three depth-soft sets over phase 13's 256 images with the
+    eval cache off and on, then twice through a disk store; three NIC sets
+    off and on."""
+    import os
+    import shutil
+    import tempfile
+    from pathlib import Path
+    import torch
+    from depth_image_captioning_pub_torch import cli
+    from depth_image_captioning_pub_torch.config import ConfigEval
+    from depth_image_captioning_pub_torch.engine import evaluate as ev
+    from depth_image_captioning_pub_torch.models.captioner import (
+        build_captioner)
+    tag = "score-cached"
+    dev = torch.device("cuda")
+    w2i, i2w = cli.placeholder_vocab(VOCAB)
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=build, prefix="score_cached_")
+    try:
+        os.makedirs(f"{tmp}/images")
+        data = FileImages(f"{tmp}/images", SCORE_IMAGES,
+                          [w for w in w2i if w.startswith("w")], seed=13)
+        cfg = ConfigEval()
+        cfg.batch_size, cfg.max_length = SCORE_BATCH, MAX_LEN
+        cfg.save_directory_Cdep_soft = f"{tmp}/depth_soft"
+        cfg.save_directory_nic = f"{tmp}/nic"
+        for d in (cfg.save_directory_Cdep_soft, cfg.save_directory_nic):
+            os.makedirs(d)
+        depth_fn = est.depth_fn()
+        out = {}
+        for kind in ("depth-soft", "nic"):
+            cap = build_captioner(kind, VOCAB, device=dev)
+            cap.init(torch.Generator().manual_seed(7))
+            save_dir, files = write_sets(kind, cap, cfg,
+                                         [200 + i for i in range(3)])
+            frozen = cap.backbone if kind == "nic" else cap.encoder
+            calls = call_counter(frozen)
+            kw = {"depth_fn": depth_fn} if kind == "depth-soft" else {}
+
+            def loader(i, save_dir=save_dir, files=files, cap=cap):
+                return cli.load_eval_components(save_dir, files[i], cap)
+
+            def score(mode, **extra):
+                rec = []
+                real = ev.load_textfiles
+
+                def texts(refs, hypos):
+                    rec.append(list(hypos))
+                    return real(refs, hypos)
+                ev.load_textfiles = texts
+                try:
+                    with PerSet(ev, calls) as per:
+                        t0 = time.perf_counter()
+                        scores = ev.evaluate(kind, "coco", cap,
+                                             per.loader(loader), data,
+                                             w2i, i2w, cfg, num_sets=3,
+                                             quiet=True, **kw, **extra)
+                        total = time.perf_counter() - t0
+                finally:
+                    ev.load_textfiles = real
+                return {"scores": scores, "hypos": rec, "sets": per.rows,
+                        "total": total, "mode": mode}
+
+            modes = [("off", {"depth_eval_cache": False}), ("on", {})]
+            if kind == "depth-soft":
+                store = f"{tmp}/store"
+                modes += [("disk fill", {"eval_cache_dir": store}),
+                          ("disk replay", {"eval_cache_dir": store})]
+            runs, launches = counted(tag, lambda: [score(m, **extra)
+                                                   for m, extra in modes])
+            out[kind] = launches
+            base = runs[0]
+            for r in runs[1:]:
+                if r["hypos"] != base["hypos"] or r["scores"] != base[
+                        "scores"]:
+                    raise RuntimeError(f"{tag} {kind}: cache {r['mode']} "
+                                       f"differs from cache off")
+            if base["hypos"][0] == base["hypos"][1]:
+                raise RuntimeError(f"{tag} {kind}: sets 1 and 2 agree")
+            chunks = -(-SCORE_IMAGES // SCORE_BATCH)
+            k5 = DPT_BLOCKS * chunks if kind == "depth-soft" else 0
+            want = {"off": ([k5] * 3, [chunks] * 3),
+                    "on": ([k5, 0, 0], [chunks, 0, 0]),
+                    "disk fill": ([k5, 0, 0], [chunks, 0, 0]),
+                    "disk replay": ([0, 0, 0], [0, 0, 0])}
+            for r in runs:
+                got = ([s["k5"] for s in r["sets"]],
+                       [s["encoder"] for s in r["sets"]])
+                if got != want[r["mode"]]:
+                    raise RuntimeError(f"{tag} {kind} cache {r['mode']}: "
+                                       f"(K5, encoder) per set {got}, "
+                                       f"expected {want[r['mode']]}")
+            decode = "decode_seq" if kind == "depth-soft" else "nic_seq"
+            if launches[decode] != chunks * 3 * len(runs):
+                raise RuntimeError(f"{tag} {kind}: launches {launches}")
+            for r in runs:
+                log(tag, f"{kind} cache {r['mode']}: " + "; ".join(
+                    f"set {i}: caption {s['caption']:.3f} s, set-up "
+                    f"{s['prep']:.3f} s (guards and copy; the copy "
+                    f"{s['copy']:.3f} s, encoder "
+                    f"{'copied' if s['copied'] else 'kept'}), K5 "
+                    f"{s['k5']}, encoder chunks {s['encoder']}"
+                    for i, s in enumerate(r["sets"], 1))
+                    + f"; {r['total']:.2f} s for 3 sets [{smi}]")
+            # the set-up each later set had before the guard: every tree
+            # copied to the card, the frozen encoder included
+            trees = loader(2)
+            t0 = time.perf_counter()
+            ev.params_from_jax(cap, trees[1], {"encoder": trees[0]},
+                               trees[2])
+            torch.cuda.synchronize()
+            full = time.perf_counter() - t0
+            later = [s["prep"] for r in runs for s in r["sets"][1:]]
+            log(tag, f"{kind}: a later set's set-up with the whole copy "
+                f"(the encoder included, as before the guard) "
+                f"{full:.3f} s; with the guard (equal trees: the encoder "
+                f"kept) {min(later):.3f}-{max(later):.3f} s over sets 2-3 "
+                f"of every mode; hypotheses and 7 scores == across "
+                f"{[r['mode'] for r in runs]}; launches {launches}")
+            del cap
+            torch.cuda.empty_cache()
+        entries = os.listdir(f"{tmp}/store")
+        mb = sum(os.path.getsize(os.path.join(dp, f)) for dp, _, fs in
+                 os.walk(f"{tmp}/store") for f in fs) / 1e6
+        log(tag, f"disk store: {entries} ({mb:.1f} MB: features and depth "
+            f"maps of {SCORE_IMAGES} images)")
+        return {k: sum(v[k] for v in out.values())
+                for k in out["depth-soft"]}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_caches_and_training(smi, est):
+    """Phases 27-31 (``PATHS``' last five)."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+    from depth_image_captioning_pub_torch.data.synthetic import (
+        SyntheticCaptions)
+    w2i, i2w = train_vocab()
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=build, prefix="caches_")
+    data = SyntheticCaptions(FC_IMAGES + FC_VAL, seed=41)
+    root = {"dir": tmp, "fc_train": _Rows(data, range(FC_IMAGES)),
+            "fc_val": _Rows(data, range(FC_IMAGES, FC_IMAGES + FC_VAL)),
+            "short": _Rows(data, range(SHORT_IMAGES)),
+            "val": _Rows(data, range(FC_IMAGES, FC_IMAGES + TRAIN_VAL))}
+    try:
+        return {"train-feature-cache": phase_train_feature_cache(smi, root,
+                                                                  w2i),
+                "train-accum": phase_train_accum(smi, est, root, w2i),
+                "train-bf16": phase_train_bf16(smi, root, w2i, i2w),
+                "train-profile": phase_train_profile(smi, root),
+                "score-cached": phase_score_cached(smi, est)}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 class _Rows:
     """Rows ``rows`` of an in-memory captions set, as a dataset."""
 
@@ -4187,6 +4836,7 @@ def main():
     by_path.update(phase_train(smi, est))
     by_path.update(phase_reference_weights(smi, base_cap, est))
     by_path.update(phase_resume(smi))
+    by_path.update(phase_caches_and_training(smi, est))
     if tuple(by_path) != PATHS:
         raise RuntimeError(f"paths run {tuple(by_path)}, expected {PATHS}")
     kernels = [step, seq, nic_k, beam_k, vit]

@@ -26,8 +26,12 @@ training:
 ``models``    ResNet-152 grid encoder, DPT-hybrid depth estimator, depth
               CNN encoder, attention decoder (add fusion), NIC decoder,
               captioner.
-``engine``    ``make_caption_fn`` / ``generate_captions`` / ``evaluate``;
-              ``losses``, ``steps``, ``depth_cache``, ``train``.
+``engine``    ``make_caption_fn`` / ``generate_captions`` / ``evaluate``
+              (with the set cache of the frozen stages) and
+              ``eval_cache_store`` (its disk store); ``losses``,
+              ``steps`` (with gradient accumulation), ``depth_cache``,
+              ``feature_cache`` (the train-time frozen features),
+              ``train``.
 ``pipeline``  ``CaptionPipeline``: uint8 arrays in, captions out;
               ``from_experiment`` loads a checkpoint set.
 ``utils``     ``jax_bridge`` (``params_from_jax`` / ``params_to_jax`` /

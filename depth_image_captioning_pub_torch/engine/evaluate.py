@@ -1,7 +1,8 @@
 """Batched caption generation and scored evaluation (counterpart of the
 JAX ``engine/evaluate.py``): every kind (NIC; base, depth and mdepth with
 soft or hard attention), greedy, beam search or stochastic sampling, on
-one device, no caches.
+one device, with the JAX package's caches of the frozen stages across
+checkpoint sets.
 
 The hot path is ``make_caption_fn``: uint8 NHWC images -> /255 on the
 device, then (a) ImageNet normalization -> frozen RGB encoder and, for a
@@ -10,21 +11,38 @@ encoder; the decoder fuses (b) into (a) and runs the whole-sequence greedy
 kernel, the whole-search beam kernel or the sampling loop of one-step
 kernels (soft attention), or its loops of PyTorch ops (hard attention, on
 Gumbel region noise) -> token IDs. NIC's encoder is the backbone, a global
-pool and the projection to the LSTM's input.
+pool and the projection to the LSTM's input. The function is two stages:
+``caption_fn.frozen`` (images -> an entry of the frozen stages' outputs:
+``feats`` [B, 196, 2048] and, for depth kinds, ``depth_maps`` [B, 224,
+224, 1] f32; NIC's ``pooled`` [B, 2048]) and ``caption_fn.decode`` (an
+entry -> tokens: the trainable stages).
 
 ``evaluate`` scores checkpoint sets: for each, the trees from the loader
 go into the captioner's modules, ``generate_captions`` captions the
 dataset and the seven metrics of ``metrics.score`` are appended to their
 lists. Hard attention draws each set's noise from a generator seeded with
 the set's index, as the JAX package keys each set with
-``PRNGKey(set_idx)``. The JAX package's caches of the frozen stages across
-sets are not ported; it documents them as bit-identical to a recompute,
-which is what each set runs here.
+``PRNGKey(set_idx)``.
+
+The frozen stages (the RGB encoder, the DPT) depend on the images alone,
+so ``evaluate`` runs them on set 1 only: with more than one set (or a disk
+store) it keeps set 1's entries on the device and replays them for the
+sets after it, which then run only their trainable stages (no dataset
+pass, no image decode or transfer, no encoder, no DPT: K5 does not
+launch). A set whose frozen encoder differs from set 1's recomputes its
+features and still replays the depth maps (the DPT is shared).
+``$DCAP_EVAL_CACHE_GB`` (default 8) bounds the entries' device bytes;
+above it only the depth maps are kept. ``eval_cache_dir`` also writes
+the entries to disk (``engine/eval_cache_store.py``), so that a later run
+replays them from there. Replayed entries are the same tensors a
+recompute gives, so hypotheses and scores are equal; hard attention still
+draws each set's region noise from the set's own seed.
 """
 
 from __future__ import annotations
 
 import functools
+import os
 import pickle
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -43,7 +61,9 @@ from depth_image_captioning_pub_torch.ops.image_ops import (
     imagenet_normalize, to_unit_float)
 from depth_image_captioning_pub_torch.ops.kernels.beam_seq import (
     check_beam_size)
-from depth_image_captioning_pub_torch.utils.jax_bridge import params_from_jax
+from depth_image_captioning_pub_torch.ops.pooling import global_avg_pool
+from depth_image_captioning_pub_torch.utils.jax_bridge import (
+    flatten_tree, params_from_jax)
 
 METRIC_KEYS = ("Bleu_1", "Bleu_2", "Bleu_3", "Bleu_4", "METEOR", "ROUGE_L",
                "CIDEr")
@@ -77,6 +97,11 @@ def make_caption_fn(cap: Captioner, start_id: int, max_length: int = 30,
     Hard attention draws its region noise from ``generator`` too, or from
     the ``att_noise(t, shape)`` hook that a call passes (``fn(images,
     att_noise=...)``; the tests replay the JAX package's draws through it).
+
+    The function's two stages are ``fn.frozen(images, depth_maps=None)``
+    -> an entry of the frozen stages' outputs and ``fn.decode(entry,
+    att_noise=None)`` -> tokens; ``fn(images)`` is the one after the
+    other.
     """
     if beam_size > 1 and cap.spec.attention == "soft":
         check_beam_size(beam_size, cap.device)
@@ -96,8 +121,14 @@ def make_caption_fn(cap: Captioner, start_id: int, max_length: int = 30,
 
     if cap.spec.is_nic:
         @torch.inference_mode()
-        def nic_caption_fn(images: torch.Tensor) -> torch.Tensor:
-            feats = encoder(imagenet_normalize(to_unit_float(images)))
+        def nic_frozen(images: torch.Tensor) -> Dict[str, torch.Tensor]:
+            x = imagenet_normalize(to_unit_float(images))
+            return {"pooled": global_avg_pool(cap.backbone(x))}
+
+        @torch.inference_mode()
+        def nic_decode(entry: Dict[str, torch.Tensor],
+                       att_noise: Optional[AttNoise] = None) -> torch.Tensor:
+            feats = cap.projection(entry["pooled"])
             if beam_size > 1:
                 return cap.decoder.beam_sample(
                     feats, end_id, beam_size=beam_size,
@@ -106,24 +137,35 @@ def make_caption_fn(cap: Captioner, start_id: int, max_length: int = 30,
             if sampling is not None:
                 return sample(feats, generator, max_length=max_length)
             return sample(feats, max_length=max_length)
-        return nic_caption_fn
+        return _two_stage(nic_frozen, nic_decode)
 
     hard = cap.spec.attention == "hard"
 
     @torch.inference_mode()
-    def caption_fn(images: torch.Tensor,
-                   att_noise: Optional[AttNoise] = None) -> torch.Tensor:
+    def frozen(images: torch.Tensor,
+               depth_maps: Optional[torch.Tensor] = None
+               ) -> Dict[str, Optional[torch.Tensor]]:
+        """The frozen stages: {"feats", "depth_maps"} (None without
+        depth); ``depth_maps`` given (a replayed set) skips the DPT."""
+        images = to_unit_float(images)
+        feats = encoder(imagenet_normalize(images))
+        if depth_encoder is not None and depth_maps is None:
+            depth_maps = depth_fn(images)
+        return {"feats": feats, "depth_maps": depth_maps}
+
+    @torch.inference_mode()
+    def decode(entry: Dict[str, Optional[torch.Tensor]],
+               att_noise: Optional[AttNoise] = None) -> torch.Tensor:
         noise = {}        # hard attention's region noise
         if hard:
             if att_noise is None and generator is None:
                 raise ValueError(f"{cap.spec.kind} needs a generator or an "
                                  f"att_noise hook for its region noise")
             noise = {"att_noise": att_noise}
-        images = to_unit_float(images)
-        feats = encoder(imagenet_normalize(images))
+        feats = entry["feats"]
         dep = None
         if depth_encoder is not None:
-            dep = depth_encoder(depth_fn(images))
+            dep = depth_encoder(entry["depth_maps"])
         if sampling is not None:     # the generator draws the tokens too
             return sample(feats, start_id, generator, dep,
                           max_length=max_length, **noise)[0]
@@ -137,6 +179,16 @@ def make_caption_fn(cap: Captioner, start_id: int, max_length: int = 30,
         return sample(feats, start_id, dep, max_length=max_length,
                       end_id=end_id, **noise)
 
+    return _two_stage(frozen, decode)
+
+
+def _two_stage(frozen: Callable, decode: Callable) -> Callable:
+    """fn(images, att_noise=None) = decode(frozen(images), att_noise), with
+    the two stages as ``fn.frozen`` and ``fn.decode``."""
+    def caption_fn(images: torch.Tensor,
+                   att_noise: Optional[AttNoise] = None) -> torch.Tensor:
+        return decode(frozen(images), att_noise)
+    caption_fn.frozen, caption_fn.decode = frozen, decode
     return caption_fn
 
 
@@ -144,16 +196,31 @@ def generate_captions(caption_fn: Callable, dataset,
                       word_to_id: Dict[str, int],
                       id_to_word: Dict[int, str], batch_size: int,
                       device, prefetch: int = 3,
-                      att_noise: Optional[Callable[[int], AttNoise]] = None
+                      att_noise: Optional[Callable[[int], AttNoise]] = None,
+                      set_cache: Optional[Dict] = None,
+                      set_cache_mode: Optional[str] = None,
+                      depth_cache: Optional[List] = None,
+                      depth_cache_mode: Optional[str] = None
                       ) -> Tuple[List[str], List[List[str]]]:
     """Caption every image of ``dataset`` (anything with ``load_image(i)``
-    or ``load_images_batch``, ``captions(i)`` and ``len``); returns
-    (hypotheses, references). ``att_noise(i)``, when given, is batch i's
-    region-noise hook (hard attention), passed to ``caption_fn``.
+    or ``load_images_batch``, ``captions(i)`` and ``len``) with
+    ``caption_fn`` from ``make_caption_fn``, each batch through its
+    ``frozen`` then its ``decode`` stage; returns (hypotheses,
+    references). ``att_noise(i)``, when given, is batch i's region-noise
+    hook (hard attention), passed to ``caption_fn.decode``.
 
     Batches keep one shape (the last is padded with repeated images, which
     are dropped before detokenization). Detokenizing batch i overlaps the
     device's work on batch i+1: the host waits one batch behind.
+
+    The caches: ``set_cache``
+    ({"entries": [...], "refs": ...}) in mode "fill" keeps each batch's
+    frozen-stage entry and the references; in mode "use" the batches are
+    its entries, through ``caption_fn.decode`` only, and the dataset is
+    not read. ``depth_cache`` (a list) in mode "fill" keeps each batch's
+    depth maps; in mode "use" batch i's frozen stage takes
+    ``depth_cache[i]`` instead of running the DPT. Batching is
+    deterministic, so batch i covers the same images on every pass.
     """
     hypos: List[str] = []
     refs: List[List[str]] = []
@@ -164,22 +231,65 @@ def generate_captions(caption_fn: Callable, dataset,
         for row in tokens.cpu().numpy()[:n_valid]:
             hypos.append(ids_to_caption(row, id_to_word))
 
+    def noise(i):
+        return {} if att_noise is None else {"att_noise": att_noise(i)}
+
+    if set_cache_mode == "use":
+        for i, (entry, n_valid) in enumerate(set_cache["entries"]):
+            pending.append((caption_fn.decode(entry, **noise(i)), n_valid))
+            if len(pending) > 1:
+                drain(pending.pop(0))
+        for entry in pending:
+            drain(entry)
+        return hypos, [list(r) for r in set_cache["refs"]]
+
     it = Prefetcher(eval_batches(dataset, word_to_id, batch_size),
                     depth=prefetch)
     try:
         for i, batch in enumerate(it):
             refs.extend(batch.references)
-            images = torch.from_numpy(np.ascontiguousarray(batch.images))
-            kw = {} if att_noise is None else {"att_noise": att_noise(i)}
-            tokens = caption_fn(images.to(device), **kw)
-            pending.append((tokens, int(batch.pad_mask.sum())))
+            images = torch.from_numpy(np.ascontiguousarray(
+                batch.images)).to(device)
+            n_valid = int(batch.pad_mask.sum())
+            entry = (caption_fn.frozen(images, depth_maps=depth_cache[i])
+                     if depth_cache_mode == "use"
+                     else caption_fn.frozen(images))
+            if set_cache_mode == "fill":
+                set_cache["entries"].append((entry, n_valid))
+            elif depth_cache_mode == "fill":
+                depth_cache.append(entry["depth_maps"])
+            pending.append((caption_fn.decode(entry, **noise(i)), n_valid))
             if len(pending) > 1:
                 drain(pending.pop(0))
     finally:
         it.close()   # stops the loader thread if a batch raised
     for entry in pending:
         drain(entry)
+    if set_cache_mode == "fill":
+        set_cache["refs"] = [list(r) for r in refs]
     return hypos, refs
+
+
+def _trees_equal(ref, other) -> bool:
+    """Exact equality of two nested-dict trees of arrays: the same paths
+    and every array equal (the guard of the frozen-feature cache: set k
+    replays set 1's features only with an identical encoder)."""
+    a, b = flatten_tree(ref), flatten_tree(other)
+    return a.keys() == b.keys() and all(
+        a[k].shape == b[k].shape and np.array_equal(a[k], b[k]) for k in a)
+
+
+def _projected_cache_bytes(cap: Captioner, cfg, n_images: int,
+                           uses_depth: bool) -> int:
+    """Upper bound of the set cache's device bytes: attention kinds keep
+    [regions, dim_encoder] features an image (and f32 depth maps), NIC its
+    [dim_encoder] pooled features."""
+    itemsize = torch.finfo(cap.encoder_dtype).bits // 8
+    regions = 1 if cap.spec.is_nic else int(cfg.enc_img_size) ** 2
+    per_img = regions * int(cfg.dim_encoder) * itemsize
+    if uses_depth:
+        per_img += 224 * 224 * 4
+    return per_img * n_images
 
 
 def evaluate(kind: str, use_data: str, cap: Captioner,
@@ -189,7 +299,9 @@ def evaluate(kind: str, use_data: str, cap: Captioner,
              depth_fn: Optional[Callable] = None, num_sets: int = 3,
              scores_pickle: Optional[str] = None, beam_size: int = 1,
              quiet: bool = False,
-             att_noise: Optional[Callable[[int, int], AttNoise]] = None
+             att_noise: Optional[Callable[[int, int], AttNoise]] = None,
+             depth_eval_cache: bool = True,
+             eval_cache_dir: Optional[str] = None
              ) -> Dict[str, List[float]]:
     """Score ``num_sets`` checkpoint sets of one configuration (``kind``
     and ``use_data`` name it, as in the JAX package); returns, and pickles
@@ -197,11 +309,24 @@ def evaluate(kind: str, use_data: str, cap: Captioner,
 
     ``checkpoint_loader(set_index)`` (1-based) -> (frozen encoder,
     trainable params, batch_stats) trees, e.g. ``cli.load_eval_components``.
-    Each set's trees are copied into ``cap`` (``params_from_jax``) and the
-    dataset is captioned on ``cap``'s device in ``cfg.batch_size`` batches
-    of at most ``cfg.max_length`` tokens: greedy decode with the <end>
-    exit, or beam search when ``beam_size > 1``.
-    Depth kinds need ``depth_fn``, as ``make_caption_fn`` does.
+    Each set's trees are copied into ``cap`` (``params_from_jax``; the
+    frozen encoder only where the set runs it and it differs from the one
+    already on the card) and the dataset is captioned on ``cap``'s device
+    in ``cfg.batch_size`` batches of at most ``cfg.max_length`` tokens:
+    greedy decode with the <end> exit, or beam search when ``beam_size >
+    1``. Depth kinds need ``depth_fn``, as ``make_caption_fn`` does.
+
+    ``depth_eval_cache`` (with ``num_sets`` > 1 or ``eval_cache_dir``):
+    set 1's frozen-stage entries replay for the later sets whose frozen
+    encoder equals set 1's (``_trees_equal``), and its depth maps for every
+    later set; off, every set recomputes every stage, as the reference
+    does. ``$DCAP_EVAL_CACHE_GB`` (default 8) bounds the entries' device
+    bytes (``_projected_cache_bytes``): above it, only depth maps are kept.
+    ``eval_cache_dir`` persists set 1's entries (``eval_cache_store``),
+    keyed by the dataset and the frozen weights (the DPT's through
+    ``depth_fn.model``, which a depth kind's ``depth_fn`` must then carry:
+    ValueError otherwise), so that a later run replays them, also with one
+    set.
 
     Hard attention draws set k's region noise from one ``torch.Generator``
     on ``cap.device`` seeded with k, which advances batch by batch (the
@@ -218,15 +343,97 @@ def evaluate(kind: str, use_data: str, cap: Captioner,
                                  end_id=word_to_id[SPECIAL.end],
                                  beam_size=beam_size, generator=generator)
     scores: Dict[str, List[float]] = {k: [] for k in METRIC_KEYS}
+    uses_depth = cap.spec.uses_depth
+    cache_on = depth_eval_cache and (num_sets > 1
+                                     or eval_cache_dir is not None)
+    set_cache: Optional[Dict] = None
+    if cache_on:
+        projected = _projected_cache_bytes(cap, cfg, len(dataset),
+                                           uses_depth)
+        limit = float(os.environ.get("DCAP_EVAL_CACHE_GB", "8")) * 2**30
+        if projected <= limit:
+            set_cache = {"entries": [], "refs": None}
+        elif not quiet:
+            print(f"eval set cache would need ~{projected / 2**30:.1f} GB "
+                  f"(> DCAP_EVAL_CACHE_GB={limit / 2**30:g}); caching "
+                  f"{'depth maps only' if uses_depth else 'nothing'}")
+    # the depth-only fallback: the DPT is shared by every set, so its maps
+    # need no equality guard
+    depth_cache: Optional[List] = [] if (
+        cache_on and uses_depth and set_cache is None) else None
+    store = dkey = mkey = None
+    if set_cache is not None and eval_cache_dir:
+        from depth_image_captioning_pub_torch.engine import eval_cache_store
+        dkey = eval_cache_store.data_key(dataset, cfg.batch_size,
+                                         cfg.batch_size)
+        if dkey is None:
+            if not quiet:
+                print("eval cache dir: the dataset has no image paths to "
+                      "fingerprint; disk persistence off")
+        elif uses_depth and getattr(depth_fn, "model", None) is None:
+            # the store's key must hold the DPT's weights, or another DPT
+            # would replay these maps
+            raise ValueError("eval_cache_dir with a depth kind needs the "
+                             "DPT whose weights key the store as "
+                             "depth_fn.model (DPTDepthEstimator.depth_fn() "
+                             "sets it)")
+        else:
+            store = eval_cache_store
+    if num_sets == 1 and store is None:
+        # nothing would replay what a single set fills
+        set_cache = depth_cache = None
+    enc_ref = on_card = None
     for set_idx in range(1, num_sets + 1):
         frozen_enc, params, batch_stats = checkpoint_loader(set_idx)
-        params_from_jax(cap, params, {"encoder": frozen_enc}, batch_stats)
+        set_mode = depth_mode = None
+        if set_idx == 1:
+            if set_cache is not None:
+                enc_ref, set_mode = frozen_enc, "fill"
+                if store is not None:
+                    mkey = store.model_key(
+                        frozen_enc, depth_fn.model.state_dict()
+                        if uses_depth else None,
+                        cap.encoder_dtype, cfg, kind)
+                    loaded = store.load(eval_cache_dir, dkey, mkey,
+                                        cap.device, quiet=quiet)
+                    if loaded is not None:
+                        set_cache.update(loaded)
+                        set_mode = "use"
+            elif depth_cache is not None:
+                depth_mode = "fill"
+        elif set_cache is not None:
+            if _trees_equal(enc_ref, frozen_enc):
+                set_mode = "use"
+            else:
+                # this set's frozen encoder differs: its features are
+                # recomputed, the shared DPT's maps still replay
+                if not quiet:
+                    print(f"set {set_idx}: encoder params differ from set "
+                          f"1; frozen-feature cache skipped")
+                if uses_depth:
+                    depth_mode = "use"
+                    depth_cache = [aux["depth_maps"]
+                                   for aux, _ in set_cache["entries"]]
+        elif depth_cache is not None:
+            depth_mode = "use"
+        # the frozen encoder goes to the card only where this set runs it
+        # and the card does not hold it already
+        load_encoder = set_mode != "use" and not (
+            on_card is not None and _trees_equal(on_card, frozen_enc))
+        params_from_jax(cap, params, {"encoder": frozen_enc}, batch_stats,
+                        load_encoder=load_encoder)
+        if load_encoder:
+            on_card = frozen_enc
         if generator is not None:
             generator.manual_seed(set_idx)
         hypos, refs = generate_captions(
             caption_fn, dataset, word_to_id, id_to_word, cfg.batch_size,
             cap.device, att_noise=None if att_noise is None
-            else functools.partial(att_noise, set_idx))
+            else functools.partial(att_noise, set_idx),
+            set_cache=set_cache, set_cache_mode=set_mode,
+            depth_cache=depth_cache, depth_cache_mode=depth_mode)
+        if set_idx == 1 and set_mode == "fill" and store is not None:
+            store.save(eval_cache_dir, dkey, mkey, set_cache, quiet=quiet)
         result = score(*load_textfiles(refs, hypos))
         if not quiet:
             print(result)

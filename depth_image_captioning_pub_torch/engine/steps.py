@@ -13,7 +13,22 @@ the batch's statistics (``DepthCNNEncoder(train=True)``). AdamW is
 ``torch.optim.AdamW`` with the JAX package's ``optax.adamw`` settings (lr
 from the config, betas 0.9/0.999, eps 1e-8, weight decay 0.01 on every
 trainable tensor, biases and BN scales included) and a constant learning
-rate, as the JAX trainer runs it. Gradient accumulation is not ported.
+rate, as the JAX trainer runs it.
+
+``features`` (the train-time feature cache, ``engine/feature_cache.py``)
+replaces the frozen stage by its cached output. ``accum_steps`` k > 1
+accumulates the gradient over k microbatches before the one AdamW update,
+as the JAX package's ``_accum_grads``: microbatch j holds the batch's rows
+``j::k`` (a strided split), each microbatch's loss is normalized by the
+whole batch's token and row counts (``losses.caption_loss(denoms=)``), so
+the summed gradients and metrics are the one-shot step's up to rounding,
+and each microbatch's backward frees its activations before the next
+forward. The depth CNN's BatchNorms move their running statistics
+microbatch by microbatch, in order. Each microbatch draws its own noise:
+from the generator in turn, or from the hooks, which then take the
+microbatch index first (``dropout_keep(j, t, shape)``, ``att_noise(j, t,
+shape)``: the tests replay the JAX step's ``jax.random.split(rng, k)``
+through them).
 """
 
 from __future__ import annotations
@@ -24,14 +39,13 @@ import numpy as np
 import torch
 
 from depth_image_captioning_pub_torch.engine.losses import (
-    Metrics, caption_loss, nic_loss)
+    Metrics, caption_loss, nic_loss, token_mask)
 from depth_image_captioning_pub_torch.models.captioner import Captioner
 from depth_image_captioning_pub_torch.ops.image_ops import (
     imagenet_normalize, to_unit_float)
 from depth_image_captioning_pub_torch.ops.pooling import global_avg_pool
 from depth_image_captioning_pub_torch.ops.precision import full_f32
 
-TRAIN_REST_ITEM = "ROADMAP.md, Queue A item 7"
 DeviceBatch = Dict[str, torch.Tensor]
 
 
@@ -43,20 +57,68 @@ def make_optimizer(cap: Captioner, lr: float,
                              weight_decay=weight_decay)
 
 
-def check_accum_steps(accum_steps: int) -> None:
-    if accum_steps != 1:
-        raise NotImplementedError(
-            f"gradient accumulation (accum_steps={accum_steps}) is not "
-            f"ported yet ({TRAIN_REST_ITEM}.3)")
+def check_accum_steps(accum_steps: int,
+                      batch_size: Optional[int] = None) -> None:
+    """Raise ValueError unless ``accum_steps`` >= 1 divides ``batch_size``
+    (when given)."""
+    if accum_steps < 1:
+        raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+    if batch_size is not None and batch_size % accum_steps:
+        raise ValueError(f"batch size {batch_size} not divisible by "
+                         f"accum_steps={accum_steps}")
 
 
-def batch_to_device(batch, device, depth=None) -> DeviceBatch:
-    """A ``data/pipeline.Batch`` as device tensors: images (uint8 NHWC),
+def accum_pad_to(batch_size: int, accum_steps: int) -> int:
+    """The padded batch size of a run with ``accum_steps`` microbatches:
+    ``batch_size`` rounded up to a multiple of it."""
+    check_accum_steps(accum_steps)
+    return -(-batch_size // accum_steps) * accum_steps
+
+
+def _micro(batch: DeviceBatch, j: int, k: int) -> DeviceBatch:
+    """Microbatch j of k: rows ``j::k`` of every tensor."""
+    return {name: t[j::k] for name, t in batch.items()}
+
+
+def _micro_hook(hook, j: int):
+    return None if hook is None else (
+        lambda t, shape: hook(j, t, shape))
+
+
+def caption_denoms(batch: DeviceBatch):
+    """(token_total, example_total): the whole batch's normalizers of
+    ``caption_loss`` (the JAX ``_global_denoms``)."""
+    captions, pad = batch["captions"], batch.get("pad_mask")
+    mask = token_mask(batch["lengths"], captions.shape[1] - 1, pad)
+    tok = torch.clamp(mask.sum(), min=1)
+    ex = (torch.clamp(pad.sum().to(torch.float32), min=1.0)
+          if pad is not None else
+          torch.tensor(float(captions.shape[0]), device=captions.device))
+    return tok, ex
+
+
+def nic_denom(batch: DeviceBatch) -> torch.Tensor:
+    """The whole batch's token count of ``nic_loss`` (targets t <
+    length)."""
+    captions, pad = batch["captions"], batch.get("pad_mask")
+    t = torch.arange(captions.shape[1], device=captions.device)[None, :]
+    mask = t < batch["lengths"][:, None]
+    if pad is not None:
+        mask = mask & pad[:, None]
+    return torch.clamp(mask.sum(), min=1)
+
+
+def batch_to_device(batch, device, depth=None,
+                    images: bool = True) -> DeviceBatch:
+    """A ``data/pipeline.Batch`` as device tensors: images (uint8 NHWC;
+    left out with ``images=False``, for a step fed cached features),
     captions, lengths, pad_mask and, for depth kinds, ``depth`` (the
     provider's [B, 224, 224, 1] maps, numpy or a tensor)."""
+    names = (("images",) if images else ()) + ("captions", "lengths",
+                                                "pad_mask")
     out = {name: torch.from_numpy(np.ascontiguousarray(
         getattr(batch, name))).to(device, non_blocking=True)
-        for name in ("images", "captions", "lengths", "pad_mask")}
+        for name in names}
     if depth is not None:
         if isinstance(depth, np.ndarray):
             depth = torch.from_numpy(np.ascontiguousarray(depth))
@@ -79,10 +141,11 @@ def attention_loss(cap: Captioner, features: torch.Tensor,
                    batch: DeviceBatch, *, train: bool, temp=1.0,
                    alpha_reg: float = 0.0, hard_eval_sampling: bool = False,
                    generator: Optional[torch.Generator] = None,
-                   dropout_keep=None, att_noise=None):
+                   dropout_keep=None, att_noise=None, denoms=None):
     """(loss, metrics) of the attention kinds on frozen ``features``: the
     depth encoder (batch statistics when ``train``), the teacher-forced
-    decoder and ``caption_loss``."""
+    decoder and ``caption_loss`` (``denoms``: a whole batch's
+    normalizers, for a microbatch)."""
     dep = None
     if cap.spec.uses_depth:
         dep = cap.depth_encoder_apply(train=train)(batch["depth"])
@@ -91,19 +154,20 @@ def attention_loss(cap: Captioner, features: torch.Tensor,
         hard_eval_sampling=hard_eval_sampling, generator=generator,
         dropout_keep=dropout_keep, att_noise=att_noise)
     return caption_loss(logits, batch["captions"], batch["lengths"], alphas,
-                        batch["pad_mask"], alpha_reg)
+                        batch["pad_mask"], alpha_reg, denoms=denoms)
 
 
 def nic_loss_of(cap: Captioner, pooled: torch.Tensor, batch: DeviceBatch,
                 *, train: bool, generator: Optional[torch.Generator] = None,
-                dropout_keep=None):
+                dropout_keep=None, denom=None):
     """(loss, metrics) of NIC on the pooled backbone features: the
-    projection, the teacher-forced decoder and ``nic_loss``."""
+    projection, the teacher-forced decoder and ``nic_loss`` (``denom``: a
+    whole batch's token count, for a microbatch)."""
     logits = cap.decoder(cap.projection(pooled), batch["captions"],
                          train=train, generator=generator,
                          dropout_keep=dropout_keep)
     return nic_loss(logits, batch["captions"], batch["lengths"],
-                    batch["pad_mask"])
+                    batch["pad_mask"], denom=denom)
 
 
 def _apply(optimizer: torch.optim.Optimizer, loss: torch.Tensor) -> None:
@@ -116,20 +180,48 @@ def _detached(metrics: Metrics) -> Metrics:
     return {k: v.detach() for k, v in metrics.items()}
 
 
+def _accumulate(optimizer: torch.optim.Optimizer, loss_of, batch,
+                features: torch.Tensor, accum_steps: int) -> Metrics:
+    """Backward of ``loss_of(j, microbatch, features rows)`` for each of
+    the k microbatches in order, the gradients summed in ``.grad``, then
+    one optimizer step; returns the summed metrics."""
+    check_accum_steps(accum_steps, features.shape[0])
+    optimizer.zero_grad(set_to_none=True)
+    total: Optional[Metrics] = None
+    for j in range(accum_steps):
+        loss, metrics = loss_of(j, _micro(batch, j, accum_steps),
+                                features[j::accum_steps])
+        loss.backward()
+        metrics = _detached(metrics)
+        total = metrics if total is None else {
+            k: total[k] + v for k, v in metrics.items()}
+    optimizer.step()
+    return total
+
+
 @full_f32()
 def attention_train_step(cap: Captioner, optimizer: torch.optim.Optimizer,
                          batch: DeviceBatch, *, temp=1.0,
                          alpha_reg: float = 0.0,
                          generator: Optional[torch.Generator] = None,
                          dropout_keep=None, att_noise=None,
-                         features: Optional[torch.Tensor] = None
-                         ) -> Metrics:
+                         features: Optional[torch.Tensor] = None,
+                         accum_steps: int = 1) -> Metrics:
     """One AdamW step of base-*, depth-* and mdepth-*: dropout, and hard
     attention's Gumbel-softmax at temperature ``temp``, from
     ``generator`` or the hooks. ``features`` skips the frozen encoder
-    (its output on ``batch["images"]``)."""
+    (its output on ``batch["images"]``). ``accum_steps`` > 1 accumulates
+    over that many microbatches (the hooks then take the microbatch index
+    first)."""
     if features is None:
         features = frozen_features(cap, batch["images"])
+    if accum_steps > 1:
+        denoms = caption_denoms(batch)
+        return _accumulate(optimizer, lambda j, mb, feats: attention_loss(
+            cap, feats, mb, train=True, temp=temp, alpha_reg=alpha_reg,
+            generator=generator, dropout_keep=_micro_hook(dropout_keep, j),
+            att_noise=_micro_hook(att_noise, j), denoms=denoms),
+            batch, features, accum_steps)
     loss, metrics = attention_loss(
         cap, features, batch, train=True, temp=temp, alpha_reg=alpha_reg,
         generator=generator, dropout_keep=dropout_keep, att_noise=att_noise)
@@ -142,12 +234,17 @@ def attention_train_step(cap: Captioner, optimizer: torch.optim.Optimizer,
 def attention_eval_step(cap: Captioner, batch: DeviceBatch, *,
                         alpha_reg: float = 0.0,
                         generator: Optional[torch.Generator] = None,
-                        att_noise=None) -> Metrics:
+                        att_noise=None,
+                        features: Optional[torch.Tensor] = None
+                        ) -> Metrics:
     """Validation loss, teacher forced: BN on running statistics, no
     dropout; hard attention takes Gumbel-max regions (the JAX
-    ``hard_eval_sampling``) from ``generator`` or ``att_noise``."""
+    ``hard_eval_sampling``) from ``generator`` or ``att_noise``.
+    ``features``: the cached frozen features of ``batch["images"]``."""
+    if features is None:
+        features = frozen_features(cap, batch["images"])
     _, metrics = attention_loss(
-        cap, frozen_features(cap, batch["images"]), batch, train=False,
+        cap, features, batch, train=False,
         alpha_reg=alpha_reg,
         hard_eval_sampling=cap.spec.attention == "hard",
         generator=generator, att_noise=att_noise)
@@ -159,12 +256,20 @@ def nic_train_step(cap: Captioner, optimizer: torch.optim.Optimizer,
                    batch: DeviceBatch, *,
                    generator: Optional[torch.Generator] = None,
                    dropout_keep=None,
-                   features: Optional[torch.Tensor] = None) -> Metrics:
+                   features: Optional[torch.Tensor] = None,
+                   accum_steps: int = 1) -> Metrics:
     """One AdamW step of NIC (projection and decoder): output dropout from
     ``generator`` or ``dropout_keep``. ``features``: the pooled backbone
-    features of ``batch["images"]``."""
+    features of ``batch["images"]``. ``accum_steps``: as
+    ``attention_train_step``'s."""
     if features is None:
         features = frozen_features(cap, batch["images"])
+    if accum_steps > 1:
+        denom = nic_denom(batch)
+        return _accumulate(optimizer, lambda j, mb, feats: nic_loss_of(
+            cap, feats, mb, train=True, generator=generator,
+            dropout_keep=_micro_hook(dropout_keep, j), denom=denom),
+            batch, features, accum_steps)
     loss, metrics = nic_loss_of(cap, features, batch, train=True,
                                 generator=generator,
                                 dropout_keep=dropout_keep)
@@ -174,7 +279,9 @@ def nic_train_step(cap: Captioner, optimizer: torch.optim.Optimizer,
 
 @torch.no_grad()
 @full_f32()
-def nic_eval_step(cap: Captioner, batch: DeviceBatch) -> Metrics:
-    _, metrics = nic_loss_of(cap, frozen_features(cap, batch["images"]),
-                             batch, train=False)
+def nic_eval_step(cap: Captioner, batch: DeviceBatch,
+                  features: Optional[torch.Tensor] = None) -> Metrics:
+    if features is None:
+        features = frozen_features(cap, batch["images"])
+    _, metrics = nic_loss_of(cap, features, batch, train=False)
     return _detached(metrics)

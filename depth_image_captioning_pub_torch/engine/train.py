@@ -19,9 +19,14 @@ JAX on its own draws through the decoders' hooks.
 
 Full-state checkpoints, ``resume`` and the SIGTERM save are those of the
 JAX trainer, in a file format of the port's own (``train``'s docstring).
-Not ported yet (``ROADMAP.md``, Queue A items 7.2-7.5): the frozen-feature
-cache, gradient accumulation, the bf16 decoder and the profiler window;
-asking for any of them raises.
+The JAX trainer's options are all here: ``feature_cache`` (the frozen
+encoder's outputs cached once per image, ``engine/feature_cache.py``),
+``cfg.grad_accum`` (microbatches per step, ``engine/steps.py``; batches
+padded to a multiple of it), ``cfg.decoder_dtype`` ("bfloat16": the
+mixed-precision decoder, f32 parameters and AdamW state) and the
+profiler window (``cfg.profile_dir``, ``profile_start``, ``profile_stop``:
+``utils/logging.ProfilerTrace`` over those host steps, counted across
+epochs).
 """
 
 from __future__ import annotations
@@ -42,9 +47,9 @@ from depth_image_captioning_pub_torch.data.pipeline import (
     Prefetcher, train_batches)
 from depth_image_captioning_pub_torch.data.vocab import load_vocab
 from depth_image_captioning_pub_torch.engine.steps import (
-    TRAIN_REST_ITEM, attention_eval_step, attention_train_step,
-    batch_to_device, check_accum_steps, make_optimizer, nic_eval_step,
-    nic_train_step)
+    accum_pad_to, attention_eval_step, attention_train_step,
+    batch_to_device, check_accum_steps, frozen_features, make_optimizer,
+    nic_eval_step, nic_train_step)
 from depth_image_captioning_pub_torch.models.captioner import (
     Captioner, CaptionerSpec, build_captioner)
 from depth_image_captioning_pub_torch.utils.checkpoint import (
@@ -52,7 +57,7 @@ from depth_image_captioning_pub_torch.utils.checkpoint import (
 from depth_image_captioning_pub_torch.utils.jax_bridge import (
     encoder_from_jax, params_from_jax, params_to_jax)
 from depth_image_captioning_pub_torch.utils.logging import (
-    CsvLossLog, JsonlLog, ProgressMeter)
+    CsvLossLog, JsonlLog, ProfilerTrace, ProgressMeter)
 
 _KIND_PREFIX = {"base-soft": "base_soft", "base-hard": "base_hard",
                 "depth-soft": "depth_soft", "depth-hard": "depth_hard",
@@ -77,19 +82,55 @@ def _save_dir_kind(kind: str) -> str:
             "nic": "nic"}[kind]
 
 
-def _refuse_unported(cfg: ConfigTrain, feature_cache: bool) -> None:
-    asked = []
-    if cfg.grad_accum != 1:
-        check_accum_steps(cfg.grad_accum)
-    if feature_cache:
-        asked.append(f"feature_cache ({TRAIN_REST_ITEM}.2)")
-    if cfg.decoder_dtype != "float32":
-        asked.append(f"decoder_dtype={cfg.decoder_dtype} "
-                     f"({TRAIN_REST_ITEM}.4)")
-    if cfg.profile_dir:
-        asked.append(f"profile_dir ({TRAIN_REST_ITEM}.5)")
-    if asked:
-        raise NotImplementedError(f"{', '.join(asked)}: not ported yet")
+DECODER_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def decoder_dtype(cfg: ConfigTrain) -> torch.dtype:
+    """``cfg.decoder_dtype`` as a torch dtype; ValueError for another
+    name."""
+    if cfg.decoder_dtype not in DECODER_DTYPES:
+        raise ValueError(f"decoder_dtype {cfg.decoder_dtype!r} is not one "
+                         f"of {sorted(DECODER_DTYPES)}")
+    return DECODER_DTYPES[cfg.decoder_dtype]
+
+
+def feature_providers(cap: Captioner, train_ds, val_ds, cache_dir: str,
+                      batch_size: int, quiet: bool = False):
+    """(train, val) providers of the frozen features, each from its
+    split's cache under ``cache_dir`` (built first where missing or
+    stale): ``engine/feature_cache.build_or_open``."""
+    from depth_image_captioning_pub_torch.engine import feature_cache as fc
+    frozen = cap.backbone if cap.spec.is_nic else cap.encoder
+    probe = torch.from_numpy(np.stack([train_ds.load_image(0)])).to(
+        cap.device)
+    with torch.inference_mode():
+        out = frozen_features(cap, probe)
+
+    def encode(images):
+        return frozen_features(cap, images)
+
+    shape = tuple(out.shape[1:])
+    digest = fc.frozen_digest(frozen, out.dtype, shape)
+    return tuple(fc.build_or_open(
+        cache_dir, split, ds, encode, frozen, shape, out.dtype, cap.device,
+        batch_size=batch_size, quiet=quiet, digest=digest)
+        for split, ds in (("train", train_ds), ("val", val_ds)))
+
+
+def device_batch(cap: Captioner, batch, depth_provider=None,
+                 feature_provider=None):
+    """(device batch, cached features or None) of one host batch, as each
+    train and validation step takes it: for depth kinds the
+    ``depth_provider``'s maps (it reads the host pixels); with a
+    ``feature_provider`` the batch's cached features and no images (the
+    step does not run the frozen encoder)."""
+    depth = (depth_provider(batch.images, batch.indices)
+             if cap.spec.uses_depth else None)
+    feats = (None if feature_provider is None else
+             feature_provider(batch.indices).to(cap.device,
+                                                non_blocking=True))
+    return batch_to_device(batch, cap.device, depth,
+                           images=feats is None), feats
 
 
 def trainable_modules(cap: Captioner) -> Dict[str, torch.nn.Module]:
@@ -150,13 +191,26 @@ def train(kind: str, ext: int, use_data: str = "coco",
     a straight run would. The frozen encoder is not saved: it is rebuilt
     from ``resnet_variables`` or the seed.
 
+    ``feature_cache``: the frozen encoder's outputs of every train and
+    val image, computed once into digest-keyed memmaps under
+    ``<save dir>/feat_cache`` (``engine/feature_cache.py``), feed every
+    epoch's steps instead of the encoder; depth kinds still take their
+    maps from ``depth_provider``. ``cfg.grad_accum`` k: each step
+    accumulates over k microbatches (batches padded to a multiple of k);
+    ``cfg.decoder_dtype``: "float32" or "bfloat16" (the mixed-precision
+    decoder); ``cfg.profile_dir``: a ``torch.profiler`` window over host
+    steps [``profile_start``, ``profile_stop``), counted from the run's
+    first step across epochs (a resumed run goes on counting), closed
+    early when the run ends or is preempted inside it.
+
     Returns {"best_val_loss", "final_train_loss", "train_seconds",
     "train_rows", "epoch_train_seconds"}: the seconds of every epoch's
     train loop (to the fetch of its loss; summed, and a list by epoch)
     and the valid (non-pad) rows it trained.
     """
     cfg = cfg or ConfigTrain()
-    _refuse_unported(cfg, feature_cache)
+    check_accum_steps(cfg.grad_accum)
+    dec_dtype = decoder_dtype(cfg)
     if CaptionerSpec.from_kind(kind).uses_depth and depth_provider is None:
         raise ValueError(f"{kind} needs a depth_provider")
     use_ori = use_data == "original"
@@ -183,7 +237,8 @@ def train(kind: str, ext: int, use_data: str = "coco",
              if cfg.log_jsonl else None)
 
     cap = build_captioner(kind, len(word_to_id), cfg,
-                          resnet_layers=resnet_layers, device=device)
+                          resnet_layers=resnet_layers, device=device,
+                          decoder_dtype=dec_dtype)
     if initial is not None:
         params_from_jax(cap, *initial)
     else:
@@ -192,20 +247,22 @@ def train(kind: str, ext: int, use_data: str = "coco",
         encoder_from_jax(cap, resnet_variables)
     dev = cap.device
     opt = make_optimizer(cap, cfg.lr)
+    feature_provider = val_feature_provider = None
+    if feature_cache:
+        feature_provider, val_feature_provider = feature_providers(
+            cap, train_ds, val_ds, f"{save_directory}/feat_cache",
+            cfg.batch_size, quiet=quiet)
+    accum = cfg.grad_accum
+    pad_to = accum_pad_to(cfg.batch_size, accum)
 
     nic = cap.spec.is_nic
     alpha_reg = cfg.alpha_reg if cap.spec.attention == "soft" else 0.0
     val_provider = val_depth_provider or depth_provider
 
-    def to_device(batch, provider):
-        depth = (provider(batch.images, batch.indices)
-                 if cap.spec.uses_depth else None)
-        return batch_to_device(batch, dev, depth)
-
     base_seed = cfg.seed * 7919 + ext
     epochs = num_epochs if num_epochs is not None else cfg.num_epochs
     run = {"best_val": float("inf"), "train_loss": float("nan"),
-           "train_rows": 0, "epoch_seconds": []}
+           "train_rows": 0, "epoch_seconds": [], "steps": 0}
     start_epoch, mid = 0, None
 
     ckptr = None
@@ -266,6 +323,7 @@ def train(kind: str, ext: int, use_data: str = "coco",
             print(f"preempted: checkpoint saved at {where}")
         return summary(preempted=1.0)
 
+    trace = ProfilerTrace(cfg.profile_dir)
     try:
         for epoch in range(start_epoch, epochs):
             gen = torch.Generator(device=dev)
@@ -283,17 +341,26 @@ def train(kind: str, ext: int, use_data: str = "coco",
             it = Prefetcher(train_batches(
                 train_ds, word_to_id, cfg.batch_size, cfg.max_caption_len,
                 shuffle=True, seed=cfg.seed + ext, epoch=epoch,
-                start=n_steps))
+                pad_to=pad_to, start=n_steps))
             try:
                 for batch in it:
-                    dev_batch = to_device(batch, depth_provider)
+                    dev_batch, feats = device_batch(
+                        cap, batch, depth_provider, feature_provider)
+                    host_step = run.get("steps", 0)
+                    if host_step == cfg.profile_start:
+                        trace.maybe_start()
                     if nic:
-                        metrics = nic_train_step(cap, opt, dev_batch,
-                                                 generator=gen)
+                        metrics = nic_train_step(
+                            cap, opt, dev_batch, generator=gen,
+                            features=feats, accum_steps=accum)
                     else:
                         metrics = attention_train_step(
                             cap, opt, dev_batch, temp=temp,
-                            alpha_reg=alpha_reg, generator=gen)
+                            alpha_reg=alpha_reg, generator=gen,
+                            features=feats, accum_steps=accum)
+                    run["steps"] = host_step + 1
+                    if run["steps"] == cfg.profile_stop:
+                        trace.maybe_stop()
                     loss_dev = metrics["loss"]
                     loss_sum = (loss_dev if loss_sum is None
                                 else loss_sum + loss_dev)
@@ -321,14 +388,17 @@ def train(kind: str, ext: int, use_data: str = "coco",
             val_sum, n_val = None, 0
             itv = Prefetcher(train_batches(
                 val_ds, word_to_id, cfg.batch_size, cfg.max_caption_len,
-                shuffle=False, seed=cfg.seed, epoch=epoch))
+                shuffle=False, seed=cfg.seed, epoch=epoch, pad_to=pad_to))
             try:
                 for batch in itv:
-                    dev_batch = to_device(batch, val_provider)
-                    metrics = (nic_eval_step(cap, dev_batch) if nic else
+                    dev_batch, feats = device_batch(
+                        cap, batch, val_provider, val_feature_provider)
+                    metrics = (nic_eval_step(cap, dev_batch, features=feats)
+                               if nic else
                                attention_eval_step(cap, dev_batch,
                                                    alpha_reg=alpha_reg,
-                                                   generator=gen))
+                                                   generator=gen,
+                                                   features=feats))
                     val_sum = (metrics["loss"] if val_sum is None
                                else val_sum + metrics["loss"])
                     n_val += 1
@@ -356,6 +426,9 @@ def train(kind: str, ext: int, use_data: str = "coco",
             if checkpoint_every and (epoch + 1) % checkpoint_every == 0:
                 ckptr.save(epoch, payload(epoch))
     finally:
+        # the window outran the run, or a preemption landed inside it:
+        # close it so that its trace is written
+        trace.maybe_stop()
         if trap:    # None: a handler not installed from Python
             signal.signal(signal.SIGTERM, prev_handler
                           if prev_handler is not None else signal.SIG_DFL)

@@ -19,11 +19,23 @@ Options: ``--beam W`` (beam search, W > 1; soft attention on the card
 takes W = 2..8, the beam kernel's instances), ``--batch-size B`` (default
 ``ConfigEval.batch_size``), ``--device`` (``cuda``, the default: the
 CUDA kernels; ``cpu`` runs their plain PyTorch versions), ``--dpt-weights
-PATH`` (depth: the Omnidata loader is not ported yet, so an existing file
-raises; without weights the DPT is drawn at random with a warning),
+PATH`` (depth: the Omnidata DPT-hybrid ``.ckpt`` or ``utils.convert``'s
+``.msgpack`` of it, also $DPT_WEIGHTS; without weights the DPT is drawn at
+random with a warning),
 ``--dpt-size``, ``--gelu`` and ``--dpt-head`` (depth: the DPT's input
 side, 384 by default, and its throughput knobs, ``cli.add_dpt_flags``).
 $DCAP_RESNET_LAYERS and $DCAP_TINY_DPT shrink the backbone and the DPT.
+
+The frozen stages run once: with more than one set, set 1's RGB features
+and depth maps (NIC: its pooled features) stay on the card and the later
+sets replay them (``engine/evaluate.evaluate``; a set whose encoder
+differs recomputes its features; ``$DCAP_EVAL_CACHE_GB``, default 8,
+bounds them, above it only depth maps are kept). ``--no-eval-cache`` (or
+its alias ``--no-depth-eval-cache``) recomputes every stage for every
+set, as the reference does. ``--eval-cache-dir DIR`` (or
+``$DCAP_EVAL_CACHE_DIR``) also writes them to DIR, keyed by the dataset
+and the frozen weights, and a later run replays them from there, also
+with ``--num-sets 1``.
 ``sample`` mode is not ported: it exits with status 2 and names its
 ROADMAP.md item.
 """
@@ -34,7 +46,7 @@ import argparse
 import os
 import pickle
 import sys
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -69,10 +81,12 @@ def _report(scores) -> int:
 
 
 def score_mode(atten: str, use_data: str, cfg: ConfigEval, depth: bool,
-               num_sets: int, beam_size: int, encoder: str, device) -> int:
+               num_sets: int, beam_size: int, encoder: str, cache: Dict,
+               device) -> int:
     """``encoder="mlp"`` (depth only) scores the mdepth sets; their pickle
     gets an ``mdepth_`` prefix, as in the JAX package, so that it does not
-    overwrite the CNN-depth scores in the same directory."""
+    overwrite the CNN-depth scores in the same directory. ``cache``:
+    ``evaluate``'s ``depth_eval_cache`` and ``eval_cache_dir``."""
     w2i_p, i2w_p, anno, index_file, use_ori = cli.eval_data_selection(
         cfg, use_data)
     word_to_id, id_to_word = _load_vocabs(w2i_p, i2w_p)
@@ -94,10 +108,12 @@ def score_mode(atten: str, use_data: str, cfg: ConfigEval, depth: bool,
         ds, word_to_id, id_to_word, cfg, depth_fn=depth_fn,
         num_sets=num_sets, beam_size=beam_size,
         scores_pickle=f"{save_directory}/{'mdepth_' if mlp else ''}"
-                      f"{use_data}_scores.pkl"))
+                      f"{use_data}_scores.pkl", **cache))
 
 
-def nic_mode(cfg: ConfigEval, num_sets: int, beam_size: int, device) -> int:
+def nic_mode(cfg: ConfigEval, num_sets: int, beam_size: int, cache: Dict,
+             device) -> int:
+    """``cache``: as ``score_mode``'s."""
     word_to_id, id_to_word = _load_vocabs(cfg.word_to_id_file,
                                           cfg.id_to_word_file)
     ds = Subset(CocoCaptions(cfg.val_img_directory, cfg.val_anno_file),
@@ -111,7 +127,7 @@ def nic_mode(cfg: ConfigEval, num_sets: int, beam_size: int, device) -> int:
             cfg.save_directory_nic, cfg.nic_parameter_files[i], cap),
         ds, word_to_id, id_to_word, cfg, num_sets=num_sets,
         beam_size=beam_size,
-        scores_pickle=f"{cfg.save_directory_nic}/nic_scores.pkl"))
+        scores_pickle=f"{cfg.save_directory_nic}/nic_scores.pkl", **cache))
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -130,7 +146,17 @@ def main(argv: Optional[List[str]] = None) -> int:
     cli.add_dpt_flags(p)
     p.add_argument("--mlp", action="store_true",
                    help="depth: the MLP-depth (mdepth-*) checkpoint sets")
+    p.add_argument("--no-eval-cache", "--no-depth-eval-cache",
+                   dest="eval_cache", action="store_false",
+                   help="recompute the frozen stages for every set")
+    p.add_argument("--eval-cache-dir", default=None, metavar="DIR",
+                   help="persist the frozen stages' outputs in DIR "
+                        "(default $DCAP_EVAL_CACHE_DIR)")
     args = p.parse_args(argv)
+    cache = {"depth_eval_cache": args.eval_cache,
+             "eval_cache_dir": (args.eval_cache_dir
+                                or os.environ.get("DCAP_EVAL_CACHE_DIR")
+                                or None)}
     words = args.words
     for key in (w for w in NOT_PORTED if w in words):
         print(NOT_PORTED[key], file=sys.stderr)
@@ -141,7 +167,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     if args.dpt_weights:
         cfg.dpt_weights = args.dpt_weights
     if words == ["nic"]:
-        return nic_mode(cfg, args.num_sets, args.beam, args.device)
+        return nic_mode(cfg, args.num_sets, args.beam, cache, args.device)
     if (len(words) == 4 and words[0] in ("base", "depth")
             and words[1] in ("soft", "hard") and words[2] == "score"):
         if words[3] not in EVAL_DATA:
@@ -149,7 +175,7 @@ def main(argv: Optional[List[str]] = None) -> int:
             return 1
         return score_mode(words[1], words[3], cfg, words[0] == "depth",
                           args.num_sets, args.beam,
-                          "mlp" if args.mlp else "cnn", args.device)
+                          "mlp" if args.mlp else "cnn", cache, args.device)
     print("evaluation {base|depth} {soft|hard} score {coco|rem_coco|"
           "rem_original} [--mlp] | nic", file=sys.stderr)
     return 1

@@ -104,7 +104,9 @@ class Captioner(nn.Module):
 
     ``encoder_dtype`` is the conv compute/storage dtype of the RGB and depth
     encoders (bf16 by default); the decoder is float32, as the decode
-    kernels require. ``resnet_layers`` shrinks the backbone for tests
+    kernels require, unless ``decoder_dtype`` asks for mixed-precision
+    training (bf16: the decoder's and the depth MLP's compute dtype, their
+    parameters f32). ``resnet_layers`` shrinks the backbone for tests
     (default ResNet-152). ``device`` is where the modules live: the CUDA
     card unless the caller asks for another.
     """
@@ -112,9 +114,11 @@ class Captioner(nn.Module):
     def __init__(self, spec: CaptionerSpec, cfg: ConfigTrain,
                  vocab_size: int, encoder_dtype=torch.bfloat16,
                  resnet_layers: Optional[Sequence[int]] = None,
-                 device="cuda"):
+                 device="cuda", decoder_dtype=torch.float32):
         super().__init__()
         self.spec = spec
+        self.encoder_dtype = encoder_dtype
+        self.decoder_dtype = decoder_dtype
         self.device = torch.device(device)
         layers = tuple(resnet_layers or RESNET152_LAYERS)
         self.depth_module = None
@@ -127,7 +131,8 @@ class Captioner(nn.Module):
             self.decoder = NICDecoder(
                 vocab_size, dim_embedding=cfg.nic_dim_embedding,
                 dim_hidden=cfg.dim_hidden, num_layers=cfg.num_layers,
-                device=self.device, dropout=cfg.nic_dropout)
+                device=self.device, dropout=cfg.nic_dropout,
+                dtype=decoder_dtype)
             return
         self.encoder = AttentionGridEncoder(
             cfg.enc_img_size, dtype=encoder_dtype, layers=layers,
@@ -137,13 +142,14 @@ class Captioner(nn.Module):
             dim_embedding=cfg.dim_embedding, dim_encoder=cfg.dim_encoder,
             dim_decoder=cfg.dim_hidden, fusion=spec.fusion,
             device=self.device, attention_kind=spec.attention,
-            dim_depth=cfg.dim_out, dropout=cfg.dropout)
+            dim_depth=cfg.dim_out, dropout=cfg.dropout, dtype=decoder_dtype)
         if spec.depth_encoder == "cnn":
             self.depth_module = DepthCNNEncoder(
                 cfg.enc_img_size, dtype=encoder_dtype, device=self.device)
         elif spec.depth_encoder == "mlp":
             self.depth_module = DepthMLPEncoder(
-                cfg.dim_l1, cfg.dim_l2, cfg.dim_out, device=self.device)
+                cfg.dim_l1, cfg.dim_l2, cfg.dim_out, device=self.device,
+                dtype=decoder_dtype)
 
     def init(self, generator: torch.Generator) -> None:
         """Draw every parameter from ``generator`` with the JAX package's
@@ -213,6 +219,7 @@ def build_captioner(kind: str, vocab_size: int,
                     cfg: Optional[ConfigTrain] = None,
                     encoder_dtype=torch.bfloat16,
                     resnet_layers: Optional[Sequence[int]] = None,
-                    device="cuda") -> Captioner:
+                    device="cuda", decoder_dtype=torch.float32) -> Captioner:
     return Captioner(CaptionerSpec.from_kind(kind), cfg or ConfigTrain(),
-                     vocab_size, encoder_dtype, resnet_layers, device)
+                     vocab_size, encoder_dtype, resnet_layers, device,
+                     decoder_dtype)

@@ -31,6 +31,16 @@ XLA ops), its dropout keep-masks and hard attention's Gumbel noise from a
 ``torch.Generator`` or from the ``dropout_keep(t, shape)`` and
 ``att_noise(t, shape)`` hooks, through which the tests replay the JAX
 package's draws.
+
+Mixed precision (``dtype=torch.bfloat16``, the JAX ``decoder_dtype``, for
+training only): the parameters stay f32 and the teacher-forced pass casts
+them to bf16 at each use, as the JAX module's ``_w`` does, so every op
+runs in the dtype of its JAX counterpart: the features, the attention
+(the softmax in f32), the gate and the LSTM's h and c in bf16; the LSTM
+gates and the vocab head accumulate in f32 (``ops/precision.matmul_f32``)
+and the logits are f32. The decode paths refuse such a decoder, as the
+JAX package's kernel paths refuse it: evaluation builds an f32 decoder
+from the trained f32 parameters.
 """
 
 from __future__ import annotations
@@ -55,7 +65,8 @@ from depth_image_captioning_pub_torch.ops.kernels.decode_seq import (
 from depth_image_captioning_pub_torch.ops.kernels.decode_step import (
     fused_decode_core, pack_weights)
 from depth_image_captioning_pub_torch.ops.lstm import LSTMCellParams, lstm_cell
-from depth_image_captioning_pub_torch.ops.precision import full_f32
+from depth_image_captioning_pub_torch.ops.precision import (
+    full_f32, matmul_f32)
 
 AttNoise = Callable[[int, Sequence[int]], torch.Tensor]
 
@@ -67,19 +78,40 @@ class DecoderState(NamedTuple):
 
 FUSIONS = ("none", "add", "concat")
 ATTENTION_KINDS = ("soft", "hard")
+DECODER_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def check_decoder_dtype(dtype: torch.dtype) -> None:
+    if dtype not in DECODER_DTYPES:
+        raise ValueError(f"decoder dtype {dtype} is not one of "
+                         f"{DECODER_DTYPES}")
+
+
+def refuse_mixed(dtype: torch.dtype, what: str) -> None:
+    """The decode paths and their kernels take an f32 decoder only (the
+    JAX package's kernel paths refuse another dtype)."""
+    if dtype != torch.float32:
+        raise ValueError(f"{what} requires a float32 decoder (got "
+                         f"dtype={dtype}); the {dtype} decoder is for "
+                         f"training: caption with a float32 decoder on "
+                         f"the same parameters")
 
 
 class AttentionDecoder(nn.Module):
     """Soft- or hard-attention LSTM decoder, float32 parameters, with
     ``"none"``, ``"add"`` or ``"concat"`` fusion of depth annotation
-    vectors; concat widens the annotation vectors by ``dim_depth``."""
+    vectors; concat widens the annotation vectors by ``dim_depth``.
+    ``dtype`` is the teacher-forced pass's compute dtype (f32, or bf16
+    for mixed-precision training)."""
 
     def __init__(self, vocab_size: int, dim_attention: int = 128,
                  dim_embedding: int = 128, dim_encoder: int = 2048,
                  dim_decoder: int = 128, fusion: str = "none", device=None,
                  attention_kind: str = "soft", dim_depth: int = 32,
-                 dropout: float = 0.5):
+                 dropout: float = 0.5, dtype: torch.dtype = torch.float32):
         super().__init__()
+        check_decoder_dtype(dtype)
+        self.dtype = dtype
         if fusion not in FUSIONS:
             raise ValueError(f"unknown fusion {fusion!r}; one of {FUSIONS}")
         if attention_kind not in ATTENTION_KINDS:
@@ -147,14 +179,23 @@ class AttentionDecoder(nn.Module):
         dt = torch.promote_types(features.dtype, depth_features.dtype)
         return torch.cat([features.to(dt), depth_features.to(dt)], dim=-1)
 
+    def _w(self, p: torch.Tensor) -> torch.Tensor:
+        """A parameter in the compute dtype (the JAX module's ``_w``): the
+        parameter itself for an f32 decoder."""
+        return p.to(self.dtype)
+
     def init_state(self, features: torch.Tensor) -> DecoderState:
         """h0, c0 from Linear(mean(features)) chunked in two; the mean
-        accumulates in f32 whatever the feature storage dtype."""
-        mean = features.mean(dim=1, dtype=torch.float32)
-        h, c = (mean @ self.init_w + self.init_b).chunk(2, dim=-1)
+        accumulates in f32 whatever the feature storage dtype, then takes
+        the compute dtype."""
+        mean = features.mean(dim=1, dtype=torch.float32).to(self.dtype)
+        h, c = (mean @ self._w(self.init_w)
+                + self._w(self.init_b)).chunk(2, dim=-1)
         return DecoderState(h.contiguous(), c.contiguous())
 
     def seq_weights(self) -> DecodeSeqWeights:
+        """The kernels' packed weights (K1, K2, K4: f32 decoders only)."""
+        refuse_mixed(self.dtype, "the decode kernels")
         step = pack_weights(self.att_w_dec, self.att_b_dec,
                             self.att_w_full[:, 0], self.att_b_full[0],
                             self.f_beta_w, self.f_beta_b, self.lstm_w_ih,
@@ -163,14 +204,22 @@ class AttentionDecoder(nn.Module):
         return DecodeSeqWeights(step, self.out_w, self.out_b[None, :],
                                 self.embed)
 
+    def _cell_params(self):
+        """(f_beta_w, f_beta_b, LSTMCellParams) in the compute dtype, cast
+        once for a whole teacher-forced pass."""
+        return (self._w(self.f_beta_w), self._w(self.f_beta_b),
+                LSTMCellParams(self._w(self.lstm_w_ih),
+                               self._w(self.lstm_w_hh),
+                               self._w(self.lstm_b_ih),
+                               self._w(self.lstm_b_hh)))
+
     def _cell(self, context: torch.Tensor, emb: torch.Tensor,
-              h: torch.Tensor, c: torch.Tensor
+              h: torch.Tensor, c: torch.Tensor, params=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
         """The f_beta gate on the context and the LSTM cell on [emb | gate
-        * context] -> (h', c')."""
-        gate = torch.sigmoid(h @ self.f_beta_w + self.f_beta_b)
-        lstm = LSTMCellParams(self.lstm_w_ih, self.lstm_w_hh, self.lstm_b_ih,
-                              self.lstm_b_hh)
+        * context] -> (h', c'), on ``params`` (``_cell_params()``)."""
+        f_beta_w, f_beta_b, lstm = params or self._cell_params()
+        gate = torch.sigmoid(h @ f_beta_w + f_beta_b)
         return lstm_cell(lstm, torch.cat([emb, gate * context], dim=-1), h, c)
 
     def _tail(self, context: torch.Tensor, emb: torch.Tensor,
@@ -191,8 +240,9 @@ class AttentionDecoder(nn.Module):
                 att_noise: Optional[AttNoise] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Teacher forcing over the padded captions [B, L]: (logits [B, L-1,
-        V] f32, alphas [B, L-1, K] f32); step t reads captions[:, t] and
-        predicts captions[:, t+1] (the JAX module's ``__call__``).
+        V] f32, alphas [B, L-1, K] in the compute dtype); step t reads
+        captions[:, t] and predicts captions[:, t+1] (the JAX module's
+        ``__call__``).
 
         The fused features are upcast to f32 once (exact; every step's
         attention product reads that copy, which autograd saves once);
@@ -205,13 +255,23 @@ class AttentionDecoder(nn.Module):
         training noise hard attention takes the Gumbel-max region on the
         same noise source. Hooks left None draw from ``generator``. The
         vocab head runs once over all steps.
+
+        A bf16 decoder runs the same ops as the JAX module's ``__call__``
+        at ``dtype=bfloat16``: the fused features cast to bf16; their
+        projection, the initial state (the mean accumulated in f32, then
+        rounded), the embedding, the attention (softmax in f32), the
+        f_beta gate and the LSTM's h and c in bf16 on the parameters cast
+        at each use (``_w``); the LSTM gates and the vocab head accumulate
+        in f32 (``matmul_f32``) and the logits are f32 (the head's bias
+        stays f32); alphas come back bf16. For an f32 decoder every cast
+        is the tensor itself.
         """
-        fused = self.fuse(features, depth_features)
-        feats = fused.to(torch.float32)
-        att = self.att_params()
+        feats = self.fuse(features, depth_features).to(self.dtype)
+        att = AttentionParams(*(self._w(t) for t in self.att_params()))
         proj = project_features(att, feats)
         h, c = self.init_state(feats)
-        emb = self.embed[captions[:, :-1].long()]            # [B, L-1, E]
+        emb = self._w(self.embed)[captions[:, :-1].long()]   # [B, L-1, E]
+        cell = self._cell_params()
         stochastic = train and not hard_eval_sampling
         hard = self.attention_kind == "hard"
         if hard and att_noise is None:
@@ -230,14 +290,15 @@ class AttentionDecoder(nn.Module):
             else:
                 ctx, alpha = gumbel_max_attention(
                     att, feats, proj, h, att_noise(t, (bsz, k)))
-            h, c = self._cell(ctx, emb[:, t], h, c)
+            h, c = self._cell(ctx, emb[:, t], h, c, cell)
             out = h
             if drop:
                 keep = dropout_keep(t, tuple(h.shape))
                 out = torch.where(keep, out / (1.0 - self.dropout), 0.0)
             outs.append(out)
             alphas.append(alpha)
-        logits = torch.stack(outs, 1) @ self.out_w + self.out_b
+        logits = (matmul_f32(torch.stack(outs, 1), self._w(self.out_w))
+                  + self.out_b)
         return logits, torch.stack(alphas, 1)
 
     def _prepare(self, features, depth_features):
@@ -270,6 +331,7 @@ class AttentionDecoder(nn.Module):
         PyTorch ops, the region noise of step t from ``att_noise(t, [B,
         K])`` or ``generator``.
         """
+        refuse_mixed(self.dtype, "greedy decode")
         if self.attention_kind == "hard":
             return self._hard_greedy(
                 features, start_id, depth_features, max_length=max_length,
@@ -339,6 +401,7 @@ class AttentionDecoder(nn.Module):
         drawn from ``generator``. Deterministic per generator state; top_k=1
         gives greedy argmax.
         """
+        refuse_mixed(self.dtype, "stochastic sampling")
         features, proj, h, c = self._prepare(features, depth_features)
         features = features.contiguous()
         hard = self.attention_kind == "hard"
@@ -395,6 +458,7 @@ class AttentionDecoder(nn.Module):
         ``length_penalty`` alpha ranks the final beams by score /
         length**alpha (GNMT); 0 ranks by log-probability.
         """
+        refuse_mixed(self.dtype, "beam search")
         if self.attention_kind == "hard":
             return self._hard_beam(
                 features, start_id, end_id, depth_features,

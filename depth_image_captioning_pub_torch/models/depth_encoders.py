@@ -140,11 +140,15 @@ class DepthMLPEncoder(nn.Module):
     """Per-patch MLP 256 -> 128 -> 64 -> 32, ReLU after every layer, f32:
     [B, 196, 256] patches -> [B, 196, 32] features, which the decoder
     concatenates to the RGB features (2048 + 32 = 2080). Layer names are
-    the flax names (``l1``, ``l2``, ``l3``)."""
+    the flax names (``l1``, ``l2``, ``l3``). ``dtype`` is the compute
+    dtype (the JAX module takes the decoder's: bf16 in mixed-precision
+    training, its f32 parameters cast at each layer)."""
 
     def __init__(self, dim_l1: int = 128, dim_l2: int = 64,
-                 dim_out: int = 32, dim_in: int = 256, device=None):
+                 dim_out: int = 32, dim_in: int = 256, device=None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         kw = dict(dtype=torch.float32, device=device)
         self.l1 = nn.Linear(dim_in, dim_l1, **kw)
         self.l2 = nn.Linear(dim_l1, dim_l2, **kw)
@@ -164,8 +168,9 @@ class DepthMLPEncoder(nn.Module):
 
     @full_f32()   # f32 products in full f32, not TF32
     def forward(self, patches: torch.Tensor) -> torch.Tensor:
-        x = patches.to(torch.float32)
+        cd = self.dtype
+        x = patches.to(cd)
         for lin in self.layers():
             # flax Dense: the product, then the bias
-            x = F.relu(x @ lin.weight.T + lin.bias)
+            x = F.relu(x @ lin.weight.T.to(cd) + lin.bias.to(cd))
         return x

@@ -452,4 +452,5 @@ class DPTDepthEstimator:
             x = resize_bilinear(to_unit_float(images), (size, size))
             depth = model(dpt_normalize(x))[..., None]
             return resize_bilinear(standardize_depth_map(depth), (224, 224))
+        fn.model = model        # the eval cache's key hashes its weights
         return fn

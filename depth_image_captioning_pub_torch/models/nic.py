@@ -13,7 +13,11 @@ takes the place of a token at step 0, so step 0 usually predicts <start>,
 which the detokenizer skips. Training runs ``forward``, the teacher-forced
 pass, on PyTorch ops under autograd (the JAX package's ``stacked_lstm``
 scan of XLA ops; no kernel), its output dropout from a ``torch.Generator``
-or a ``dropout_keep`` hook.
+or a ``dropout_keep`` hook. A bf16 decoder (``dtype``, mixed-precision
+training) runs the teacher-forced pass as the JAX module at
+``dtype=bfloat16`` does: the LSTM's inputs, h and c rounded to bf16, the
+products on the f32 parameters in f32, f32 logits; its decode paths
+refuse it, as the JAX kernel path does.
 """
 
 from __future__ import annotations
@@ -23,6 +27,8 @@ from typing import Callable, Optional, Tuple
 import torch
 import torch.nn as nn
 
+from depth_image_captioning_pub_torch.models.decoder import (
+    check_decoder_dtype, refuse_mixed)
 from depth_image_captioning_pub_torch.models.initializers import (
     normal, torch_bias, torch_linear_kernel)
 from depth_image_captioning_pub_torch.ops.decode import (
@@ -36,12 +42,15 @@ from depth_image_captioning_pub_torch.ops.lstm import (
 
 
 class NICDecoder(nn.Module):
-    """Stacked-LSTM decoder, float32 parameters."""
+    """Stacked-LSTM decoder, float32 parameters; ``dtype`` is the
+    teacher-forced pass's state dtype (f32, or bf16)."""
 
     def __init__(self, vocab_size: int, dim_embedding: int = 300,
                  dim_hidden: int = 128, num_layers: int = 2, device=None,
-                 dropout: float = 0.1):
+                 dropout: float = 0.1, dtype: torch.dtype = torch.float32):
         super().__init__()
+        check_decoder_dtype(dtype)
+        self.dtype = dtype
         self.vocab_size = vocab_size
         self.dropout = dropout      # training only, on the LSTM outputs
         self.dim_hidden = dim_hidden
@@ -92,12 +101,14 @@ class NICDecoder(nn.Module):
         t-1] and predicts captions[:, t]. ``train`` drops out the top
         layer's outputs (rate ``self.dropout``) with one keep-mask
         ``dropout_keep(0, [B, L, H])``, drawn from ``generator`` when the
-        hook is None."""
+        hook is None. A bf16 decoder casts the inputs and the state to
+        bf16; the products and the logits stay f32."""
         emb = self.embed[captions[:, :-1].long()]
-        xs = torch.cat([features[:, None, :].to(emb.dtype), emb], dim=1)
+        xs = torch.cat([features[:, None, :].to(emb.dtype), emb],
+                       dim=1).to(self.dtype)
         bsz = xs.shape[0]
         zeros = torch.zeros((self.num_layers, bsz, self.dim_hidden),
-                            dtype=torch.float32, device=xs.device)
+                            dtype=self.dtype, device=xs.device)
         hs, cs = zeros, zeros
         lstm = self.lstm()
         outs = []
@@ -109,7 +120,7 @@ class NICDecoder(nn.Module):
             keep = (dropout_keep or dropout_masks(generator, self.dropout))(
                 0, tuple(outs.shape))
             outs = torch.where(keep, outs / (1.0 - self.dropout), 0.0)
-        return outs @ self.out_w + self.out_b
+        return outs.to(torch.float32) @ self.out_w + self.out_b
 
     @torch.no_grad()
     def greedy_sample(self, features: torch.Tensor, *,
@@ -117,6 +128,7 @@ class NICDecoder(nn.Module):
         """Batched greedy decode of image embeddings [B, E]: tokens [B,
         max_length] int32, always ``max_length`` steps (no <end> exit), in
         one call of the whole-sequence kernel."""
+        refuse_mixed(self.dtype, "the NIC decode kernel")
         return fused_nic_greedy_decode(
             features.to(torch.float32).contiguous(), self.seq_weights(),
             max_length=max_length)
@@ -135,6 +147,7 @@ class NICDecoder(nn.Module):
         step the previous token's embedding; the draw is as
         ``AttentionDecoder.stochastic_sample``'s (``noise(t)`` or
         ``generator``)."""
+        refuse_mixed(self.dtype, "stochastic sampling")
         bsz = features.shape[0]
         zeros = torch.zeros((self.num_layers, bsz, self.dim_hidden),
                             dtype=torch.float32, device=features.device)
@@ -164,6 +177,7 @@ class NICDecoder(nn.Module):
         """Batched beam search (ops/decode.beam_search): (tokens [B, L],
         scores [B]). Step 0 feeds the image embedding in place of the
         token."""
+        refuse_mixed(self.dtype, "beam search")
         batch = features.shape[0]
         feats = tile_for_beams({"x": features.to(torch.float32)},
                                beam_size)["x"]

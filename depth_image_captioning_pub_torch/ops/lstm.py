@@ -8,6 +8,8 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from depth_image_captioning_pub_torch.ops.precision import matmul_f32
+
 
 class LSTMCellParams(NamedTuple):
     w_ih: torch.Tensor  # [input_dim, 4H], gate order i, f, g, o
@@ -18,9 +20,13 @@ class LSTMCellParams(NamedTuple):
 
 def lstm_cell(p: LSTMCellParams, x: torch.Tensor, h: torch.Tensor,
               c: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One LSTMCell step in f32: returns (h', c') in h's and c's dtypes."""
+    """One LSTMCell step in f32: returns (h', c') in h's and c's dtypes.
+    The gate products accumulate in f32 on exactly upcast operands
+    (``matmul_f32``: bf16 weights and inputs of the mixed-precision
+    decoder keep bf16 values and get an f32 result); the biases are summed
+    in their own dtype, then upcast, as the JAX cell does."""
     f32 = torch.float32
-    gates = (x.to(f32) @ p.w_ih.to(f32) + h.to(f32) @ p.w_hh.to(f32)
+    gates = (matmul_f32(x, p.w_ih) + matmul_f32(h, p.w_hh)
              + (p.b_ih + p.b_hh).to(f32))
     i, f, g, o = gates.chunk(4, dim=-1)
     c_new = torch.sigmoid(f) * c.to(f32) + torch.sigmoid(i) * torch.tanh(g)

@@ -36,9 +36,18 @@ and exits with status 0. ``--resume`` continues each run from its latest
 checkpoint, a mid-epoch one at the next batch, as the straight run would
 have gone on (``engine/train.train``).
 
-Not ported yet, each exits with status 2 naming its ROADMAP.md item:
-``--feature-cache``, ``--grad-accum`` above 1, ``--decoder-dtype
-bfloat16`` and ``--profile*``.
+``--feature-cache`` runs the frozen RGB encoder once per train and val
+image into digest-keyed memmaps under ``<save_dir>/feat_cache`` and
+trains every epoch from them (``engine/feature_cache.py``; bf16 grids
+take 802,816 bytes an image, ~66 GB for COCO-train; NIC's pooled
+features 4 kB). ``--grad-accum K`` accumulates each step's gradient over
+K microbatches (the batch padded to a multiple of K).
+``--decoder-dtype bfloat16`` trains the mixed-precision decoder (bf16
+products, f32 parameters and AdamW state; the best-val files are f32, and
+evaluation runs f32). ``--profile DIR`` records a ``torch.profiler`` trace
+(CPU and CUDA activities, a Chrome trace ``trace_<pid>_0.json`` in DIR)
+of host steps [``--profile-start``, ``--profile-stop``) (default [10,
+15), counted across epochs).
 """
 
 from __future__ import annotations
@@ -53,7 +62,6 @@ import torch
 
 from depth_image_captioning_pub_torch import cli
 from depth_image_captioning_pub_torch.config import ConfigTrain
-from depth_image_captioning_pub_torch.engine.steps import TRAIN_REST_ITEM
 
 EXP_TIME = 3
 DATAS = ("coco", "original")
@@ -81,30 +89,20 @@ def build_parser() -> argparse.ArgumentParser:
                    help="keep the newest K checkpoints (0: all)")
     p.add_argument("--resume", action="store_true",
                    help="continue from the latest full-state checkpoint")
-    # not ported yet: exit 2 when asked for
-    p.add_argument("--grad-accum", type=int, default=1)
+    p.add_argument("--grad-accum", type=int, default=1,
+                   help="microbatches per step (gradient accumulation)")
     p.add_argument("--decoder-dtype", default="float32",
-                   choices=("float32", "bfloat16"))
-    p.add_argument("--feature-cache", action="store_true")
-    p.add_argument("--profile", default=None)
+                   choices=("float32", "bfloat16"),
+                   help="bfloat16: mixed-precision decoder training")
+    p.add_argument("--feature-cache", action="store_true",
+                   help="train from the frozen encoder's features, "
+                        "computed once per image into disk memmaps")
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="torch.profiler trace of host steps [start, stop) "
+                        "into DIR")
     p.add_argument("--profile-start", type=int, default=None)
     p.add_argument("--profile-stop", type=int, default=None)
     return p
-
-
-def _unported(args: argparse.Namespace) -> List[str]:
-    """The unported flags asked for, each with its ROADMAP.md item."""
-    asked = []
-    if args.feature_cache:
-        asked.append(f"--feature-cache ({TRAIN_REST_ITEM}.2)")
-    if args.grad_accum != 1:
-        asked.append(f"--grad-accum ({TRAIN_REST_ITEM}.3)")
-    if args.decoder_dtype != "float32":
-        asked.append(f"--decoder-dtype bfloat16 ({TRAIN_REST_ITEM}.4)")
-    for flag in ("profile", "profile_start", "profile_stop"):
-        if getattr(args, flag) is not None:
-            asked.append(f"--{flag.replace('_', '-')} ({TRAIN_REST_ITEM}.5)")
-    return asked
 
 
 def _kind(words: List[str]):
@@ -147,10 +145,6 @@ def depth_providers(cfg: ConfigTrain, atten: str, use_data: str, device,
 def main(argv: Optional[List[str]] = None) -> int:
     from depth_image_captioning_pub_torch.engine.train import train
     args = build_parser().parse_args(argv)
-    asked = _unported(args)
-    if asked:
-        print(f"{', '.join(asked)}: not ported yet", file=sys.stderr)
-        return 2
     parsed = _kind(args.words)
     if parsed is None:
         print(f"input {USAGE}", file=sys.stderr)
@@ -158,6 +152,12 @@ def main(argv: Optional[List[str]] = None) -> int:
     kind, use_data, _ = parsed
     cfg = ConfigTrain()
     cfg.checkpoint_keep = args.checkpoint_keep
+    cfg.grad_accum, cfg.decoder_dtype = args.grad_accum, args.decoder_dtype
+    cfg.profile_dir = args.profile
+    if args.profile_start is not None:
+        cfg.profile_start = args.profile_start
+    if args.profile_stop is not None:
+        cfg.profile_stop = args.profile_stop
     cfg.dpt_image_size, cfg.dpt_gelu, cfg.dpt_head = (
         args.dpt_size, args.gelu, args.dpt_head)
     if args.dpt_weights:
@@ -179,7 +179,7 @@ def main(argv: Optional[List[str]] = None) -> int:
                     num_epochs=args.epochs, resnet_variables=resnet,
                     resnet_layers=layers, device=args.device,
                     checkpoint_every=args.checkpoint_every,
-                    resume=args.resume)
+                    resume=args.resume, feature_cache=args.feature_cache)
         if out.get("preempted"):    # stop cleanly; --resume continues
             return 0
     return 0

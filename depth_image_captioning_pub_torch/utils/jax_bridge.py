@@ -125,14 +125,18 @@ def encoder_from_jax(cap, enc_vars: Tree) -> None:
 
 
 def params_from_jax(cap, trainable: Tree, frozen: Tree,
-                    batch_stats: Optional[Tree] = None) -> None:
+                    batch_stats: Optional[Tree] = None,
+                    load_encoder: bool = True) -> None:
     """Copy the JAX package's (trainable, frozen, batch_stats) trees into
     ``cap`` (a port ``Captioner``), casting to each parameter's dtype and
     device. ``frozen["dpt"]``, where present, is left to
-    ``dpt_params_from_jax``."""
+    ``dpt_params_from_jax``. ``load_encoder=False`` leaves the frozen
+    encoder on the card as it is (a caller that knows it holds
+    ``frozen["encoder"]`` already)."""
     depth = cap.depth_module
     _check_keys("frozen", frozen, ("encoder", "dpt"))
-    encoder_from_jax(cap, frozen["encoder"])
+    if load_encoder:
+        encoder_from_jax(cap, frozen["encoder"])
     if cap.spec.is_nic:
         _check_keys("trainable", trainable, ("enc_linear", "decoder"))
         _load(cap.projection, flax_state_dict(trainable["enc_linear"]))

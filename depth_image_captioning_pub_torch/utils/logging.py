@@ -1,8 +1,10 @@
 """Training logs (counterpart of the JAX ``utils/logging.py``): the
 reference's per-epoch ``epoch, loss`` CSV files, one JSON object a line of
-structured metrics, and the moving-average progress line. The profiler
-window of the JAX package (``ProfilerTrace``) is not ported; the trainer's
-``--profile`` flags say so.
+structured metrics, the moving-average progress line, and
+``ProfilerTrace``, the trainer's profiler window (``--profile DIR
+--profile-start N --profile-stop M``): ``torch.profiler`` over the host
+steps [N, M), CPU and CUDA activities, exported as a Chrome trace into
+DIR.
 """
 
 from __future__ import annotations
@@ -12,7 +14,7 @@ import os
 import sys
 import time
 from collections import deque
-from typing import Dict
+from typing import Dict, Optional
 
 
 class CsvLossLog:
@@ -82,3 +84,44 @@ class ProgressMeter:
     @property
     def moving_avg(self) -> float:
         return sum(self.losses) / len(self.losses) if self.losses else 0.0
+
+
+class ProfilerTrace:
+    """A ``torch.profiler`` window around a run of steps (the JAX
+    package's ``jax.profiler`` trace window). ``maybe_start`` opens it
+    (CPU activities, and CUDA's when a card is present), ``maybe_stop``
+    closes it and writes ``trace_<pid>_<n>.json`` (a Chrome trace) into
+    ``log_dir``, returning its path; both are no-ops when there is nothing
+    to do, so the loop can always call ``maybe_stop`` on its way out."""
+
+    def __init__(self, log_dir: Optional[str] = None):
+        self.log_dir = log_dir
+        self.paths = []
+        self._prof = None
+
+    @property
+    def active(self) -> bool:
+        return self._prof is not None
+
+    def maybe_start(self) -> None:
+        if not self.log_dir or self._prof is not None:
+            return
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+        activities = [ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            activities.append(ProfilerActivity.CUDA)
+        os.makedirs(self.log_dir, exist_ok=True)
+        self._prof = profile(activities=activities)
+        self._prof.__enter__()
+
+    def maybe_stop(self) -> Optional[str]:
+        if self._prof is None:
+            return None
+        prof, self._prof = self._prof, None
+        prof.__exit__(None, None, None)
+        path = os.path.join(self.log_dir, f"trace_{os.getpid()}_"
+                                          f"{len(self.paths)}.json")
+        prof.export_chrome_trace(path)
+        self.paths.append(path)
+        return path

@@ -1,7 +1,8 @@
 """The training CLI (``python -m depth_image_captioning_pub_torch.training``,
 the counterpart of ``base_main.py`` / ``depth_main.py``): its grammar, the
-flags that are not ported yet (exit 2, naming ROADMAP.md's item), the
-checkpoint flags, and runs on the CPU over a synthetic COCO in the
+flags that once exited 2 as not ported (``--grad-accum``,
+``--decoder-dtype``, ``--feature-cache``, ``--profile*``; now each reaches
+``train``), the checkpoint flags, and runs on the CPU over a synthetic COCO in the
 reference's layout (through the config's cwd-relative paths, ResNet
 blocks 1,1,1,1 and the tests' tiny DPT from $DCAP_RESNET_LAYERS and
 $DCAP_TINY_DPT):
@@ -70,11 +71,30 @@ def test_grammar_errors(words, capsys):
                                    ["--profile-start", "1"],
                                    ["--profile-stop", "3"]])
 def test_unported_flags_exit_2(flags, capsys, monkeypatch):
-    monkeypatch.setattr(ttrain, "train", lambda *a, **k: pytest.fail(
-        "train ran"))
-    assert training.main(["base", "soft", "coco"] + flags) == 2
-    err = capsys.readouterr().err
-    assert "Queue A item 7." in err and flags[0] in err
+    """The flags that exited 2 before they were ported now reach ``train``
+    (``cfg`` and ``feature_cache``) and the run exits 0."""
+    seen = []
+
+    def train(kind, **kw):
+        cfg = kw["cfg"]
+        seen.append({"--grad-accum": cfg.grad_accum,
+                     "--decoder-dtype": cfg.decoder_dtype,
+                     "--feature-cache": kw["feature_cache"],
+                     "--profile": cfg.profile_dir,
+                     "--profile-start": cfg.profile_start,
+                     "--profile-stop": cfg.profile_stop})
+        return {}
+    monkeypatch.setattr(ttrain, "train", train)
+    assert training.main(["base", "soft", "coco", "--exp-time", "1"]
+                         + flags) == 0
+    want = {"--grad-accum": 1, "--decoder-dtype": "float32",
+            "--feature-cache": False, "--profile": None,
+            "--profile-start": ConfigTrain.profile_start,
+            "--profile-stop": ConfigTrain.profile_stop}
+    want[flags[0]] = (True if len(flags) == 1 else
+                      int(flags[1]) if flags[1].isdigit() else flags[1])
+    assert seen == [want]
+    assert "not ported" not in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("flags,want", [

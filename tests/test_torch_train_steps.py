@@ -291,8 +291,9 @@ def test_four_step_trajectory_matches_jax(kind):
 
 def test_step_runs_in_full_f32_and_refuses_accumulation(monkeypatch):
     """TF32 is off through the whole step (forward, backward, AdamW) and
-    the caller's flags come back after it; ``accum_steps`` > 1 raises,
-    naming the ROADMAP item."""
+    the caller's flags come back after it; an accumulation that is not a
+    positive divisor of the batch raises (accumulation itself:
+    tests/test_torch_grad_accum.py)."""
     t = twin("base-soft")
     cap, opt = t.port()
     seen = []
@@ -307,9 +308,11 @@ def test_step_runs_in_full_f32_and_refuses_accumulation(monkeypatch):
     t.port_train(cap, opt, make_batch(3), jax.random.PRNGKey(3))
     assert seen == [(False, False)]
     assert torch.backends.cudnn.allow_tf32 is True
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
-        tsteps.check_accum_steps(2)
-    tsteps.check_accum_steps(1)
+    with pytest.raises(ValueError, match="not divisible"):
+        tsteps.check_accum_steps(2, B)
+    with pytest.raises(ValueError, match=">= 1"):
+        tsteps.check_accum_steps(0)
+    tsteps.check_accum_steps(1, B)
     # AdamW holds exactly the trainable tensors, the backbone frozen
     held = {id(p) for g in opt.param_groups for p in g["params"]}
     assert held == {id(p) for p in cap.trainable_parameters()}
