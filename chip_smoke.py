@@ -11,7 +11,8 @@ reference-layout weight files (torchvision, Omnidata, the reference's own
 ``.pth`` sets) through every loader, resumable training, and the
 frozen-stage caches and the rest of training: the train-time feature
 cache, gradient accumulation, the bf16 decoder, the profiler window and
-the eval set cache with its disk store.
+the eval set cache with its disk store, and sample mode with its
+attention overlays and the AOT export.
 
 Run from the root of a checkout, on a machine with one CUDA card (written
 for an NVIDIA H100):
@@ -287,8 +288,28 @@ the script exits non-zero:
    0; K2 (K3 for NIC) 4 a set; per set the caption and copy seconds and
    whether the frozen encoder was copied (sets 2-3 keep it: equal
    trees), beside the time of that copy.
+32. sample: ``evaluation base soft sample`` and ``depth soft sample`` on
+   a copy of ``sample_pic/dog`` in a working directory under ``build/``
+   (phase 5's weights; a seeded depth-soft captioner and a random
+   DPT-hybrid at 384), then ``--stochastic`` twice: K1 30 launches an
+   image (K5 12 more for depth), no plain version; one readable overlay
+   per word, one caption line per image; greedy tokens against
+   ``CaptionPipeline``'s K2 on the same array (>= 0.99 up to K2's first
+   <end>); the stochastic rerun repeats; per run the caption and overlay
+   seconds of an image.
+33. export: ``export.py`` on the card: phase 5's weights at buckets 1 and
+   16 and sampled at 16, a seeded depth-soft captioner with phase 7's DPT
+   at 224 at 16; each artifact loaded and run on 16 seeded images
+   (launches: K2 1 a chunk, K1 30 sampled, K5 12 + K2 1 depth-soft, no
+   plain version; tokens against the live pipeline's, equal or >= 0.99
+   with the flags named); a tiny base-soft artifact exported on the CPU
+   and moved to the card against a CUDA export (equal tokens); export
+   seconds per bucket, load seconds, MB, the 16-image request's ms
+   exported and live, and each ``dcap::`` operator's host microseconds a
+   launch against its CUDA implementation called directly (equal
+   outputs).
 
-Each path (phases 5, 7, 9, 11-31: ``PATHS``) runs with every launch counter
+Each path (phases 5, 7, 9, 11-33: ``PATHS``) runs with every launch counter
 set to 0 just before it and read just after. The line before the last is a JSON
 object with the five ported kernels (K1 step, K2 greedy, K3 NIC greedy, K4
 beam, K5 ViT attention): launches per path, error, time beside the plain
@@ -350,7 +371,8 @@ PATHS = ("base-soft", "depth-soft", "nic", "base-soft-beam5",
          "caption-depth224-beam3", "train-depth-soft", "train-base-soft",
          "train-nic", "train-base-hard", "train-mdepth-soft",
          "reference-weights", "train-resume", "train-feature-cache",
-         "train-accum", "train-bf16", "train-profile", "score-cached")
+         "train-accum", "train-bf16", "train-profile", "score-cached",
+         "sample", "export")
 TOP_P = 0.9          # the sampling path's nucleus
 SCORE_IMAGES, SCORE_SETS, SCORE_BATCH = 256, 3, 64
 SEED = 0             # the serving phases' request images
@@ -4809,6 +4831,464 @@ class _Rows:
         return self.data.captions(self.rows[i])
 
 
+SAMPLE_PIC = "dog"         # phase 32's sample_pic set (one JPEG)
+EXPORT_IMAGES = 16         # phase 33's request: one chunk of bucket 16
+EXPORT_REPEATS = 3         # timed requests of each pipeline
+
+
+def sample_run(argv, n_images, times, tokens):
+    """``evaluation.main(argv)`` in the working directory, with the counts
+    set to 0 just before and read just after, every plain version counted,
+    and the caption (encoder + decode) and overlay seconds of the run added
+    to ``times``; each image's (array, tokens) appended to ``tokens``.
+    Returns the counts."""
+    import torch
+    from depth_image_captioning_pub_torch import evaluation
+    from depth_image_captioning_pub_torch.engine import visualize
+    orig_dir, orig_render = (visualize.sample_directory,
+                             visualize.render_attention_overlays)
+
+    def render(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = orig_render(*args, **kwargs)
+        times["render"] += time.perf_counter() - t0
+        return out
+
+    def directory(sample_dir, out_dir, caption_one, id_to_word, **kwargs):
+        def timed(arr):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            toks, alphas = caption_one(arr)        # numpy: synchronized
+            times["decode"] += time.perf_counter() - t0
+            if not (np.isfinite(alphas).all()
+                    and np.abs(alphas.sum(-1) - 1).max() < 1e-4):
+                raise RuntimeError("sample mode's alphas are not softmax "
+                                   "rows")
+            tokens.append((arr, toks))
+            return toks, alphas
+        return orig_dir(sample_dir, out_dir, timed, id_to_word, **kwargs)
+
+    visualize.sample_directory = directory
+    visualize.render_attention_overlays = render
+    torch.cuda.synchronize()
+    reset_counts()
+    try:
+        with PlainCalls() as plain:
+            rc = evaluation.main(argv)
+        counts = read_counts()
+    finally:
+        visualize.sample_directory = orig_dir
+        visualize.render_attention_overlays = orig_render
+    if rc != 0 or plain.calls:
+        raise RuntimeError(f"evaluation {' '.join(argv)}: exit {rc}, plain "
+                           f"versions {sorted(set(plain.calls))}")
+    want = dict.fromkeys(counts, 0)
+    want["decode_step"] = n_images * MAX_LEN
+    if argv[0] == "depth":
+        want["vit_attention"] = n_images * DPT_BLOCKS
+    if counts != want:
+        raise RuntimeError(f"evaluation {' '.join(argv)}: launches {counts}, "
+                           f"expected {want} for {n_images} images")
+    return counts
+
+
+def check_overlays(out_dir, n_images):
+    """The JAX module's layout: one ``caption.txt`` line per image, and per
+    image ``input.png`` and one readable ``NN_<word>.png`` per word."""
+    from PIL import Image
+    lines = (out_dir / "caption.txt").read_text().splitlines()
+    if len(lines) != n_images:
+        raise RuntimeError(f"{out_dir}/caption.txt has {len(lines)} lines "
+                           f"for {n_images} images")
+    pngs = 0
+    for line in lines:
+        name, caption = line.split(": ", 1)
+        stem = out_dir / name.rsplit(".", 1)[0]
+        want = sorted(["input.png"] + [f"{t:02d}_{w}.png" for t, w in
+                                       enumerate(caption.split())])
+        if sorted(p.name for p in stem.iterdir()) != want:
+            raise RuntimeError(f"{stem}: {sorted(stem.iterdir())}, expected "
+                               f"{want}")
+        for name in want:
+            with Image.open(stem / name) as im:
+                im.load()
+            pngs += 1
+    return lines, pngs
+
+
+def phase_sample_mode(smi, base_cap):
+    """32. Sample mode: ``evaluation base soft sample`` and ``evaluation
+    depth soft sample`` over a copy of one ``sample_pic`` set in a working
+    directory under ``build/`` (its ``sample_dirs`` point there; nothing is
+    written into the repository), on checkpoint files of phase 5's
+    base-soft weights and of a seeded depth-soft captioner (the DPT-hybrid
+    at 384, drawn at random: no weights in the repository). Each run's K1
+    launches equal images x 30 (K5 12 an image for depth), no plain version;
+    one overlay per word, every PNG readable, one caption line per image;
+    base-soft's greedy tokens against ``CaptionPipeline``'s K2 on the same
+    resized array (>= 0.99 of the tokens up to K2's first <end>); a
+    ``--stochastic`` rerun with one seed repeats its captions. Prints each
+    run's seconds per image, caption (encoder + K1 loop) and overlays."""
+    import os
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch
+    from depth_image_captioning_pub_torch.cli import placeholder_vocab
+    from depth_image_captioning_pub_torch.data.tokenizer import SPECIAL
+    from depth_image_captioning_pub_torch.models.captioner import (
+        build_captioner)
+    from depth_image_captioning_pub_torch.pipeline import CaptionPipeline
+    import scipy
+    log("sample", f"scipy {scipy.__version__} (expand_alpha's zoom and "
+        f"Gaussian)")
+    t_phase = time.perf_counter()
+    w2i, i2w = placeholder_vocab(VOCAB)
+    here = Path(__file__).resolve().parent
+    (here / "build").mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(dir=here / "build", prefix="sample_"))
+    cwd = os.getcwd()
+    launches = dict.fromkeys(kernel_modules(), 0)
+    try:
+        shutil.copytree(here / "sample_pic" / SAMPLE_PIC,
+                        root / "sample_pic" / SAMPLE_PIC)
+        n_images = len([p for p in (root / "sample_pic" / SAMPLE_PIC)
+                        .iterdir() if p.suffix in (".jpg", ".png")])
+        cfg = write_experiment(root, "base-soft", base_cap, w2i)[0]
+        depth_cap = build_captioner("depth-soft", VOCAB, device="cuda")
+        depth_cap.init(torch.Generator().manual_seed(32))
+        write_experiment(root, "depth-soft", depth_cap, w2i)
+        del depth_cap
+        os.chdir(root)
+        greedy = {}
+        for base in ("base", "depth"):
+            times = {"decode": 0.0, "render": 0.0}
+            tokens = []
+            counts = sample_run([base, "soft", "sample", SAMPLE_PIC, "coco"],
+                                n_images, times, tokens)
+            launches = {k: launches[k] + v for k, v in counts.items()}
+            out_dir = root / "sample_pic" / SAMPLE_PIC / f"{base}_soft"
+            lines, pngs = check_overlays(out_dir, n_images)
+            greedy[base] = tokens
+            log("sample", f"{base}-soft greedy: {n_images} image(s), "
+                f"{pngs} PNGs; per image caption {times['decode']:.3f} s "
+                f"(encoder{' + DPT' if base == 'depth' else ''} + K1 x"
+                f"{MAX_LEN}), overlays {times['render']:.3f} s; launches "
+                f"{counts}; {lines[0]!r} [{smi}]")
+        # the greedy tokens against K2 on the same resized array
+        pipe = CaptionPipeline.from_experiment("base-soft", cfg=cfg,
+                                               device="cuda",
+                                               batch_buckets=(1,))
+        end = w2i[SPECIAL.end]
+        agree, n = 0, 0
+        for arr, toks in greedy["base"]:
+            u8 = np.rint(arr * 255.0).astype(np.uint8)
+            k2 = pipe.caption_tokens(u8[None])[0]
+            stop = int(np.argmax(k2 == end)) + 1 if (k2 == end).any() \
+                else MAX_LEN
+            agree += int((toks[:stop] == k2[:stop]).sum())
+            n += stop
+        del pipe
+        if agree / n < MIN_AGREEMENT:
+            raise RuntimeError(f"sample mode's greedy tokens agree with K2 "
+                               f"on {agree}/{n} < {MIN_AGREEMENT}")
+        log("sample", f"greedy (K1 loop) vs CaptionPipeline's K2 on the "
+            f"same arrays: {agree}/{n} tokens up to K2's first <end>")
+        captions = []
+        for _ in range(2):
+            # a run adds its files to what the directory holds
+            shutil.rmtree(root / "sample_pic" / SAMPLE_PIC / "base_soft")
+            times = {"decode": 0.0, "render": 0.0}
+            counts = sample_run(["base", "soft", "sample", SAMPLE_PIC, "coco",
+                                 "--stochastic", "--top-p", str(TOP_P),
+                                 "--seed", "3"], n_images, times, [])
+            launches = {k: launches[k] + v for k, v in counts.items()}
+            captions.append(check_overlays(
+                root / "sample_pic" / SAMPLE_PIC / "base_soft", n_images)[0])
+            log("sample", f"base-soft --stochastic --seed 3: per image "
+                f"caption {times['decode']:.3f} s, overlays "
+                f"{times['render']:.3f} s [{smi}]")
+        if captions[0] != captions[1]:
+            raise RuntimeError(f"a --stochastic rerun with one seed changed "
+                               f"its captions: {captions}")
+        log("sample", f"--stochastic rerun repeats: {captions[0][0]!r}")
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(root, ignore_errors=True)
+    log("sample", f"launches {launches}; plain calls 0; the phase took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return {"sample": launches}
+
+
+def export_timed(pipe, out_dir):
+    """``export_pipeline`` with each bucket's ``torch.export.export`` timed:
+    (meta, [seconds per bucket], total seconds, artifact MB)."""
+    import os
+    import torch
+    from depth_image_captioning_pub_torch.export import export_pipeline
+    orig = torch.export.export
+    seconds = []
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = orig(*args, **kwargs)
+        seconds.append(time.perf_counter() - t0)
+        return out
+
+    torch.export.export = timed
+    t0 = time.perf_counter()
+    try:
+        meta = export_pipeline(pipe, str(out_dir))
+    finally:
+        torch.export.export = orig
+    total = time.perf_counter() - t0
+    mb = sum(os.path.getsize(os.path.join(out_dir, f))
+             for f in os.listdir(out_dir)) / 1e6
+    return meta, seconds, total, mb
+
+
+def load_timed(out_dir, **kwargs):
+    from depth_image_captioning_pub_torch.export import ExportedPipeline
+    t0 = time.perf_counter()
+    pipe = ExportedPipeline.load(str(out_dir), **kwargs)
+    return pipe, time.perf_counter() - t0
+
+
+def token_agreement(got, want):
+    return float((np.asarray(got) == np.asarray(want)).mean())
+
+
+def request_ms(pipe, images):
+    """Host ms of each of ``EXPORT_REPEATS`` requests (tokens on the
+    host), after one warm-up."""
+    import torch
+    pipe.caption_tokens(images)
+    out = []
+    for _ in range(EXPORT_REPEATS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe.caption_tokens(images)
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def dispatch_case(base_cap):
+    """name -> (operator, its CUDA implementation, arguments) at the
+    sample path's shapes: B=1 bf16 features at full width (K1, K2, K4
+    beam 5), NIC at B=1 (E=300, H=128, 2 layers), K5 at one image's
+    Z=12, N=577, d=64 bf16."""
+    import torch
+    from depth_image_captioning_pub_torch.models.nic import NICDecoder
+    from depth_image_captioning_pub_torch.ops.kernels import (
+        beam_seq, decode_seq, decode_step, nic_seq, vit_attention)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(34)
+    dec = base_cap.decoder
+    with torch.inference_mode():
+        feats = torch.rand((1, K, D), generator=gen, device=dev).to(
+            torch.bfloat16)
+        feats, proj, h, c = dec._prepare(feats, None)
+        w = dec.seq_weights()
+        ws = decode_seq.seq_list(w)
+        nic = NICDecoder(VOCAB, dim_embedding=300, dim_hidden=128,
+                         num_layers=2, device=dev)
+        nic.reset_parameters(torch.Generator().manual_seed(34))
+        nw = nic.seq_weights()
+        x0 = torch.randn((1, 300), generator=gen, device=dev)
+        q, k, v = (torch.randn((12, 577, 64), generator=gen, device=dev)
+                   .to(torch.bfloat16) for _ in range(3))
+        emb = w.embed[torch.full((1,), 2, device=dev)]
+    return {
+        "decode_step": (torch.ops.dcap.decode_step,
+                        decode_step._decode_step_cuda,
+                        (feats, proj, emb, h, c, list(w.step))),
+        "greedy_decode": (torch.ops.dcap.greedy_decode,
+                          decode_seq._greedy_cuda,
+                          (feats, proj, h, c, ws, MAX_LEN, 2, 3)),
+        "nic_greedy_decode": (torch.ops.dcap.nic_greedy_decode,
+                              nic_seq._nic_cuda,
+                              (x0, [*nw.layer_mats, nw.w_out, nw.b_out,
+                                    nw.embed], MAX_LEN)),
+        "beam_decode": (torch.ops.dcap.beam_decode, beam_seq._beam_cuda,
+                        (feats, proj, h, c, ws, BEAM, MAX_LEN, 2, 3)),
+        "vit_attention": (torch.ops.dcap.vit_attention,
+                          vit_attention._vit_cuda, (q, k, v, 0.125, 577)),
+    }
+
+
+def dispatch_us(base_cap, calls=100, rounds=5):
+    """Host microseconds to queue one launch through each ``dcap::``
+    operator and through its CUDA implementation called directly (the
+    dispatcher's cost is the difference), the least of ``rounds`` rounds
+    of ``calls`` calls each, taken in turns; the outputs of the two must
+    be equal."""
+    import torch
+    out = {}
+    with torch.inference_mode():
+        for name, (op, direct, args) in dispatch_case(base_cap).items():
+            a, b = op(*args), direct(*args)
+            for x, y in zip(a if isinstance(a, tuple) else [a],
+                            b if isinstance(b, tuple) else [b]):
+                if not torch.equal(x, y):
+                    raise RuntimeError(f"dcap::{name} differs from its CUDA "
+                                       f"implementation called directly")
+            best = {"op": float("inf"), "direct": float("inf")}
+            for _ in range(rounds):
+                for key, fn in (("op", op), ("direct", direct)):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for _ in range(calls):
+                        fn(*args)
+                    best[key] = min(best[key], (time.perf_counter() - t0)
+                                    / calls * 1e6)
+                    torch.cuda.synchronize()
+            out[name] = best
+    return out
+
+
+def phase_export(smi, base_cap, est):
+    """33. The AOT export on the card (``export.py``): phase 5's base-soft
+    weights exported at buckets 1 and 16, and with nucleus sampling
+    (``top_p`` 0.9, seed 0) at 16; depth-soft (a seeded captioner, phase
+    7's DPT at ``--dpt-size 224``) at 16; each loaded and run on 16 seeded
+    images (one chunk; the 1-bucket artifact also on one image). Each
+    loaded program launches K2 once a chunk (K1 x30 sampling, K5 12 +
+    K2 1 depth) through the ``dcap::`` operators, no plain version; its
+    tokens against the live pipeline's (equal, or >= 0.99 with the
+    difference put down to the flags: a program runs under ``full_f32``,
+    the live bf16 products under ``matmul_f32``'s TF32); then a tiny
+    base-soft artifact exported on the CPU, loaded on the card
+    (``move_to_device_pass``), against a CUDA export of the same weights
+    (equal tokens). Prints each export's seconds per bucket, load seconds
+    and MB, the 16-image request's ms exported and live, and each
+    operator's host microseconds to queue a launch against a direct call
+    of its CUDA implementation."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch
+    from depth_image_captioning_pub_torch.cli import placeholder_vocab
+    from depth_image_captioning_pub_torch.models.captioner import (
+        build_captioner)
+    from depth_image_captioning_pub_torch.models.dpt import (
+        DPTDepthEstimator)
+    from depth_image_captioning_pub_torch.pipeline import CaptionPipeline
+    t_phase = time.perf_counter()
+    w2i, i2w = placeholder_vocab(VOCAB)
+    images = np.random.default_rng(33).integers(
+        0, 256, (EXPORT_IMAGES, 224, 224, 3), dtype=np.uint8)
+    here = Path(__file__).resolve().parent
+    (here / "build").mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(dir=here / "build", prefix="export_"))
+    launches = dict.fromkeys(kernel_modules(), 0)
+
+    def loaded_run(pipe, requests, tag, want):
+        outputs, counts = run_requests(pipe, requests, smi, tag)
+        nonlocal launches
+        launches = {k: launches[k] + v for k, v in counts.items()}
+        if counts != dict(dict.fromkeys(counts, 0), **want):
+            raise RuntimeError(f"export {tag}: launches {counts}, expected "
+                               f"{want}")
+        return outputs
+
+    def report(tag, live, loaded, seconds, total, mb, load_s, got, want):
+        agree = token_agreement(got, want)
+        if agree < MIN_AGREEMENT:
+            raise RuntimeError(f"export {tag}: exported tokens agree with "
+                               f"the live pipeline's on {agree:.4f}")
+        note = ("equal" if agree == 1.0 else
+                f"agreement {agree:.4f} (the program runs under full_f32, "
+                f"the live bf16 products under matmul_f32's TF32)")
+        ms_exp, ms_live = request_ms(loaded, images), request_ms(live, images)
+        log("export", f"{tag}: export {total:.1f} s (per bucket "
+            f"{', '.join(f'{s:.1f}' for s in seconds)} s), {mb:.1f} MB, load "
+            f"{load_s:.2f} s; tokens vs live {note}; {EXPORT_IMAGES}-image "
+            f"request exported {', '.join(f'{m:.1f}' for m in ms_exp)} ms, "
+            f"live {', '.join(f'{m:.1f}' for m in ms_live)} ms [{smi}]")
+
+    try:
+        # greedy base-soft at buckets 1 and 16
+        live = CaptionPipeline(base_cap, w2i, i2w, max_length=MAX_LEN,
+                               batch_buckets=(1, EXPORT_IMAGES))
+        want = live.caption_tokens(images)
+        meta, seconds, total, mb = export_timed(live, root / "greedy")
+        loaded, load_s = load_timed(root / "greedy")
+        got, one = loaded_run(loaded, [images, images[:1]], "greedy",
+                              {"decode_seq": 2})
+        if token_agreement(one, live.caption_tokens(images[:1])) < \
+                MIN_AGREEMENT:
+            raise RuntimeError("export greedy: the 1-image bucket differs")
+        report(f"base-soft greedy b1,{EXPORT_IMAGES}",
+               live, loaded, seconds, total, mb, load_s, got, want)
+        del loaded
+
+        # nucleus sampling at bucket 16: both generators fresh at seed 0
+        live = CaptionPipeline(base_cap, w2i, i2w, max_length=MAX_LEN,
+                               batch_buckets=(EXPORT_IMAGES,), sample=True,
+                               top_p=TOP_P, seed=0)
+        meta, seconds, total, mb = export_timed(live, root / "sample")
+        loaded, load_s = load_timed(root / "sample", seed=0)
+        want = live.caption_tokens(images)
+        got, = loaded_run(loaded, [images], "sample",
+                          {"decode_step": MAX_LEN})
+        report(f"base-soft sample b{EXPORT_IMAGES}",
+               live, loaded, seconds, total, mb, load_s, got, want)
+        del loaded
+
+        # depth-soft with the DPT at 224 inside the program
+        est224 = DPTDepthEstimator(image_size=224, device="cuda")
+        est224.model = est.model
+        depth_cap = build_captioner("depth-soft", VOCAB, device="cuda")
+        depth_cap.init(torch.Generator().manual_seed(33))
+        live = CaptionPipeline(depth_cap, w2i, i2w, max_length=MAX_LEN,
+                               batch_buckets=(EXPORT_IMAGES,),
+                               depth_fn=est224.depth_fn())
+        want = live.caption_tokens(images)
+        meta, seconds, total, mb = export_timed(live, root / "depth")
+        loaded, load_s = load_timed(root / "depth")
+        got, = loaded_run(loaded, [images], "depth224",
+                          {"vit_attention": DPT_BLOCKS, "decode_seq": 1})
+        report(f"depth-soft (DPT 224) b{EXPORT_IMAGES}",
+               live, loaded, seconds, total, mb, load_s, got, want)
+        del loaded, live, depth_cap
+
+        # a tiny artifact exported on the CPU, moved to the card
+        tiny = build_captioner("base-soft", VOCAB, resnet_layers=(1, 1, 1, 1),
+                               device="cpu")
+        tiny.init(torch.Generator().manual_seed(35))
+        cpu_pipe = CaptionPipeline(tiny, w2i, i2w, max_length=MAX_LEN,
+                                   batch_buckets=(4,))
+        export_timed(cpu_pipe, root / "tiny_cpu")
+        tiny_cuda = build_captioner("base-soft", VOCAB,
+                                    resnet_layers=(1, 1, 1, 1), device="cuda")
+        tiny_cuda.load_state_dict(tiny.state_dict())
+        export_timed(CaptionPipeline(tiny_cuda, w2i, i2w, max_length=MAX_LEN,
+                                     batch_buckets=(4,)), root / "tiny_cuda")
+        moved, load_s = load_timed(root / "tiny_cpu", device="cuda")
+        native, _ = load_timed(root / "tiny_cuda")
+        a, = loaded_run(moved, [images[:4]], "tiny-moved", {"decode_seq": 1})
+        b = native.caption_tokens(images[:4])
+        if not np.array_equal(a, b):
+            raise RuntimeError(f"a CPU export moved to the card differs from "
+                               f"a CUDA export: {token_agreement(a, b):.4f}")
+        log("export", f"tiny base-soft exported on the CPU, loaded on the "
+            f"card in {load_s:.2f} s: tokens equal to a CUDA export's")
+        del moved, native, tiny, tiny_cuda
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    for name, us in dispatch_us(base_cap).items():
+        log("export", f"dcap::{name}: {us['op']:.1f} us to queue a launch "
+            f"through the operator, {us['direct']:.1f} us calling its CUDA "
+            f"implementation directly ({us['op'] - us['direct']:+.1f} us) "
+            f"[{smi}]")
+    log("export", f"launches {launches}; plain calls 0; the phase took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return {"export": launches}
+
+
 def main():
     smi = phase_env()
     import torch
@@ -4837,6 +5317,8 @@ def main():
     by_path.update(phase_reference_weights(smi, base_cap, est))
     by_path.update(phase_resume(smi))
     by_path.update(phase_caches_and_training(smi, est))
+    by_path.update(phase_sample_mode(smi, base_cap))
+    by_path.update(phase_export(smi, base_cap, est))
     if tuple(by_path) != PATHS:
         raise RuntimeError(f"paths run {tuple(by_path)}, expected {PATHS}")
     kernels = [step, seq, nic_k, beam_k, vit]

@@ -10,8 +10,8 @@ and names mirror the JAX package's, so the counterpart of ``X`` there is
 the CPU (``device="cpu"``, ``--device cpu``).
 
 The ported paths are the seven kinds' captioning (greedy, beam search,
-sampling), the scored evaluation of checkpoint sets, serving, and
-training:
+sampling), the scored evaluation of checkpoint sets and sample mode,
+serving, the AOT export, and training:
 
 ``config``    ``ConfigTrain`` / ``ConfigEval``.
 ``data``      special tokens, tokenizer, vocabulary, train and eval
@@ -21,7 +21,8 @@ training:
               pooling, soft and hard attention, LSTM cell and stacked
               step, beam
               search (``ops.decode``), and the CUDA kernels' Python
-              wrappers (``ops.kernels``) with their plain PyTorch versions.
+              wrappers (``ops.kernels``) with their plain PyTorch versions,
+              as ``torch.library`` operators (``ops.kernels.library``).
 ``csrc``      the hand-written CUDA C++ kernels for ``sm_90a``.
 ``models``    ResNet-152 grid encoder, DPT-hybrid depth estimator, depth
               CNN encoder, attention decoder (add fusion), NIC decoder,
@@ -31,7 +32,7 @@ training:
               ``eval_cache_store`` (its disk store); ``losses``,
               ``steps`` (with gradient accumulation), ``depth_cache``,
               ``feature_cache`` (the train-time frozen features),
-              ``train``.
+              ``train``; ``visualize`` (sample mode's overlays).
 ``pipeline``  ``CaptionPipeline``: uint8 arrays in, captions out;
               ``from_experiment`` loads a checkpoint set.
 ``utils``     ``jax_bridge`` (``params_from_jax`` / ``params_to_jax`` /
@@ -40,7 +41,10 @@ training:
               trainer's flax msgpack files).
 ``cli``       ``python -m depth_image_captioning_pub_torch.cli caption``.
 ``evaluation`` ``python -m depth_image_captioning_pub_torch.evaluation``:
-              score checkpoint sets.
+              score checkpoint sets, or caption and overlay a sample_pic
+              set.
+``export``    ``python -m depth_image_captioning_pub_torch.export``: the
+              AOT artifact (``ExportedPipeline``).
 ``training``  ``python -m depth_image_captioning_pub_torch.training``:
               train a kind, writing the JAX trainer's files.
 """

@@ -14,8 +14,10 @@ directories expand to their image files sorted by name. A file that does
 not decode is reported on stderr and captioned ``<decode failed>``; the
 run exits 1 when no file decodes. Files decode as the pipeline decodes
 paths (``data/native_loader.decode_batch``), so the captions equal those
-of passing the paths to the pipeline. ``--export-dir`` exits with status
-2: the AOT export is not ported (ROADMAP.md, Queue A item 6).
+of passing the paths to the pipeline. ``--export-dir DIR`` captions with
+the artifact that ``depth_image_captioning_pub_torch.export`` wrote to DIR
+instead of the ``exp_result/`` files (its decode settings are baked in;
+the model flags are ignored; ``--device`` and ``--seed`` apply).
 """
 
 from __future__ import annotations
@@ -71,7 +73,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="cuda (default) or cpu (the kernels' plain versions)")
     cli.add_dpt_flags(p)
     p.add_argument("--export-dir", default=None,
-                   help="not ported: exits with status 2")
+                   help="caption from an export.py artifact instead of "
+                        "exp_result/ checkpoints (decode settings are baked "
+                        "into the artifact; model flags are ignored)")
     p.add_argument("--json", action="store_true",
                    help='emit [{"path": ..., "caption": ...}, ...]')
     p.add_argument("--output", default=None,
@@ -81,9 +85,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.export_dir:
-        print(cli.EXPORT_NOT_PORTED, file=sys.stderr)
-        return 2
     paths = expand_paths(args.paths)
     if not paths:
         print("no images found", file=sys.stderr)
@@ -95,12 +96,24 @@ def main(argv=None) -> int:
 
     from depth_image_captioning_pub_torch.data.native_loader import (
         decode_batch)
-    from depth_image_captioning_pub_torch.pipeline import CaptionPipeline
-    pipe = CaptionPipeline.from_experiment(
-        args.kind, args.use_data, cfg=cli.dpt_cfg(args), set_idx=args.set_idx,
-        device=args.device, beam_size=args.beam, batch_size=args.batch_size,
-        sample=args.sample, temperature=args.temperature, top_k=args.top_k,
-        top_p=args.top_p, seed=args.seed)
+    if args.export_dir:
+        from depth_image_captioning_pub_torch.export import (
+            META_NAME, ExportedPipeline)
+        if not os.path.isfile(os.path.join(args.export_dir, META_NAME)):
+            print(f"no export artifact in {args.export_dir} ({META_NAME} "
+                  f"missing)", file=sys.stderr)
+            return 1
+        pipe = ExportedPipeline.load(args.export_dir, device=args.device,
+                                     seed=args.seed)
+    else:
+        from depth_image_captioning_pub_torch.pipeline import (
+            CaptionPipeline)
+        pipe = CaptionPipeline.from_experiment(
+            args.kind, args.use_data, cfg=cli.dpt_cfg(args),
+            set_idx=args.set_idx, device=args.device, beam_size=args.beam,
+            batch_size=args.batch_size, sample=args.sample,
+            temperature=args.temperature, top_k=args.top_k,
+            top_p=args.top_p, seed=args.seed)
     # tolerant decode: one truncated file does not end a directory run
     failed: List[int] = []
     arrays = decode_batch(paths, pipe.image_hw, on_error="zero",

@@ -252,10 +252,6 @@ def load_eval_components(save_directory: str, files, cap):
     return frozen_enc, params, stats
 
 
-EXPORT_NOT_PORTED = ("--export-dir: the AOT export is not ported yet "
-                     "(ROADMAP.md, Queue A item 6)")
-
-
 def add_dpt_flags(p: argparse.ArgumentParser) -> None:
     """The DPT's flags of the JAX package's depth evaluation, serve and
     caption CLIs (depth kinds only): its input side and two throughput

@@ -96,12 +96,14 @@ def make_caption_fn(cap: Captioner, start_id: int, max_length: int = 30,
 
     Hard attention draws its region noise from ``generator`` too, or from
     the ``att_noise(t, shape)`` hook that a call passes (``fn(images,
-    att_noise=...)``; the tests replay the JAX package's draws through it).
+    att_noise=...)``; the tests replay the JAX package's draws through
+    it), and sampling its token noise from the ``noise(t)`` hook [B, V]
+    when a call passes one (``export.py`` feeds both as program inputs).
 
     The function's two stages are ``fn.frozen(images, depth_maps=None)``
     -> an entry of the frozen stages' outputs and ``fn.decode(entry,
-    att_noise=None)`` -> tokens; ``fn(images)`` is the one after the
-    other.
+    att_noise=None, noise=None)`` -> tokens; ``fn(images)`` is the one
+    after the other.
     """
     if beam_size > 1 and cap.spec.attention == "soft":
         check_beam_size(beam_size, cap.device)
@@ -127,7 +129,8 @@ def make_caption_fn(cap: Captioner, start_id: int, max_length: int = 30,
 
         @torch.inference_mode()
         def nic_decode(entry: Dict[str, torch.Tensor],
-                       att_noise: Optional[AttNoise] = None) -> torch.Tensor:
+                       att_noise: Optional[AttNoise] = None,
+                       noise: Optional[Callable] = None) -> torch.Tensor:
             feats = cap.projection(entry["pooled"])
             if beam_size > 1:
                 return cap.decoder.beam_sample(
@@ -135,7 +138,8 @@ def make_caption_fn(cap: Captioner, start_id: int, max_length: int = 30,
                     max_length=max_length, length_penalty=length_penalty,
                     early_exit=True)[0]
             if sampling is not None:
-                return sample(feats, generator, max_length=max_length)
+                return sample(feats, generator, max_length=max_length,
+                              noise=noise)
             return sample(feats, max_length=max_length)
         return _two_stage(nic_frozen, nic_decode)
 
@@ -155,39 +159,42 @@ def make_caption_fn(cap: Captioner, start_id: int, max_length: int = 30,
 
     @torch.inference_mode()
     def decode(entry: Dict[str, Optional[torch.Tensor]],
-               att_noise: Optional[AttNoise] = None) -> torch.Tensor:
-        noise = {}        # hard attention's region noise
+               att_noise: Optional[AttNoise] = None,
+               noise: Optional[Callable] = None) -> torch.Tensor:
+        regions = {}      # hard attention's region noise
         if hard:
             if att_noise is None and generator is None:
                 raise ValueError(f"{cap.spec.kind} needs a generator or an "
                                  f"att_noise hook for its region noise")
-            noise = {"att_noise": att_noise}
+            regions = {"att_noise": att_noise}
         feats = entry["feats"]
         dep = None
         if depth_encoder is not None:
             dep = depth_encoder(entry["depth_maps"])
         if sampling is not None:     # the generator draws the tokens too
             return sample(feats, start_id, generator, dep,
-                          max_length=max_length, **noise)[0]
+                          max_length=max_length, noise=noise, **regions)[0]
         if hard:
-            noise["generator"] = generator
+            regions["generator"] = generator
         if beam_size > 1:
             return cap.decoder.beam_sample(
                 feats, start_id, end_id, dep, beam_size=beam_size,
                 max_length=max_length, length_penalty=length_penalty,
-                **noise)[0]
+                **regions)[0]
         return sample(feats, start_id, dep, max_length=max_length,
-                      end_id=end_id, **noise)
+                      end_id=end_id, **regions)
 
     return _two_stage(frozen, decode)
 
 
 def _two_stage(frozen: Callable, decode: Callable) -> Callable:
-    """fn(images, att_noise=None) = decode(frozen(images), att_noise), with
-    the two stages as ``fn.frozen`` and ``fn.decode``."""
+    """fn(images, att_noise=None, noise=None) = decode(frozen(images),
+    att_noise, noise), with the two stages as ``fn.frozen`` and
+    ``fn.decode``."""
     def caption_fn(images: torch.Tensor,
-                   att_noise: Optional[AttNoise] = None) -> torch.Tensor:
-        return decode(frozen(images), att_noise)
+                   att_noise: Optional[AttNoise] = None,
+                   noise: Optional[Callable] = None) -> torch.Tensor:
+        return decode(frozen(images), att_noise, noise)
     caption_fn.frozen, caption_fn.decode = frozen, decode
     return caption_fn
 

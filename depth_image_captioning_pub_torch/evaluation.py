@@ -3,6 +3,9 @@ package's ``base_evaluation.py`` / ``depth_evaluation.py`` score modes):
 
     python -m depth_image_captioning_pub_torch.evaluation \\
         {base|depth} {soft|hard} score {coco|rem_coco|rem_original} [--mlp]
+    python -m depth_image_captioning_pub_torch.evaluation \\
+        {base|depth} {soft|hard} sample <pic_name> {coco|original} [--mlp] \\
+        [--stochastic --temperature T --top-k K --top-p P --seed S]
     python -m depth_image_captioning_pub_torch.evaluation nic
 
 Each run captions the frozen val subset (``data_index/np_val_index.npy``
@@ -36,8 +39,19 @@ set, as the reference does. ``--eval-cache-dir DIR`` (or
 ``$DCAP_EVAL_CACHE_DIR``) also writes them to DIR, keyed by the dataset
 and the frozen weights, and a later run replays them from there, also
 with ``--num-sets 1``.
-``sample`` mode is not ported: it exits with status 2 and names its
-ROADMAP.md item.
+
+``sample`` mode captions the images of one ``sample_pic`` set
+(``ConfigEval.sample_dirs[pic_name]``) with checkpoint set 1 and writes,
+under ``<sample_dir>/{base|depth|mdepth}_<atten>/``, one overlay PNG per
+word of each caption (``<stem>/NN_<word>.png``, the word's attention map
+over the image), ``<stem>/input.png`` and ``caption.txt``
+(``engine/visualize.sample_directory``). It decodes greedily (all 30
+steps, the attention weights kept: ``AttentionDecoder.greedy_alphas``), or
+with ``--stochastic`` draws from the filtered distribution
+(``--temperature``, ``--top-k``, ``--top-p``). Each image draws from a
+``torch.Generator`` of its own, seeded from ``--seed`` and the image's
+position, so a rerun repeats its captions; hard attention's greedy region
+draws come from it too.
 """
 
 from __future__ import annotations
@@ -58,10 +72,7 @@ from depth_image_captioning_pub_torch.engine.evaluate import evaluate
 from depth_image_captioning_pub_torch.models.captioner import build_captioner
 
 EVAL_DATA = ("coco", "rem_coco", "rem_original")
-NOT_PORTED = {
-    "sample": "sample mode and its attention overlays are not ported yet "
-              "(ROADMAP.md, Queue A item 6)",
-}
+SAMPLE_DATA = ("coco", "original")
 
 
 def _load_vocabs(w2i_path: str, i2w_path: str):
@@ -111,6 +122,84 @@ def score_mode(atten: str, use_data: str, cfg: ConfigEval, depth: bool,
                       f"{use_data}_scores.pkl", **cache))
 
 
+def image_seed(seed: int, i: int) -> int:
+    """The seed of image ``i``'s generator in sample mode (the counterpart
+    of the JAX ``fold_in(PRNGKey(seed), i)``)."""
+    return (seed * (1 << 32) + i) % (1 << 63)
+
+
+def sample_mode(atten: str, pic_name: str, use_data: str, cfg: ConfigEval,
+                depth: bool, encoder: str, device, sampling=None,
+                seed: int = 0, noise=None, att_noise=None) -> int:
+    """Caption and overlay the images of one sample_pic set (the JAX
+    ``sample_mode``). ``sampling`` ({"temperature", "top_k", "top_p"})
+    draws the tokens; without it the decode is greedy. ``noise(i)`` and
+    ``att_noise(i)``, when given, are image i's token-noise hook (``t`` ->
+    [1, V]) and region-noise hook (``(t, shape)`` -> Gumbel noise), in
+    place of its generator's draws (the tests replay the JAX package's
+    through them). ``encoder="mlp"`` (depth only) samples the mdepth sets,
+    into ``<sample_dir>/mdepth_<atten>``."""
+    import torch
+    from depth_image_captioning_pub_torch.data.tokenizer import SPECIAL
+    from depth_image_captioning_pub_torch.engine.evaluate import (
+        make_caption_fn)
+    from depth_image_captioning_pub_torch.engine.visualize import (
+        sample_directory)
+    from depth_image_captioning_pub_torch.utils.jax_bridge import (
+        params_from_jax)
+
+    if pic_name not in cfg.sample_dirs:
+        print("Input correct name", file=sys.stderr)
+        return 1
+    use_ori = use_data == "original"
+    word_to_id, id_to_word = _load_vocabs(
+        cfg.ori_word_to_id_file if use_ori else cfg.word_to_id_file,
+        cfg.ori_id_to_word_file if use_ori else cfg.id_to_word_file)
+    save_directory, tables = cli.eval_tables(cfg, atten, use_ori, depth,
+                                             encoder=encoder)
+    prefix = ("mdepth" if encoder == "mlp" else "depth") if depth else "base"
+    cap = build_captioner(f"{prefix}-{atten}", len(word_to_id), cfg,
+                          resnet_layers=cli.resnet_layers_from_env(),
+                          device=device)
+    frozen_enc, params, stats = cli.load_eval_components(
+        save_directory, tables[1], cap)
+    params_from_jax(cap, params, {"encoder": frozen_enc}, stats)
+    start_id = word_to_id[SPECIAL.start]
+    frozen = make_caption_fn(
+        cap, start_id, cfg.max_length,
+        depth_fn=cli.eval_depth_fn(cfg, device) if depth else None).frozen
+    depth_encoder = cap.depth_encoder_apply()
+    position = iter(range(1 << 30))
+
+    @torch.inference_mode()
+    def caption_one(arr: np.ndarray):
+        i = next(position)
+        gen = torch.Generator(device=cap.device).manual_seed(
+            image_seed(seed, i))
+        entry = frozen(torch.from_numpy(arr[None]).to(cap.device))
+        dep = (None if depth_encoder is None
+               else depth_encoder(entry["depth_maps"]))
+        hooks = {"att_noise": None if att_noise is None else att_noise(i)}
+        if sampling is not None:
+            tokens, alphas = cap.decoder.stochastic_sample(
+                entry["feats"], start_id, gen, dep,
+                max_length=cfg.max_length,
+                noise=None if noise is None else noise(i), **sampling,
+                **hooks)
+        else:
+            tokens, alphas = cap.decoder.greedy_alphas(
+                entry["feats"], start_id, dep, max_length=cfg.max_length,
+                generator=gen, **hooks)
+        return tokens[0].cpu().numpy(), alphas[0].cpu().numpy()
+
+    src = cfg.sample_dirs[pic_name]
+    caps = sample_directory(src, os.path.join(src, f"{prefix}_{atten}"),
+                            caption_one, id_to_word)
+    for path, caption in caps.items():
+        print(f"{os.path.basename(path)}: {caption}")
+    return 0
+
+
 def nic_mode(cfg: ConfigEval, num_sets: int, beam_size: int, cache: Dict,
              device) -> int:
     """``cache``: as ``score_mode``'s."""
@@ -135,7 +224,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         description=__doc__, formatter_class=argparse.RawTextHelpFormatter)
     p.add_argument("words", nargs="+",
                    help="{base|depth} {soft|hard} score {coco|rem_coco|"
-                        "rem_original}, or nic")
+                        "rem_original}, {base|depth} {soft|hard} sample "
+                        "<pic_name> {coco|original}, or nic")
     p.add_argument("--num-sets", type=int, default=3)
     p.add_argument("--beam", type=int, default=1,
                    help="beam width; 1 (default) is greedy decode")
@@ -152,15 +242,19 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--eval-cache-dir", default=None, metavar="DIR",
                    help="persist the frozen stages' outputs in DIR "
                         "(default $DCAP_EVAL_CACHE_DIR)")
+    p.add_argument("--stochastic", action="store_true",
+                   help="sample mode: draw the tokens instead of argmax")
+    p.add_argument("--temperature", type=float, default=1.0)
+    p.add_argument("--top-k", type=int, default=0)
+    p.add_argument("--top-p", type=float, default=1.0)
+    p.add_argument("--seed", type=int, default=0,
+                   help="sample mode: seeds each image's draws")
     args = p.parse_args(argv)
     cache = {"depth_eval_cache": args.eval_cache,
              "eval_cache_dir": (args.eval_cache_dir
                                 or os.environ.get("DCAP_EVAL_CACHE_DIR")
                                 or None)}
     words = args.words
-    for key in (w for w in NOT_PORTED if w in words):
-        print(NOT_PORTED[key], file=sys.stderr)
-        return 2
     cfg = cli.dpt_cfg(args)
     if args.batch_size:
         cfg.batch_size = args.batch_size
@@ -176,8 +270,20 @@ def main(argv: Optional[List[str]] = None) -> int:
         return score_mode(words[1], words[3], cfg, words[0] == "depth",
                           args.num_sets, args.beam,
                           "mlp" if args.mlp else "cnn", cache, args.device)
+    if (len(words) == 5 and words[0] in ("base", "depth")
+            and words[1] in ("soft", "hard") and words[2] == "sample"):
+        if words[4] not in SAMPLE_DATA:
+            print("input coco or original", file=sys.stderr)
+            return 1
+        sampling = ({"temperature": args.temperature, "top_k": args.top_k,
+                     "top_p": args.top_p} if args.stochastic else None)
+        return sample_mode(words[1], words[3], words[4], cfg,
+                           words[0] == "depth",
+                           "mlp" if args.mlp else "cnn", args.device,
+                           sampling=sampling, seed=args.seed)
     print("evaluation {base|depth} {soft|hard} score {coco|rem_coco|"
-          "rem_original} [--mlp] | nic", file=sys.stderr)
+          "rem_original} [--mlp] | {base|depth} {soft|hard} sample "
+          "<pic_name> {coco|original} [--mlp] | nic", file=sys.stderr)
     return 1
 
 

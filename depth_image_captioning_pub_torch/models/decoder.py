@@ -324,8 +324,8 @@ class AttentionDecoder(nn.Module):
         csrc/decode_seq.cu; its plain version for CPU tensors) in one call.
         ``end_id`` gives finished captions <end>-padding and stops the loop
         once every row is done; the detokenizer stops at the first <end>
-        either way. Attention weights are not produced: the visualization
-        path waits for a later slice.
+        either way. Attention weights are not produced here:
+        ``greedy_alphas`` decodes with them.
 
         Hard attention runs ``_hard_greedy``: all ``max_length`` steps of
         PyTorch ops, the region noise of step t from ``att_noise(t, [B,
@@ -402,11 +402,64 @@ class AttentionDecoder(nn.Module):
         gives greedy argmax.
         """
         refuse_mixed(self.dtype, "stochastic sampling")
+
+        def choose(t, logits):
+            filt = filtered_logits(logits, temperature=temperature,
+                                   top_k=top_k, top_p=top_p)
+            z = (noise(t) if noise is not None
+                 else gumbel_noise(filt.shape, generator))
+            return gumbel_argmax(filt, z)
+
+        return self._alpha_loop(features, start_id, depth_features, choose,
+                                max_length=max_length,
+                                att_noise=self._regions(att_noise, generator))
+
+    @torch.no_grad()
+    @full_f32()   # the f32 projection, h0/c0 and head products
+    def greedy_alphas(self, features: torch.Tensor, start_id: int,
+                      depth_features: Optional[torch.Tensor] = None, *,
+                      max_length: int = 30,
+                      generator: Optional[torch.Generator] = None,
+                      att_noise: Optional[AttNoise] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Batched greedy decode with the attention weights: (tokens [B,
+        max_length] int32, alphas [B, max_length, K] f32), the JAX
+        ``greedy_sample``'s pair without ``end_id`` (sample mode's
+        overlays). All ``max_length`` steps run, each as
+        ``stochastic_sample``'s step with ``torch.argmax`` of the logits
+        (the lowest index on ties, as ``jnp.argmax``) in place of the
+        draw: soft attention runs the step kernel (K1) and returns its
+        alphas, hard attention the region draw of ``att_noise(t, [B, K])``
+        or ``generator`` and its one-hot alphas."""
+        refuse_mixed(self.dtype, "greedy decode")
+        return self._alpha_loop(
+            features, start_id, depth_features,
+            lambda t, logits: torch.argmax(logits, dim=-1).to(torch.int32),
+            max_length=max_length,
+            att_noise=self._regions(att_noise, generator))
+
+    def _regions(self, att_noise: Optional[AttNoise],
+                 generator: Optional[torch.Generator]
+                 ) -> Optional[AttNoise]:
+        """Hard attention's region noise: the hook, else draws from
+        ``generator``; None for soft attention."""
+        if self.attention_kind != "hard":
+            return None
+        return att_noise or region_noise(generator)
+
+    def _alpha_loop(self, features, start_id, depth_features, choose, *,
+                    max_length: int, att_noise: Optional[AttNoise]
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``max_length`` steps of (embedding of the previous token, the
+        attention-LSTM step, the vocab head, ``choose(t, logits)`` -> the
+        token) -> (tokens, alphas). Soft attention runs the step as one
+        kernel (``fused_decode_core``: h', c', alpha); hard attention draws
+        the step's region first (``gumbel_max_attention`` on ``att_noise``,
+        one-hot alphas) and runs the rest in PyTorch ops."""
         features, proj, h, c = self._prepare(features, depth_features)
         features = features.contiguous()
         hard = self.attention_kind == "hard"
         if hard:
-            att_noise = att_noise or region_noise(generator)
             att = self.att_params()
         else:
             w = self.seq_weights()
@@ -427,11 +480,7 @@ class AttentionDecoder(nn.Module):
                 h, c, alpha = fused_decode_core(features, proj,
                                                 w.embed[prev], h, c, w.step)
                 logits = h @ w.w_out + w.b_out
-            filt = filtered_logits(logits, temperature=temperature,
-                                   top_k=top_k, top_p=top_p)
-            z = (noise(t) if noise is not None
-                 else gumbel_noise(filt.shape, generator))
-            token = gumbel_argmax(filt, z)
+            token = choose(t, logits)
             tokens[:, t] = token
             alphas[:, t] = alpha
             prev = token.long()

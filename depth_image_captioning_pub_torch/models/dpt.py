@@ -311,6 +311,7 @@ class DPTDepthModel(nn.Module):
         check_knobs(gelu, head)
         kw = dict(dtype=dtype, device=device)
         self.dtype, self.patch, self.hooks = dtype, patch, tuple(hooks)
+        self.gelu, self.head = gelu, head
         self.low_res_head = head == "lowres"
         self.pretrain_grid = pretrain_grid
         self.resnet = HybridResNetStages(resnet_layers, **kw)
@@ -453,4 +454,5 @@ class DPTDepthEstimator:
             depth = model(dpt_normalize(x))[..., None]
             return resize_bilinear(standardize_depth_map(depth), (224, 224))
         fn.model = model        # the eval cache's key hashes its weights
+        fn.image_size = size    # the export records it
         return fn

@@ -191,8 +191,10 @@ def beam_search(step_fn: Callable, init_state: State, batch: int,
     (``tile_for_beams``). ``early_exit`` stops once every beam of every
     image has emitted <end>. It is exact: such a step offers each beam its
     own <end> at an unchanged score, and the top-W order gives back the
-    sorted beams with identity parents.
+    sorted beams with identity parents. Under ``torch.export`` every step
+    runs (a graph has no exit that depends on the data).
     """
+    early_exit = early_exit and not torch.compiler.is_exporting()
     state = init_state
     device = next(iter(state.values())).device
     scores = initial_scores(batch, beam_size, device)

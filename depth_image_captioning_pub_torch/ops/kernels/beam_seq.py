@@ -16,9 +16,11 @@ whole search (W = 2..8) in one cooperative launch of one CTA per SM on the
 greedy kernel's phases (``csrc/decode_phases.cuh``), each CTA holding a
 column slice of the weights in shared memory for the whole launch, the
 beams' reorder a row map (``plan_beam`` sizes it; ``LAST_PLAN`` is the plan
-of the last launch). CPU tensors run ``fused_beam_decode_plain``. Both
-return the per-step records (``BeamSeqOutputs``); ``reconstruct_history``
-and ``select_best`` turn them into the best caption, in plain PyTorch.
+of the last launch). CPU tensors run ``fused_beam_decode_plain``: the
+wrapper calls operator ``dcap::beam_decode`` (``library.py``), which
+dispatches on the device. Both return the per-step records
+(``BeamSeqOutputs``); ``reconstruct_history`` and ``select_best`` turn
+them into the best caption, in plain PyTorch.
 Widths the phases cannot read (D, E or H not a multiple of 8, A not of 4)
 are zero-padded for the launch (``decode_seq.pad_seq``); a beam wider
 than the kernel's instances raises (``check_beam_size``), where the plain
@@ -33,13 +35,13 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from depth_image_captioning_pub_torch.ops import decode
-from depth_image_captioning_pub_torch.ops.kernels import _build
+from depth_image_captioning_pub_torch.ops.kernels import _build, library
 from depth_image_captioning_pub_torch.ops.kernels.decode_seq import (
-    DecodeSeqWeights, pad_seq)
+    DecodeSeqWeights, pad_seq, seq_list, seq_weights)
 from depth_image_captioning_pub_torch.ops.kernels.decode_step import (
     A_MIN, FEATURE_DTYPES, G_UNITS, SMEM_LIMIT, THREADS, TWO_UNITS_FROM,
-    _sm_count, check_float32, check_same_device, check_shape,
-    check_step_weights, cuda_pointers, plain_step_params)
+    _sm_count, check_float32, check_kernel_device, check_same_device,
+    check_shape, check_step_weights, cuda_pointers, plain_step_params)
 from depth_image_captioning_pub_torch.ops.lstm import lstm_cell
 
 LAUNCHES = 0   # kernel launches of dcap_beam_decode in this process
@@ -236,10 +238,10 @@ def fused_beam_decode(features: torch.Tensor, features_proj: torch.Tensor,
     """The whole beam search in one call; returns the per-step records.
 
     features [B,K,D] float32 or bfloat16, features_proj [B,K,A] and h0/c0
-    [B,H] float32, all per image (the search tiles the beams itself). CPU
-    tensors run the plain version; CUDA tensors launch the kernel or raise.
+    [B,H] float32, all per image (the search tiles the beams itself). Runs
+    operator ``dcap::beam_decode``: CPU tensors take the plain version;
+    CUDA tensors launch the kernel or raise.
     """
-    global LAUNCHES, LAST_PLAN
     if features.dim() != 3 or features.shape[0] < 1:
         raise ValueError(f"features must be [B>=1, K, D], got "
                          f"{tuple(features.shape)}")
@@ -268,13 +270,35 @@ def fused_beam_decode(features: torch.Tensor, features_proj: torch.Tensor,
     if not 0 <= start_id < vocab or not 0 <= end_id < vocab:
         raise ValueError(f"start_id {start_id} / end_id {end_id} outside "
                          f"the vocabulary of {vocab}")
-    if features.device.type == "cpu":
-        return fused_beam_decode_plain(
-            features, features_proj, h0, c0, w, beam_size=beam_size,
-            max_length=max_length, start_id=start_id, end_id=end_id)
-    if features.device.type != "cuda":
-        raise ValueError(f"no kernel for device {features.device}")
+    check_kernel_device(features.device)
+    return BeamSeqOutputs(*torch.ops.dcap.beam_decode(
+        features, features_proj, h0, c0, seq_list(w), beam_size,
+        max_length, start_id, end_id))
 
+
+def _beam_cpu(features, features_proj, h0, c0, w, beam_size, max_length,
+              start_id, end_id):
+    return tuple(t.contiguous() for t in fused_beam_decode_plain(
+        features, features_proj, h0, c0, seq_weights(w),
+        beam_size=beam_size, max_length=max_length, start_id=start_id,
+        end_id=end_id))
+
+
+def _beam_fake(features, features_proj, h0, c0, w, beam_size, max_length,
+               start_id, end_id):
+    bsz = features.shape[0]
+    tokens = h0.new_empty((bsz, beam_size, max_length), dtype=torch.int32)
+    return (tokens, tokens.new_empty(tokens.shape),
+            h0.new_empty((bsz, beam_size)))
+
+
+def _beam_cuda(features, features_proj, h0, c0, w, beam_size, max_length,
+               start_id, end_id):
+    """The kernel launch of ``dcap::beam_decode``."""
+    global LAUNCHES, LAST_PLAN
+    w = seq_weights(w)
+    bsz, k, _ = features.shape
+    vocab = w.embed.shape[0]
     check_beam_size(beam_size, features.device)
     features, features_proj, h0, c0, w = pad_seq(features, features_proj,
                                                  h0, c0, w)
@@ -318,7 +342,10 @@ def fused_beam_decode(features: torch.Tensor, features_proj: torch.Tensor,
     _build.check_launch(err, "dcap_beam_decode")
     LAUNCHES += 1
     LAST_PLAN = p
-    return BeamSeqOutputs(tokens, parents, scores)
+    return tokens, parents, scores
+
+
+library.implement("beam_decode", _beam_cpu, _beam_cuda, _beam_fake)
 
 
 def reconstruct_history(out: BeamSeqOutputs) -> torch.Tensor:

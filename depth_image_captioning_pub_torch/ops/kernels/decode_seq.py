@@ -11,14 +11,15 @@ embedding of the chosen token; the output is the token matrix [B, L].
 one cooperative launch of one CTA per SM, the time loop inside it, each
 CTA holding a column slice of the weights in shared memory for the whole
 launch (``plan`` sizes it; ``LAST_PLAN`` is the plan of the last
-launch). CPU tensors run ``fused_greedy_decode_plain``
-(a Python time loop). ``end_id >= 0`` gives finished rows <end>-padding
-and stops once every row is done, the output of the JAX early-exit paths;
-``end_id < 0`` runs all ``max_length`` steps. Any batch size B >= 1 is
-taken as it is: there is no padding to a multiple of 8 as on the TPU.
-Widths the phases cannot read (D, E or H not a multiple of 8, A not of 4)
-are zero-padded for the launch (``pad_seq``), which leaves the tokens as
-they are.
+launch). CPU tensors run ``fused_greedy_decode_plain`` (a Python time
+loop); the wrapper calls operator ``dcap::greedy_decode``
+(``library.py``), which dispatches on the device. ``end_id >= 0`` gives
+finished rows <end>-padding and stops once every row is done, the output
+of the JAX early-exit paths; ``end_id < 0`` runs all ``max_length`` steps.
+Any batch size B >= 1 is taken as it is: there is no padding to a multiple
+of 8 as on the TPU. Widths the phases cannot read (D, E or H not a
+multiple of 8, A not of 4) are zero-padded for the launch (``pad_seq``),
+which leaves the tokens as they are.
 """
 
 from __future__ import annotations
@@ -28,13 +29,13 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from depth_image_captioning_pub_torch.ops.kernels import _build
+from depth_image_captioning_pub_torch.ops.kernels import _build, library
 from depth_image_captioning_pub_torch.ops.kernels.decode_step import (
     A_MIN, FEATURE_DTYPES, G_UNITS, H_ROWS, H_TILE_MAX, SMEM_LIMIT, THREADS,
     TWO_UNITS_FROM, DecodeStepWeights, _sm_count, attention_lstm_step,
-    check_float32, check_same_device, check_shape, check_step_weights,
-    cuda_pointers, kernel_widths, pad_step_weights, plain_step_params,
-    zero_pad)
+    check_float32, check_kernel_device, check_same_device, check_shape,
+    check_step_weights, cuda_pointers, kernel_widths, pad_step_weights,
+    plain_step_params, zero_pad)
 
 LAUNCHES = 0   # kernel launches of dcap_greedy_decode in this process
 
@@ -199,10 +200,10 @@ def fused_greedy_decode(features: torch.Tensor, features_proj: torch.Tensor,
     """Whole-sequence greedy decode; returns tokens [B, max_length] int32.
 
     features [B,K,D] float32 or bfloat16, features_proj [B,K,A] and
-    h0/c0 [B,H] float32. CPU tensors run the plain version; CUDA tensors
-    launch the kernel or raise.
+    h0/c0 [B,H] float32. Runs operator ``dcap::greedy_decode``: CPU
+    tensors take the plain version; CUDA tensors launch the kernel or
+    raise.
     """
-    global LAUNCHES, LAST_PLAN
     if features.dim() != 3 or features.shape[0] < 1:
         raise ValueError(f"features must be [B>=1, K, D], got "
                          f"{tuple(features.shape)}")
@@ -228,13 +229,42 @@ def fused_greedy_decode(features: torch.Tensor, features_proj: torch.Tensor,
     if not 0 <= start_id < vocab or end_id >= vocab:
         raise ValueError(f"start_id {start_id} / end_id {end_id} outside "
                          f"the vocabulary of {vocab}")
-    if features.device.type == "cpu":
-        return fused_greedy_decode_plain(
-            features, features_proj, h0, c0, w, max_length=max_length,
-            start_id=start_id, end_id=end_id)
-    if features.device.type != "cuda":
-        raise ValueError(f"no kernel for device {features.device}")
+    check_kernel_device(features.device)
+    return torch.ops.dcap.greedy_decode(features, features_proj, h0, c0,
+                                        seq_list(w), max_length, start_id,
+                                        end_id)
 
+
+def seq_list(w: DecodeSeqWeights):
+    """The weights as the operators' ``Tensor[]``: the step's ten, then
+    w_out, b_out and embed."""
+    return [*w.step, w.w_out, w.b_out, w.embed]
+
+
+def seq_weights(ws) -> DecodeSeqWeights:
+    """The inverse of ``seq_list``."""
+    return DecodeSeqWeights(DecodeStepWeights(*ws[:10]), *ws[10:])
+
+
+def _greedy_cpu(features, features_proj, h0, c0, w, max_length, start_id,
+                end_id):
+    return fused_greedy_decode_plain(
+        features, features_proj, h0, c0, seq_weights(w),
+        max_length=max_length, start_id=start_id, end_id=end_id)
+
+
+def _greedy_fake(features, features_proj, h0, c0, w, max_length, start_id,
+                 end_id):
+    return h0.new_empty((features.shape[0], max_length), dtype=torch.int32)
+
+
+def _greedy_cuda(features, features_proj, h0, c0, w, max_length, start_id,
+                 end_id):
+    """The kernel launch of ``dcap::greedy_decode``."""
+    global LAUNCHES, LAST_PLAN
+    w = seq_weights(w)
+    bsz, k, _ = features.shape
+    vocab = w.embed.shape[0]
     features, features_proj, h0, c0, w = pad_seq(features, features_proj,
                                                  h0, c0, w)
     d, a, hdim, e = (features.shape[-1], features_proj.shape[-1],
@@ -270,3 +300,6 @@ def fused_greedy_decode(features: torch.Tensor, features_proj: torch.Tensor,
     LAUNCHES += 1
     LAST_PLAN = p
     return tokens
+
+
+library.implement("greedy_decode", _greedy_cpu, _greedy_cuda, _greedy_fake)

@@ -16,9 +16,10 @@ one cooperative launch of one CTA per SM on the phases of
 ``csrc/decode_phases.cuh`` (the h-products, the attention, the gates), each
 CTA holding a column slice of the step's weights in shared memory
 (``plan_step`` sizes it; ``LAST_PLAN`` is the plan of the last launch).
-CPU tensors run ``fused_decode_core_plain``. Features may be float32 or
-bfloat16 (upcast exactly as they are read); everything else is float32,
-and alpha comes back float32. Any batch size B >= 1 is taken as it is;
+CPU tensors run ``fused_decode_core_plain``: the wrapper calls operator
+``dcap::decode_step`` (``library.py``), which dispatches on the device.
+Features may be float32 or bfloat16 (upcast exactly as they are read);
+everything else is float32, and alpha comes back float32. Any batch size B >= 1 is taken as it is;
 widths the phases cannot read (D, E or H not a multiple of 8, A not of 4)
 are zero-padded for the launch (``pad_step``) and h', c' sliced back.
 
@@ -35,7 +36,7 @@ import torch
 
 from depth_image_captioning_pub_torch.ops.attention import (
     AttentionParams, soft_attention)
-from depth_image_captioning_pub_torch.ops.kernels import _build
+from depth_image_captioning_pub_torch.ops.kernels import _build, library
 from depth_image_captioning_pub_torch.ops.lstm import LSTMCellParams, lstm_cell
 
 LAUNCHES = 0   # kernel launches of dcap_decode_step in this process
@@ -296,6 +297,12 @@ def check_same_device(named: Sequence[Tuple[str, torch.Tensor]],
             raise ValueError(f"{name} is on {t.device}, expected {device}")
 
 
+def check_kernel_device(device: torch.device) -> None:
+    """The operators have CPU and CUDA implementations only."""
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {device}")
+
+
 def check_float32(named: Sequence[Tuple[str, torch.Tensor]]) -> None:
     for name, t in named:
         if t.dtype != torch.float32:
@@ -336,10 +343,9 @@ def fused_decode_core(features: torch.Tensor, features_proj: torch.Tensor,
 
     features [B,K,D] (float32 or bfloat16), features_proj [B,K,A],
     emb [B,E], h/c [B,H], all float32 but the features. Returns (h', c',
-    alpha [B,K]). CPU tensors run the plain version; CUDA tensors launch
-    the kernel or raise.
+    alpha [B,K]). Runs operator ``dcap::decode_step``: CPU tensors take
+    the plain version; CUDA tensors launch the kernel or raise.
     """
-    global LAUNCHES, LAST_PLAN
     if features.dim() != 3 or features.shape[0] < 1:
         raise ValueError(f"features must be [B>=1, K, D], got "
                          f"{tuple(features.shape)}")
@@ -358,11 +364,27 @@ def fused_decode_core(features: torch.Tensor, features_proj: torch.Tensor,
     named = [("features_proj", features_proj), ("emb", emb), ("h", h),
              ("c", c)] + list(zip(w._fields, w))
     check_same_device(named, features.device)
-    if features.device.type == "cpu":
-        return fused_decode_core_plain(features, features_proj, emb, h, c, w)
-    if features.device.type != "cuda":
-        raise ValueError(f"no kernel for device {features.device}")
+    check_kernel_device(features.device)
+    return torch.ops.dcap.decode_step(features, features_proj, emb, h, c,
+                                      list(w))
 
+
+def _decode_step_cpu(features, features_proj, emb, h, c, w):
+    return tuple(t.contiguous() for t in fused_decode_core_plain(
+        features, features_proj, emb, h, c, DecodeStepWeights(*w)))
+
+
+def _decode_step_fake(features, features_proj, emb, h, c, w):
+    return (h.new_empty(h.shape), c.new_empty(c.shape),
+            features_proj.new_empty(features.shape[:2]))
+
+
+def _decode_step_cuda(features, features_proj, emb, h, c, w):
+    """The kernel launch of ``dcap::decode_step``."""
+    global LAUNCHES, LAST_PLAN
+    w = DecodeStepWeights(*w)
+    bsz, k, _ = features.shape
+    hdim = h.shape[-1]
     features, features_proj, emb, h, c, w = pad_step(
         features, features_proj, emb, h, c, w)
     d, a, e, hp = (features.shape[-1], features_proj.shape[-1],
@@ -402,3 +424,7 @@ def fused_decode_core(features: torch.Tensor, features_proj: torch.Tensor,
         return (h_out[:, :hdim].contiguous(), c_out[:, :hdim].contiguous(),
                 alpha)
     return h_out, c_out, alpha
+
+
+library.implement("decode_step", _decode_step_cpu, _decode_step_cuda,
+                  _decode_step_fake)

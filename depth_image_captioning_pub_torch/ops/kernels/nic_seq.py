@@ -15,9 +15,11 @@ one cooperative launch of one CTA per SM on the greedy kernel's phases
 column slice of the vocab head and its hidden units' gate weights of every
 layer in shared memory for the whole launch (``plan_nic`` sizes it;
 ``LAST_PLAN`` is the plan of the last launch). CPU tensors run
-``fused_nic_greedy_decode_plain``. Any batch B >= 1 is taken as it is (no
-padding to 8 as on the TPU), with 1 to 4 layers; E and H that are not
-multiples of 4 are zero-padded for the kernel (``pad_nic``).
+``fused_nic_greedy_decode_plain``: the wrapper calls operator
+``dcap::nic_greedy_decode`` (``library.py``), which dispatches on the
+device. Any batch B >= 1 is taken as it is (no padding to 8 as on the
+TPU), with 1 to 4 layers; E and H that are not multiples of 4 are
+zero-padded for the kernel (``pad_nic``).
 """
 
 from __future__ import annotations
@@ -28,10 +30,11 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from depth_image_captioning_pub_torch.ops.kernels import _build
+from depth_image_captioning_pub_torch.ops.kernels import _build, library
 from depth_image_captioning_pub_torch.ops.kernels.decode_step import (
     G_UNITS, H_ROWS, H_TILE_MAX, SMEM_LIMIT, THREADS, _sm_count,
-    check_float32, check_same_device, check_shape, cuda_pointers, pad_gates)
+    check_float32, check_kernel_device, check_same_device, check_shape,
+    cuda_pointers, pad_gates)
 from depth_image_captioning_pub_torch.ops.lstm import (
     LSTMCellParams, StackedLSTMParams, stacked_lstm_step)
 
@@ -235,9 +238,9 @@ def fused_nic_greedy_decode(x0: torch.Tensor, w: NICSeqWeights, *,
                             max_length: int = 30) -> torch.Tensor:
     """Whole-sequence NIC greedy decode; returns tokens [B, max_length]
     int32. ``x0`` [B, E] float32 is the projected image embedding that
-    primes the LSTM. CPU tensors run the plain version; CUDA tensors launch
-    the kernel or raise."""
-    global LAUNCHES, LAST_PLAN
+    primes the LSTM. Runs operator ``dcap::nic_greedy_decode``: CPU
+    tensors take the plain version; CUDA tensors launch the kernel or
+    raise."""
     if x0.dim() != 2 or x0.shape[0] < 1:
         raise ValueError(f"x0 must be [B>=1, E], got {tuple(x0.shape)}")
     bsz, e = x0.shape
@@ -262,11 +265,36 @@ def fused_nic_greedy_decode(x0: torch.Tensor, w: NICSeqWeights, *,
     check_same_device(named, x0.device)
     if max_length < 1:
         raise ValueError(f"max_length must be >= 1, got {max_length}")
-    if x0.device.type == "cpu":
-        return fused_nic_greedy_decode_plain(x0, w, max_length=max_length)
-    if x0.device.type != "cuda":
-        raise ValueError(f"no kernel for device {x0.device}")
+    check_kernel_device(x0.device)
+    return torch.ops.dcap.nic_greedy_decode(
+        x0, [*w.layer_mats, w.w_out, w.b_out, w.embed], max_length)
 
+
+def _nic_weights(ws) -> NICSeqWeights:
+    """The operator's ``Tensor[]`` (the layers' matrices, then w_out, b_out
+    and embed) -> ``NICSeqWeights``."""
+    return NICSeqWeights(tuple(ws[:-3]), *ws[-3:])
+
+
+def _nic_cpu(x0, w, max_length):
+    return fused_nic_greedy_decode_plain(x0, _nic_weights(w),
+                                         max_length=max_length)
+
+
+def _nic_fake(x0, w, max_length):
+    return x0.new_empty((x0.shape[0], max_length), dtype=torch.int32)
+
+
+def _nic_cuda(x0, w, max_length):
+    """The kernel launch of ``dcap::nic_greedy_decode``."""
+    global LAUNCHES, LAST_PLAN
+    w = _nic_weights(w)
+    bsz, e = x0.shape
+    hdim, vocab = w.w_out.shape
+    layers = len(w.layer_mats) // 3
+    named = ([("x0", x0)]
+             + [(f"layer_mats[{i}]", m) for i, m in enumerate(w.layer_mats)]
+             + [("w_out", w.w_out), ("b_out", w.b_out), ("embed", w.embed)])
     cuda_pointers(named)   # every input contiguous
     lib = _build.load()
     with torch.cuda.device(x0.device):
@@ -297,3 +325,6 @@ def fused_nic_greedy_decode(x0: torch.Tensor, w: NICSeqWeights, *,
     LAUNCHES += 1
     LAST_PLAN = p
     return tokens
+
+
+library.implement("nic_greedy_decode", _nic_cpu, _nic_cuda, _nic_fake)

@@ -8,7 +8,8 @@ Counterpart of the JAX ``ops/pallas/vit_attention.py``. Over q/k/v
   out = p @ v                      f32 accumulation, stored in v's dtype
 
 ``fused_attention`` launches ``csrc/vit_attention.cu`` for CUDA tensors
-and ``fused_attention_plain`` for CPU tensors. The kernel takes d in (32,
+and ``fused_attention_plain`` for CPU tensors, through operator
+``dcap::vit_attention`` (``library.py``). The kernel takes d in (32,
 64, 128). bf16 runs on the tensor cores (one CTA per z and tile of 128
 query rows, 64 at d=128; two passes over the key tiles, no score rows
 kept) at any N >= 1. f32 runs on the CUDA cores with a tile of 32 query
@@ -21,9 +22,9 @@ from __future__ import annotations
 
 import torch
 
-from depth_image_captioning_pub_torch.ops.kernels import _build
+from depth_image_captioning_pub_torch.ops.kernels import _build, library
 from depth_image_captioning_pub_torch.ops.kernels.decode_step import (
-    FEATURE_DTYPES, check_same_device, cuda_pointers)
+    FEATURE_DTYPES, check_kernel_device, check_same_device, cuda_pointers)
 
 LAUNCHES = 0   # kernel launches of dcap_vit_attention in this process
 
@@ -61,9 +62,9 @@ def fused_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     scale: float, n_valid: int) -> torch.Tensor:
     """softmax(q @ k^T * scale, keys < n_valid) @ v over [Z, N, d]; returns
-    [Z, N, d] in v's dtype. CPU tensors run the plain version; CUDA tensors
-    launch the kernel or raise."""
-    global LAUNCHES
+    [Z, N, d] in v's dtype. Runs operator ``dcap::vit_attention``: CPU
+    tensors take the plain version; CUDA tensors launch the kernel or
+    raise."""
     if q.dim() != 3 or q.shape[0] < 1 or q.shape[1] < 1:
         raise ValueError(f"q must be [Z>=1, N>=1, d], got {tuple(q.shape)}")
     z, n, d = q.shape
@@ -79,11 +80,23 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"n_valid must be in [1, {n}], got {n_valid}")
     named = [("q", q), ("k", k), ("v", v)]
     check_same_device(named, q.device)
-    if q.device.type == "cpu":
-        return fused_attention_plain(q, k, v, scale=scale, n_valid=n_valid)
-    if q.device.type != "cuda":
-        raise ValueError(f"no kernel for device {q.device}")
+    check_kernel_device(q.device)
+    return torch.ops.dcap.vit_attention(q, k, v, float(scale), int(n_valid))
 
+
+def _vit_cpu(q, k, v, scale, n_valid):
+    return fused_attention_plain(q, k, v, scale=scale, n_valid=n_valid)
+
+
+def _vit_fake(q, k, v, scale, n_valid):
+    return v.new_empty(v.shape)
+
+
+def _vit_cuda(q, k, v, scale, n_valid):
+    """The kernel launch of ``dcap::vit_attention``."""
+    global LAUNCHES
+    z, n, d = q.shape
+    named = [("q", q), ("k", k), ("v", v)]
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
     smem = smem_bytes(d, n_valid, q.dtype)
@@ -105,3 +118,6 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _build.check_launch(err, "dcap_vit_attention")
     LAUNCHES += 1
     return out
+
+
+library.implement("vit_attention", _vit_cpu, _vit_cuda, _vit_fake)

@@ -100,13 +100,17 @@ class CaptionPipeline:
         if self.sample or hard:
             self.generator = torch.Generator(device=self.device)
             self.generator.manual_seed(self.seed)
+        # the decode settings, as export.py records them
+        self.depth_fn = depth_fn
+        self.beam_size = int(beam_size)
+        self.length_penalty = float(length_penalty)
+        self.sampling = ({"temperature": temperature, "top_k": top_k,
+                          "top_p": top_p} if self.sample else None)
         self._fn = make_caption_fn(
             cap, start_id=word_to_id[SPECIAL.start],
             max_length=self.max_length, depth_fn=depth_fn,
             end_id=word_to_id.get(SPECIAL.end), beam_size=beam_size,
-            length_penalty=length_penalty,
-            sampling=({"temperature": temperature, "top_k": top_k,
-                       "top_p": top_p} if self.sample else None),
+            length_penalty=length_penalty, sampling=self.sampling,
             generator=self.generator)
 
     @classmethod

@@ -31,9 +31,12 @@ Run (on the CUDA card; ``--device cpu`` runs the kernels' plain versions):
         [--port 8000] [--beam 5] [--batch-size 16] [--batch-buckets 1,4,16]
     curl -s --data-binary @dog.png localhost:8000/caption
 
-``--devices`` takes 0 or 1 (one card; several wait for ROADMAP.md Queue A
-item 8), and ``--export-dir`` exits with status 2 (ROADMAP.md Queue A
-item 6).
+``--export-dir DIR`` serves the artifact that
+``depth_image_captioning_pub_torch.export`` wrote to DIR instead of the
+``exp_result/`` files (its decode settings are baked in; the model flags
+are ignored; ``--device`` and ``--seed`` apply; ``POST /reload`` has no
+files to re-read and answers with an error). ``--devices`` takes 0 or 1
+(one card; several wait for ROADMAP.md Queue A item 8).
 """
 
 from __future__ import annotations
@@ -43,7 +46,6 @@ import collections
 import json
 import queue
 import signal
-import sys
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -373,18 +375,25 @@ def build_parser() -> argparse.ArgumentParser:
                    help="0 or 1: one card (several are not ported yet)")
     cli.add_dpt_flags(p)
     p.add_argument("--export-dir", default=None,
-                   help="not ported: exits with status 2")
+                   help="serve an export.py artifact instead of exp_result/ "
+                        "checkpoints (decode settings are baked into the "
+                        "artifact; model flags are ignored)")
     return p
 
 
 def main(argv=None) -> int:
     from depth_image_captioning_pub_torch.pipeline import CaptionPipeline
     args = build_parser().parse_args(argv)
-    if args.export_dir:
-        print(cli.EXPORT_NOT_PORTED, file=sys.stderr)
-        return 2
     if args.devices > 1:
         raise ValueError(DEVICES_NOT_PORTED.format(n=args.devices))
+    if args.export_dir:
+        from depth_image_captioning_pub_torch.export import ExportedPipeline
+        pipe = ExportedPipeline.load(args.export_dir, device=args.device,
+                                     seed=args.seed)
+        httpd = serve(pipe, args.host, args.port, args.batch_window_ms)
+        print(f"serving export {args.export_dir} on "
+              f"http://{args.host}:{args.port}", flush=True)
+        return _run_forever(httpd)
     buckets = ([int(b) for b in args.batch_buckets.split(",")]
                if args.batch_buckets else None)
     pipe = CaptionPipeline.from_experiment(

@@ -49,10 +49,14 @@ def test_missing_path_errors(tmp_path, capsys):
 
 
 def test_export_dir_is_not_ported(tmp_path, capsys):
+    """``--export-dir`` is ported: a directory without an artifact's
+    meta.json is an error (exit 1) that names it, before any model is
+    built (the round trip: ``tests/test_torch_export.py``)."""
     img = tmp_path / "x.png"
     img.write_bytes(b"x")
-    assert caption_cli.main([str(img), "--export-dir", "art"]) == 2
-    assert "Queue A item 6" in capsys.readouterr().err
+    assert caption_cli.main([str(img), "--export-dir",
+                             str(tmp_path / "art")]) == 1
+    assert "meta.json missing" in capsys.readouterr().err
 
 
 def test_flags_thread_to_pipeline(monkeypatch, tmp_path):

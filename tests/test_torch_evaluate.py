@@ -569,16 +569,18 @@ def test_entry_point_depth_soft(coco_dir, experiments, monkeypatch, capsys):
 
 
 def test_entry_point_refusals(coco_dir, tmp_path, monkeypatch, capsys):
-    """Only ``sample`` mode is left unported (hard attention and ``--mlp``
-    score: ``tests/test_torch_mdepth.py``)."""
+    """Every mode is ported (sample mode: ``tests/test_torch_sample_mode.
+    py``); what is left are the JAX CLI's own refusals, exit 1: an unknown
+    sample_pic name, a data name outside a mode's list, an unknown
+    mode."""
     monkeypatch.chdir(coco_dir[0])
-    assert list(evaluation.NOT_PORTED) == ["sample"]
-    for argv, item in ((["base", "soft", "sample", "dog", "coco"],
-                        "item 6"),
-                       (["depth", "hard", "sample", "dog", "coco"],
-                        "item 6")):
-        assert evaluation.main(argv + ["--device", "cpu"]) == 2
-        assert f"ROADMAP.md, Queue A {item})" in capsys.readouterr().err
+    assert not hasattr(evaluation, "NOT_PORTED")
+    assert evaluation.main(["base", "soft", "sample", "no_such_pic", "coco",
+                            "--device", "cpu"]) == 1
+    assert "Input correct name" in capsys.readouterr().err
+    assert evaluation.main(["depth", "hard", "sample", "dog", "rem_coco",
+                            "--device", "cpu"]) == 1
+    assert "input coco or original" in capsys.readouterr().err
     assert evaluation.main(["base", "soft", "score", "original",
                             "--device", "cpu"]) == 1
     assert evaluation.main(["base", "soft", "train", "coco"]) == 1

@@ -31,6 +31,17 @@ from test_torch_train_loop import (
 __all__ = ["coco"]      # the module-scoped dataset fixture
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One intra-op thread, as ``tests/test_torch_resume.py`` pins it: the
+    tests hold runs to other runs, and a reduction split over threads may
+    sum in another order."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.mark.parametrize("kind", ["base-soft"])
 def test_cached_training_matches_jax(kind, coco, tmp_path, monkeypatch):
     ds, w2i = coco

@@ -960,3 +960,88 @@ def test_beam_kernel_concat_f32(cuda, beam):
         want = _run_beam(beam_seq.fused_beam_decode_plain, f, proj, state, w,
                          beam)
     _beam_agrees(got, want)
+
+
+# ---- the kernels as dcap:: operators (export.py keeps them) -----------------
+
+class _SeenOps:
+    """A dispatch mode that records every operator called under it."""
+
+    def __init__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        seen = self.seen = []
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                seen.append(str(func))
+                return func(*args, **(kwargs or {}))
+        self.mode = Mode()
+
+
+def _operator_cases(dev):
+    """name -> (kernel module, its CUDA implementation, public wrapper call,
+    operator arguments) at full width, B=4, bf16 features."""
+    dec, feats = _decoder((4,) + SHAPES["main"][1:], dev, seed=31)
+    f = feats.to(torch.bfloat16)
+    with torch.inference_mode():
+        step = _step_inputs(dec, f)
+        state = dec.init_state(f)
+        w = dec.seq_weights()
+    ws = decode_seq.seq_list(w)
+    nic, x0 = _nic(NIC_SHAPES["B16"], dev, seed=32)
+    nw = nic.seq_weights()
+    q, k, v = _qkv(33, (12, 577, 64), dev, "bfloat16")
+    proj = step[1]
+    return {
+        "decode_step": (decode_step, decode_step._decode_step_cuda,
+                        lambda: decode_step.fused_decode_core(*step),
+                        (*step[:5], list(step[5]))),
+        "greedy_decode": (decode_seq, decode_seq._greedy_cuda,
+                          lambda: decode_seq.fused_greedy_decode(
+                              f, proj, state.h, state.c, w, max_length=30,
+                              start_id=2, end_id=END),
+                          (f, proj, state.h, state.c, ws, 30, 2, END)),
+        "nic_greedy_decode": (nic_seq, nic_seq._nic_cuda,
+                              lambda: nic_seq.fused_nic_greedy_decode(
+                                  x0, nw, max_length=30),
+                              (x0, [*nw.layer_mats, nw.w_out, nw.b_out,
+                                    nw.embed], 30)),
+        "beam_decode": (beam_seq, beam_seq._beam_cuda,
+                        lambda: beam_seq.fused_beam_decode(
+                            f, proj, state.h, state.c, w, beam_size=5,
+                            max_length=30, start_id=2, end_id=END),
+                        (f, proj, state.h, state.c, ws, 5, 30, 2, END)),
+        "vit_attention": (vit_attention, vit_attention._vit_cuda,
+                          lambda: vit_attention.fused_attention(
+                              q, k, v, scale=0.125, n_valid=577),
+                          (q, k, v, 0.125, 577)),
+    }
+
+
+def _flat(out):
+    return list(out) if isinstance(out, (tuple, list)) else [out]
+
+
+@pytest.mark.parametrize("name", ["decode_step", "greedy_decode",
+                                  "nic_greedy_decode", "beam_decode",
+                                  "vit_attention"])
+def test_operator_equals_direct_kernel(cuda, name):
+    """The public wrapper on CUDA tensors goes through ``dcap::<name>``,
+    whose CUDA implementation launches the kernel (one launch), and the
+    operator's outputs equal a direct call of that implementation bit for
+    bit (the kernels' sums run in a fixed order)."""
+    mod, direct, wrapper, args = _operator_cases(cuda)[name]
+    seen = _SeenOps()
+    with torch.inference_mode():
+        before = mod.LAUNCHES
+        with seen.mode:
+            via_wrapper = wrapper()
+        assert f"dcap.{name}.default" in seen.seen
+        assert mod.LAUNCHES == before + 1
+        via_op = getattr(torch.ops.dcap, name)(*args)
+        want = direct(*args)
+        assert mod.LAUNCHES == before + 3
+    for got in (via_op, via_wrapper):
+        for a, b in zip(_flat(got), _flat(want)):
+            assert a.device.type == "cuda" and torch.equal(a, b)

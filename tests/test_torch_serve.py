@@ -11,7 +11,7 @@ on the CPU: each test of ``tests/test_serve.py`` on the port, and
   rewritten files' weights exactly (a fresh pipeline's captions);
 * ``--sample``: two servers with one seed answer the same captions to the
   same sequential requests;
-* ``--devices`` above 1 raises; ``--export-dir`` exits 2.
+* ``--devices`` above 1 raises; ``--export-dir`` serves an artifact.
 
 Every server binds port 0 and is stopped in its fixture's teardown or a
 ``finally``; every request carries its own timeout.
@@ -207,9 +207,22 @@ def test_main_devices_above_one_raises(monkeypatch):
 
 
 def test_main_export_dir(monkeypatch, capsys):
+    """``--export-dir`` serves the artifact (``ExportedPipeline.load`` on
+    the card unless asked otherwise, seeded by ``--seed``), not the
+    experiment's files."""
+    loaded = {}
+
+    def fake_load(export_dir, device=None, seed=0):
+        loaded.update(export_dir=export_dir, device=device, seed=seed)
+        return object()
+
+    monkeypatch.setattr(
+        "depth_image_captioning_pub_torch.export.ExportedPipeline.load",
+        staticmethod(fake_load))
     seen, rc = _fake_main(monkeypatch, ["--export-dir", "art", "--seed", "5"])
-    assert rc == 2 and seen == {}
-    assert "Queue A item 6" in capsys.readouterr().err
+    assert rc == 0 and seen == {}
+    assert loaded == {"export_dir": "art", "device": "cuda", "seed": 5}
+    assert "serving export art" in capsys.readouterr().out
 
 
 def test_main_threads_gelu_flag(monkeypatch):
