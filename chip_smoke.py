@@ -11,8 +11,9 @@ reference-layout weight files (torchvision, Omnidata, the reference's own
 ``.pth`` sets) through every loader, resumable training, and the
 frozen-stage caches and the rest of training: the train-time feature
 cache, gradient accumulation, the bf16 decoder, the profiler window and
-the eval set cache with its disk store, and sample mode with its
-attention overlays and the AOT export.
+the eval set cache with its disk store, sample mode with its attention
+overlays and the AOT export, and data parallelism (training and scoring
+over two ranks, a pipeline over two replicas).
 
 Run from the root of a checkout, on a machine with one CUDA card (written
 for an NVIDIA H100):
@@ -309,7 +310,46 @@ the script exits non-zero:
    launch against its CUDA implementation called directly (equal
    outputs).
 
-Each path (phases 5, 7, 9, 11-33: ``PATHS``) runs with every launch counter
+34. train-ddp: depth-soft training at full width (B=30, dropout 0.5, 2
+   epochs of 60 in-memory images, train and validation depth from phase
+   7's DPT per batch) three ways: the plain trainer; in a NCCL group of
+   world size 1, which must be bit-equal to it (losses and every
+   trainable tensor, cuDNN deterministic); and over two gloo ranks on
+   this card (child processes of this script, ``--ddp-rank``), whose two
+   runs must be equal. The bf16 stages round apart at 15 rows a rank and
+   at 30 (printed: the ResNet-152 features and the DPT's maps of one
+   batch both ways), so the bf16 two-rank run is held to limits set
+   between its own readings and those of two planted faults run in the
+   same ranks (each rank's gradient left unsummed; the depth CNN's
+   BatchNorm statistics left local), each of which must break a limit:
+   step 1's loss within 4e-5, any step's within 3e-3 of the largest loss,
+   the BN statistics after step 1 within 2e-3, the step-1 gradients
+   within 0.25 of their norm. The same training with f32 encoders on
+   depth maps cached once (``engine/depth_cache``) is held to the CPU
+   tests' bounds (``tests/test_torch_parallel_train.py``): step 1's loss
+   within 1e-5, the BN statistics after step 1 within 1e-6 and at the end
+   within 5e-2 of their largest value, every trained element after step 1
+   within 2 * lr where the two runs' gradients differ in sign or either is
+   below 1e-6, else 1e-5, and at the end within 2 * lr for each step at
+   which its gradient was below 1e-6, else 1e-5 (the tensors of
+   ``DDP_SPREAD``, to which the depth CNN's rounding spreads on the CPU,
+   within 2 * lr a step; at full width it reaches the other decoder
+   tensors by up to 2.53e-4, held within the rule plus 1e-3); the later
+   steps' losses within 1e-4 relative. K5 12 a DPT
+   chunk in each bf16 run and rank and in the caches; the median device
+   ms of a step at world 1 and 2.
+35. score-ddp: two depth-soft sets over 128 seeded images at batch 64,
+   scored by ``evaluate`` over those two ranks (32 rows each): rank 0's
+   hypotheses and seven scores must equal one rank's at the ranks'
+   per-card batch of 32 (and are compared with one rank at 64); K5 24 and
+   K2 4 launches a rank.
+36. serve-devices: ``CaptionPipeline(devices=["cuda:0", "cuda:0"])`` over
+   phase 5's weights answers requests of 16, 64 and 7 images: K2 2 a
+   chunk (one a replica), tokens equal to one device's pipeline on each
+   replica's half of the rows, and >= 0.99 of them equal to one device's
+   over the whole request.
+
+Each path (phases 5, 7, 9, 11-36: ``PATHS``) runs with every launch counter
 set to 0 just before it and read just after. The line before the last is a JSON
 object with the five ported kernels (K1 step, K2 greedy, K3 NIC greedy, K4
 beam, K5 ViT attention): launches per path, error, time beside the plain
@@ -372,7 +412,8 @@ PATHS = ("base-soft", "depth-soft", "nic", "base-soft-beam5",
          "train-nic", "train-base-hard", "train-mdepth-soft",
          "reference-weights", "train-resume", "train-feature-cache",
          "train-accum", "train-bf16", "train-profile", "score-cached",
-         "sample", "export")
+         "sample", "export", "train-ddp", "score-ddp", "serve-devices")
+DDP_PATHS = PATHS[-3:]
 TOP_P = 0.9          # the sampling path's nucleus
 SCORE_IMAGES, SCORE_SETS, SCORE_BATCH = 256, 3, 64
 SEED = 0             # the serving phases' request images
@@ -5289,6 +5330,627 @@ def phase_export(smi, base_cap, est):
     return {"export": launches}
 
 
+# ---- phases 34-36: data parallelism ---------------------------------------
+
+DDP_TRAIN, DDP_VAL, DDP_EPOCHS = 60, 30, 2  # B=30: 2 steps an epoch, 4 in all
+DDP_SCORE, DDP_SCORE_BATCH, DDP_SETS = 128, 64, 2
+DDP_LOSS_ATOL, DDP_BN_ATOL = 1e-5, 1e-6      # the CPU tests' bounds
+DDP_BN_LATER = 5e-2      # of each statistic's largest value, after step 1
+# steps 2-4 of the f32 run: AdamW moves the elements whose gradient
+# rounding decides by up to lr either way, and at full width they move the
+# loss by more than the CPU tests' tiny model does (phase 20's bound)
+DDP_LATER_LOSS_RTOL = CARD_CPU_LOSS_RTOL
+# the step rule of tests/test_torch_parallel_train.py: 2 * lr where an
+# element's gradient was below DDP_SMALL_GRAD (or, at step 1, the two runs'
+# gradients differ in sign), else DDP_PARAM_ATOL; at the end the tensors
+# that the depth CNN's rounding spreads to on the CPU (DDP_SPREAD) within
+# 2 * lr a step. At full width it spreads to every other decoder tensor
+# but out_b as well (f32 run, over the rule at the end: f_beta_w 2.53e-4,
+# out_w 1.09e-4, f_beta_b 7.26e-5, lstm_w_hh 6.54e-5, att_w_full 3.97e-5,
+# init_b 3.12e-6, embed 2.9e-6, lstm_b_ih and lstm_b_hh 1.43e-6): those
+# are held within the rule plus DDP_WIDTH_ATOL, 4x the largest of these.
+DDP_SMALL_GRAD, DDP_PARAM_ATOL, DDP_LR = 1e-6, 1e-5, 1e-3
+DDP_SPREAD = ("depth_module.", "decoder.att_w_enc", "decoder.att_b_enc",
+              "decoder.att_w_dec", "decoder.att_b_dec", "decoder.lstm_w_ih",
+              "decoder.init_w")
+DDP_WIDTH_ATOL = 1e-3
+# the bf16 run (online DPT depth), held between its sound readings and two
+# planted faults (each rank's gradient left unsummed; the depth CNN's
+# BatchNorm statistics left local), which must each break a limit.
+# Readings (sound / gradients unsummed / BN local): step-1 loss 1.34e-5 /
+# 1.34e-5 / 9.63e-5; any step's loss 8.5e-3 / 0.10 / 8.35e-3; BN after
+# step 1 9.81e-4 / 9.81e-4 / 3.45e-3; step-1 gradients 0.071 / 0.869 /
+# 0.079 of |g|. Each limit lies near the geometric mean of the sound
+# reading and the fault's that it separates.
+DDP_BF16_LOSS1 = 4e-5    # step 1's loss
+DDP_BF16_LOSS = 3e-3     # any step's loss, of the largest loss
+DDP_BF16_BN1 = 2e-3      # the BN statistics after step 1
+DDP_BF16_GRAD1 = 0.25    # |g2 - g1| / |g1| over the step-1 gradients
+DDP_FAULTS = ("grads", "bn")
+DDP_REQUESTS = (16, 64, 7)                   # serve-devices' request sizes
+DDP_TIMEOUT = 600        # seconds for the two gloo ranks
+
+
+def ddp_train(root, est, caches=None):
+    """depth-soft at full width (``ConfigTrain``'s B=30, 32 tokens, lr
+    1e-3, dropout 0.5) for ``DDP_EPOCHS`` epochs of ``DDP_TRAIN`` in-memory
+    images, train and validation depth from the DPT per batch, in this
+    process's group (or none): per step the global loss and the step's
+    device ms (CUDA events around it), the BN running statistics after
+    step 1, and the trainable state at the end (on the host).
+    ``caches``: (train, val) depth-map cache files read instead of the
+    DPT, and f32 encoders (ResNet-152 and the depth CNN): the variant
+    whose every stage rounds alike at 15 rows a rank and at 30."""
+    import functools
+    import os
+    import torch
+    from depth_image_captioning_pub_torch.engine import depth_cache
+    from depth_image_captioning_pub_torch.engine import train as tr
+    os.makedirs(root, exist_ok=True)
+    cfg = train_cfg(root)
+    w2i, _ = train_vocab()
+    dev = torch.device("cuda")
+    providers = (depth_cache.online_depth_provider(est.depth_fn(), dev),) * 2
+    if caches is not None:
+        providers = tuple(
+            depth_cache.cached_depth_provider(depth_cache.DepthMapCache(
+                path, n)) for path, n in zip(caches, (DDP_TRAIN, DDP_VAL)))
+    rec = {"losses": [], "ms": [], "bn": None, "small": None}
+    real, build = tr.attention_train_step, tr.build_captioner
+
+    def state(cap):
+        return {f"{name}.{k}": v.detach().cpu().clone()
+                for name, m in tr.trainable_modules(cap).items()
+                for k, v in m.state_dict().items()}
+
+    def step(cap, opt, batch, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real(cap, opt, batch, **kw)
+        stop.record()
+        rec["losses"].append(float(out["loss"]))
+        stop.synchronize()
+        rec["ms"].append(start.elapsed_time(stop))
+        params = cap.trainable_parameters()
+        if rec["bn"] is None:
+            rec["bn"] = {k: v.detach().cpu().clone()
+                         for k, v in cap.named_buffers() if "running" in k}
+            rec["grad1"] = [p.grad.detach().float().cpu() for p in params]
+            rec["state1"] = state(cap)
+            rec["small"] = [torch.zeros_like(p, dtype=torch.uint8)
+                            for p in params]
+        for c, p in zip(rec["small"], params):
+            c += p.grad.abs() < DDP_SMALL_GRAD
+        rec["cap"] = cap
+        return out
+    tr.attention_train_step = step
+    if caches is not None:
+        tr.build_captioner = functools.partial(build,
+                                               encoder_dtype=torch.float32)
+    try:
+        rec["summary"] = tr.train(
+            "depth-soft", 0, cfg=cfg, depth_provider=providers[0],
+            val_depth_provider=providers[1], datasets=ddp_sets(),
+            word_to_id=w2i, num_epochs=DDP_EPOCHS, quiet=True, device=dev)
+    finally:
+        tr.attention_train_step, tr.build_captioner = real, build
+    cap = rec.pop("cap")
+    rec["state"] = state(cap)
+    rec["small"] = [c.cpu() for c in rec["small"]]
+    return rec
+
+
+class DdpFault:
+    """A planted fault of a gloo rank's training (a control for the bf16
+    bound): ``"grads"`` leaves each rank's gradient unsummed (the step's
+    metrics still summed), ``"bn"`` leaves the depth CNN's BatchNorm
+    statistics local to the rank's rows."""
+
+    def __init__(self, kind):
+        self.kind = kind
+
+    def __enter__(self):
+        from depth_image_captioning_pub_torch.engine import steps
+        from depth_image_captioning_pub_torch.models import depth_encoders
+        from depth_image_captioning_pub_torch.parallel.mesh import Mesh
+        if self.kind == "grads":
+            real = steps.all_reduce_grads
+            self.saved = steps, "all_reduce_grads", real
+            steps.all_reduce_grads = lambda params, extra=None: real(
+                [], extra)
+        else:
+            self.saved = (depth_encoders, "make_mesh",
+                          depth_encoders.make_mesh)
+            depth_encoders.make_mesh = lambda *a, **k: Mesh(0, 1)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(*self.saved)
+
+
+def ddp_sets():
+    """(train, val) of train-ddp: in-memory synthetic 224x224 images."""
+    from depth_image_captioning_pub_torch.data.synthetic import (
+        SyntheticCaptions)
+    data = SyntheticCaptions(DDP_TRAIN + DDP_VAL, seed=31)
+    return (_Rows(data, range(DDP_TRAIN)),
+            _Rows(data, range(DDP_TRAIN, DDP_TRAIN + DDP_VAL)))
+
+
+def ddp_caches(root):
+    return (f"{root}/depth_train.npy", f"{root}/depth_val.npy")
+
+
+def ddp_score_cfg(root):
+    from depth_image_captioning_pub_torch.config import ConfigEval
+    cfg = ConfigEval()
+    cfg.batch_size, cfg.max_length = DDP_SCORE_BATCH, MAX_LEN
+    cfg.save_directory_Cdep_soft = f"{root}/depth_soft"
+    return cfg
+
+
+def ddp_score(root, est, batch):
+    """``evaluate`` of the ``DDP_SETS`` depth-soft sets under ``root`` over
+    ``DDP_SCORE`` seeded images at ``batch`` (the eval cache on: set 1 runs
+    the DPT, set 2 replays its maps): (scores, each set's hypotheses on
+    rank 0)."""
+    import torch
+    from depth_image_captioning_pub_torch import cli
+    from depth_image_captioning_pub_torch.engine import evaluate as ev
+    from depth_image_captioning_pub_torch.models.captioner import (
+        build_captioner)
+    w2i, i2w = cli.placeholder_vocab(VOCAB)
+    cfg = ddp_score_cfg(root)
+    cfg.batch_size = batch
+    save_dir, files = cli.eval_tables(cfg, "soft", False, True)
+    data = ScoreImages(DDP_SCORE, [w for w in w2i if w.startswith("w")],
+                       seed=34)
+    cap = build_captioner("depth-soft", VOCAB, device=torch.device("cuda"))
+    hypos, real = [], ev.load_textfiles
+
+    def recorder(refs, hyps):
+        hypos.append(list(hyps))
+        return real(refs, hyps)
+    ev.load_textfiles = recorder
+    try:
+        scores = ev.evaluate(
+            "depth-soft", "coco", cap,
+            lambda i: cli.load_eval_components(save_dir, files[i], cap),
+            data, w2i, i2w, cfg, depth_fn=est.depth_fn(),
+            num_sets=DDP_SETS, quiet=True)
+    finally:
+        ev.load_textfiles = real
+    return scores, hypos
+
+
+def ddp_dpt():
+    """Phase 7's DPT-hybrid (bf16 at 384x384, drawn from seed 1)."""
+    import torch
+    from depth_image_captioning_pub_torch.models.dpt import (
+        DPTDepthEstimator)
+    est = DPTDepthEstimator(device=torch.device("cuda"))
+    est.init(torch.Generator().manual_seed(1))
+    return est
+
+
+def ddp_child(rank, world, store, root, out):
+    """One gloo rank on ``cuda:0`` (``chip_smoke.py --ddp-rank``): the
+    train-ddp runs, score-ddp, then the bf16 run under each planted fault
+    (``DdpFault``), each with the launch counters set to 0 just before and
+    read just after; results to ``out``."""
+    import functools
+    import torch
+    from depth_image_captioning_pub_torch.ops.kernels import _build
+    from depth_image_captioning_pub_torch.parallel import multihost
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    multihost.initialize(f"file://{store}", world, rank, backend="gloo",
+                         device="cuda:0")
+    try:
+        _build.load()
+        est = ddp_dpt()
+        result = {}
+        def fault_run(kind):
+            with DdpFault(kind):
+                return ddp_train(f"{root}/train_{kind}_w{world}", est)
+        for name, fn in (("train", lambda: ddp_train(
+                f"{root}/train_w{world}", est)),
+                         ("train_f32", lambda: ddp_train(
+                             f"{root}/train_f32_w{world}", est,
+                             ddp_caches(root))),
+                         ("score", lambda: ddp_score(root, est,
+                                                     DDP_SCORE_BATCH)),
+                         *((f"fault_{k}", functools.partial(fault_run, k))
+                           for k in DDP_FAULTS)):
+            torch.cuda.synchronize()
+            reset_counts()
+            with PlainCalls() as plain:
+                t0 = time.perf_counter()
+                result[name] = fn()
+                torch.cuda.synchronize()
+                result[name + "_seconds"] = time.perf_counter() - t0
+            result[name + "_launches"] = read_counts()
+            result[name + "_plain"] = sorted(set(plain.calls))
+        torch.save(result, out)
+    finally:
+        multihost.shutdown()
+
+
+def ddp_ranks(world, store, root):
+    """Start ``world`` gloo ranks of this script on ``cuda:0``."""
+    import os
+    env = dict(os.environ, OMP_NUM_THREADS="4")
+    env.pop("WORLD_SIZE", None)
+    return [subprocess.Popen(
+        [sys.executable, __file__, "--ddp-rank", str(rank), str(world),
+         store, root, f"{root}/rank{rank}.pt"], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for rank in range(world)]
+
+
+def ddp_wait(procs, root):
+    import torch
+    logs = []
+    try:
+        for proc in procs:
+            logs.append(proc.communicate(timeout=DDP_TIMEOUT)[0])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for rank, (proc, text) in enumerate(zip(procs, logs)):
+        if proc.returncode != 0:
+            raise RuntimeError(f"gloo rank {rank} exited "
+                               f"{proc.returncode}:\n{text[-4000:]}")
+    return [torch.load(f"{root}/rank{r}.pt", weights_only=False)
+            for r in range(len(procs))]
+
+
+def ddp_batch_variance(est):
+    """How far the bf16 stages round apart at 15 rows a rank and at 30:
+    (ResNet-152 features, DPT depth maps) of train-ddp's first 30 images
+    in one call and in two, max |diff| over max |x|."""
+    import torch
+    from depth_image_captioning_pub_torch.engine.steps import (
+        frozen_features)
+    from depth_image_captioning_pub_torch.models.captioner import (
+        build_captioner)
+    cap = build_captioner("depth-soft", VOCAB, device="cuda")
+    cap.init(torch.Generator().manual_seed(37))
+    train = ddp_sets()[0]
+    images = torch.from_numpy(np.stack(
+        [train.load_image(i) for i in range(30)])).cuda()
+    depth_fn = est.depth_fn()
+    out = []
+    for fn in (lambda x: frozen_features(cap, x), depth_fn):
+        whole = fn(images).float()
+        halves = torch.cat([fn(images[:15]), fn(images[15:])]).float()
+        out.append(((whole - halves).abs().max()
+                    / whole.abs().max()).item())
+    return tuple(out)
+
+
+def ddp_train_gap(got, want):
+    """How far a two-rank run ``got`` lies from one rank's ``want``:
+    {"loss1": step 1's loss difference, "loss": the largest loss
+    difference, "bn1": the largest BN difference after step 1, "bn_end":
+    the largest BN difference at the end over its statistic's largest
+    value, "grad1": |g2 - g1| / |g1| over every step-1 gradient,
+    "step1_over" and "end_over": the largest excess of a trained element
+    over the step rule after step 1 and at the end (<= 0 holds; the rule
+    of ``tests/test_torch_parallel_train.py``; at the end ``DDP_SPREAD``
+    at 2 * lr a step and every other tensor at the rule plus
+    ``DDP_WIDTH_ATOL``), "end_over_by": every tensor outside
+    ``DDP_SPREAD`` over the rule itself at the end, largest first, "param": the largest parameter difference over 2 * lr *
+    steps}."""
+    import torch
+    steps = len(want["losses"])
+    out = {"loss1": abs(got["losses"][0] - want["losses"][0]),
+           "loss": max(abs(a - b) for a, b in zip(got["losses"],
+                                                   want["losses"]))}
+    out["bn1"] = max((got["bn"][k] - w).abs().max().item()
+                     for k, w in want["bn"].items())
+    out["bn_end"] = max(((got["state"][k] - w).abs().max()
+                         / w.abs().max()).item()
+                        for k, w in want["state"].items() if "running" in k)
+    flat = [torch.cat([g.reshape(-1) for g in run["grad1"]])
+            for run in (got, want)]
+    out["grad1"] = ((flat[0] - flat[1]).norm() / flat[1].norm()).item()
+    trained = [k for k in want["state"] if "running" not in k]
+    step1, over, end, param = [], [], {}, 0.0
+    for name, small, g1, w1 in zip(trained, want["small"], got["grad1"],
+                                   want["grad1"]):
+        flip = ((g1.abs() < DDP_SMALL_GRAD) | (w1.abs() < DDP_SMALL_GRAD)
+                | (torch.sign(g1) != torch.sign(w1)))
+        room = torch.where(flip, 2 * DDP_LR, DDP_PARAM_ATOL)
+        step1.append(((got["state1"][name] - want["state1"][name]).abs()
+                      - room).max().item())
+        diff = (got["state"][name] - want["state"][name]).abs()
+        room = torch.where(small > 0, 2 * DDP_LR * small.float(),
+                           DDP_PARAM_ATOL)
+        if name.startswith(DDP_SPREAD):
+            room = torch.full_like(diff, 2 * DDP_LR * steps)
+        else:
+            end[name] = (diff - room).max().item()
+            room = room + DDP_WIDTH_ATOL
+        over.append((diff - room).max().item())
+        param = max(param, diff.max().item() / (2 * DDP_LR * steps))
+    out["step1_over"], out["end_over"] = max(step1), max(over)
+    out["end_over_by"] = sorted(((k, v) for k, v in end.items() if v > 0),
+                                key=lambda kv: -kv[1])
+    out["param"] = param
+    return out
+
+
+def ddp_f32_holds(gap, scale):
+    """The CPU tests' bounds on the f32 two-rank run (``gap`` of
+    ``ddp_train_gap``; ``scale``: the largest loss)."""
+    return (gap["loss1"] <= DDP_LOSS_ATOL
+            and gap["loss"] <= DDP_LATER_LOSS_RTOL * scale
+            and gap["bn1"] <= DDP_BN_ATOL and gap["bn_end"] <= DDP_BN_LATER
+            and gap["step1_over"] <= 0 and gap["end_over"] <= 0)
+
+
+def ddp_bf16_holds(gap, scale):
+    """The bf16 two-rank run's limits (``DDP_BF16_*``)."""
+    return (gap["loss1"] <= DDP_BF16_LOSS1
+            and gap["loss"] <= DDP_BF16_LOSS * scale
+            and gap["bn1"] <= DDP_BF16_BN1 and gap["grad1"] <= DDP_BF16_GRAD1
+            and all(np.isfinite([gap[k] for k in (
+                "loss1", "loss", "bn1", "bn_end", "grad1", "param")])))
+
+
+def ddp_gap_text(gap):
+    return (f"loss at step 1 {gap['loss1']:.3g}, at any step "
+            f"{gap['loss']:.3g}, BN after step 1 {gap['bn1']:.3g}, BN at "
+            f"the end {gap['bn_end']:.3g} of max, step-1 gradients "
+            f"{gap['grad1']:.3g} of |g|, over the step rule after step 1 "
+            f"{gap['step1_over']:.3g}, at the end {gap['end_over']:.3g} "
+            f"(the tensors outside DDP_SPREAD over the rule itself: "
+            + ", ".join(f"{k} {v:.3g}" for k, v in gap["end_over_by"])
+            + f"), parameters {gap['param']:.3g} of 2 * lr * steps")
+
+
+def phase_data_parallel(smi, base_cap):
+    """Phases 34-36 (``PATHS``' train-ddp, score-ddp, serve-devices):
+    data parallelism over ``torch.distributed``."""
+    import os
+    import shutil
+    import tempfile
+    from pathlib import Path
+    import torch
+    from depth_image_captioning_pub_torch import cli
+    from depth_image_captioning_pub_torch.engine import depth_cache
+    from depth_image_captioning_pub_torch.models.captioner import (
+        build_captioner)
+    from depth_image_captioning_pub_torch.parallel import multihost
+    from depth_image_captioning_pub_torch.pipeline import CaptionPipeline
+    here = Path(__file__).resolve().parent
+    (here / "build").mkdir(exist_ok=True)
+    root = tempfile.mkdtemp(dir=here / "build", prefix="ddp_")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    out = {}
+    try:
+        est = ddp_dpt()
+        # the sets that score-ddp reads, written before the ranks start
+        cfg = ddp_score_cfg(root)
+        os.makedirs(cfg.save_directory_Cdep_soft)
+        cap = build_captioner("depth-soft", VOCAB, device="cuda")
+        cap.init(torch.Generator().manual_seed(35))
+        write_sets("depth-soft", cap, cfg, [300 + i for i in range(DDP_SETS)])
+        del cap
+
+        # train-ddp: the plain trainer, NCCL at world size 1, two gloo
+        # ranks on this card; then the f32 variant on cached depth maps
+        tag = "train-ddp"
+        t_phase = time.perf_counter()
+        variance = ddp_batch_variance(est)
+        torch.cuda.synchronize()
+        reset_counts()
+        with PlainCalls() as plain:
+            for ds, path in zip(ddp_sets(), ddp_caches(root)):
+                depth_cache.DepthMapCache(path, len(ds)).build(
+                    ds, est.depth_fn(), "cuda", batch_size=30, quiet=True)
+            plain_run = ddp_train(f"{root}/train_plain", est)
+            multihost.initialize(f"file://{root}/nccl_store", 1, 0,
+                                 device="cuda:0")
+            try:
+                if torch.distributed.get_backend() != "nccl":
+                    raise RuntimeError("world size 1 did not run NCCL")
+                nccl_run = ddp_train(f"{root}/train_nccl", est)
+            finally:
+                multihost.shutdown()
+            f32_run = ddp_train(f"{root}/train_f32", est, ddp_caches(root))
+        torch.cuda.synchronize()
+        launches = read_counts()
+        if plain.calls:
+            raise RuntimeError(f"plain versions ran on the {tag} path: "
+                               f"{sorted(set(plain.calls))}")
+        if nccl_run["losses"] != plain_run["losses"] or any(
+                not torch.equal(nccl_run["state"][k], v)
+                for k, v in plain_run["state"].items()):
+            raise RuntimeError(
+                f"{tag}: NCCL at world size 1 is not bit-equal to the plain "
+                f"trainer: losses {nccl_run['losses']} vs "
+                f"{plain_run['losses']}")
+        ranks = ddp_wait(ddp_ranks(2, f"{root}/gloo_store", root), root)
+        for r in ranks:
+            if any(r[f"{name}_plain"] for name in (
+                    "train", "train_f32", "score",
+                    *(f"fault_{k}" for k in DDP_FAULTS))):
+                raise RuntimeError("plain versions ran in a gloo rank")
+        for name in ("train", "train_f32"):
+            a, b = ranks[0][name], ranks[1][name]
+            if a["losses"] != b["losses"] or any(
+                    not torch.equal(t, b["state"][k])
+                    for k, t in a["state"].items()):
+                raise RuntimeError(f"{tag}: the two ranks' {name} runs "
+                                   f"differ")
+        gap = ddp_train_gap(ranks[0]["train"], plain_run)
+        gap32 = ddp_train_gap(ranks[0]["train_f32"], f32_run)
+        faults = {k: ddp_train_gap(ranks[0][f"fault_{k}"], plain_run)
+                  for k in DDP_FAULTS}
+        steps = len(plain_run["losses"])
+        scale = max(abs(x) for x in f32_run["losses"])
+        for name, g in (("bf16, online depth", gap),
+                        ("f32 encoders, cached depth", gap32),
+                        *((f"bf16, planted fault: {k}", faults[k])
+                          for k in DDP_FAULTS)):
+            log(tag, f"2 ranks vs 1, {name}: {ddp_gap_text(g)}")
+        log(tag, f"limits: f32 the CPU tests' (loss at step 1 "
+            f"{DDP_LOSS_ATOL}, any step {DDP_LATER_LOSS_RTOL} of "
+            f"{scale:.3f}, BN {DDP_BN_ATOL} after step 1 and "
+            f"{DDP_BN_LATER} of max at the end, the step rule, "
+            f"+{DDP_WIDTH_ATOL} at the end outside DDP_SPREAD); bf16 "
+            f"loss at step 1 {DDP_BF16_LOSS1}, any step {DDP_BF16_LOSS} of "
+            f"{scale:.3f}, BN after step 1 {DDP_BF16_BN1}, step-1 "
+            f"gradients {DDP_BF16_GRAD1}")
+        passed = [k for k in DDP_FAULTS
+                  if ddp_bf16_holds(faults[k], scale)]
+        if not (ddp_f32_holds(gap32, scale)
+                and ddp_bf16_holds(gap, scale)) or passed:
+            raise RuntimeError(
+                f"{tag}: two ranks part from one (f32 held "
+                f"{ddp_f32_holds(gap32, scale)}, bf16 held "
+                f"{ddp_bf16_holds(gap, scale)}), or a planted fault "
+                f"passes the bf16 limits: {passed}")
+        per_run = DPT_BLOCKS * (steps + DDP_EPOCHS * -(-DDP_VAL // 30))
+        cache_k5 = DPT_BLOCKS * (-(-DDP_TRAIN // 30) + -(-DDP_VAL // 30))
+        rank_k5 = [(r["train_launches"]["vit_attention"],
+                    r["train_f32_launches"]["vit_attention"]) for r in ranks]
+        launches = {k: v + sum(r["train_launches"][k]
+                               + r["train_f32_launches"][k] for r in ranks)
+                    for k, v in launches.items()}
+        if (launches["vit_attention"] != cache_k5 + 4 * per_run
+                or rank_k5 != [(per_run, 0)] * 2):
+            raise RuntimeError(f"{tag} launches {launches} (ranks {rank_k5}), "
+                               f"expected K5 {per_run} a bf16 run, "
+                               f"{cache_k5} for the caches")
+        ms = {name: float(np.median(run["ms"][1:])) for name, run in (
+            ("world 1 plain", plain_run), ("world 1 NCCL", nccl_run),
+            ("world 2 gloo rank 0", ranks[0]["train"]),
+            ("world 2 gloo rank 1", ranks[1]["train"]),
+            ("f32 world 1", f32_run),
+            ("f32 world 2 rank 0", ranks[0]["train_f32"]))}
+        log(tag, f"depth-soft B=30 full width, {steps} steps + validation "
+            f"per run: losses plain {plain_run['losses']}, NCCL world 1 "
+            f"bit-equal (losses and {len(plain_run['state'])} state "
+            f"tensors); 2 gloo ranks on cuda:0 {ranks[0]['train']['losses']}"
+            f"; f32 encoders on cached depth: world 1 {f32_run['losses']}, "
+            f"world 2 {ranks[0]['train_f32']['losses']}")
+        log(tag, f"bf16 at 15 rows vs 30 (max |diff| over max |x|): "
+            f"ResNet-152 features {variance[0]:.3g}, DPT depth maps "
+            f"{variance[1]:.3g}")
+        log(tag, "median step ms (device, CUDA events, steps 2-4): "
+            + ", ".join(f"{k} {v:.2f}" for k, v in ms.items())
+            + f"; launches {launches} (K5 {per_run} a bf16 run: 4 runs, "
+            f"{cache_k5} for the f32 runs' caches) [{smi}]")
+        out[tag] = launches
+        out["train-ddp-gap"] = {"bf16": gap, "f32": gap32,
+                                "faults": faults, "variance": variance}
+        out["train-ddp-ms"] = ms
+
+        # score-ddp: one rank at the ranks' per-card batch and at the
+        # whole batch, against the two ranks' run
+        tag = "score-ddp"
+        torch.cuda.synchronize()
+        reset_counts()
+        with PlainCalls() as plain:
+            one = {b: ddp_score(root, est, b)
+                   for b in (DDP_SCORE_BATCH // 2, DDP_SCORE_BATCH)}
+        torch.cuda.synchronize()
+        launches = read_counts()
+        if plain.calls:
+            raise RuntimeError(f"plain versions ran on the {tag} path: "
+                               f"{sorted(set(plain.calls))}")
+        scores, hypos = ranks[0]["score"]
+        rows = sum(len(h) for h in hypos)
+        agree = {b: sum(a == c for x, y in zip(hypos, h)
+                        for a, c in zip(x, y)) / rows
+                 for b, (_, h) in one.items()}
+        same = {b: (s == scores, h == hypos) for b, (s, h) in one.items()}
+        if ranks[1]["score"][0] != scores or ranks[1]["score"][1] != []:
+            raise RuntimeError(f"{tag}: rank 1 returned other scores")
+        if len(hypos) != DDP_SETS or hypos[0] == hypos[1]:
+            raise RuntimeError(f"{tag}: hypotheses per set {len(hypos)}")
+        rank_counts = [r["score_launches"] for r in ranks]
+        launches = {k: v + sum(c[k] for c in rank_counts)
+                    for k, v in launches.items()}
+        per_rank = DDP_SCORE // 2 // (DDP_SCORE_BATCH // 2)
+        for c in rank_counts:
+            if (c["vit_attention"] != DPT_BLOCKS * per_rank
+                    or c["decode_seq"] != DDP_SETS * per_rank):
+                raise RuntimeError(f"{tag}: rank launches {c}, expected K5 "
+                                   f"{DPT_BLOCKS * per_rank} and K2 "
+                                   f"{DDP_SETS * per_rank}")
+        log(tag, f"{DDP_SETS} depth-soft sets over {DDP_SCORE} images, "
+            f"batch {DDP_SCORE_BATCH} over 2 gloo ranks on cuda:0 (32 rows "
+            f"each): rank launches {rank_counts}; against one rank "
+            f"at batch {DDP_SCORE_BATCH // 2} (the ranks' per-card rows) and "
+            f"{DDP_SCORE_BATCH}: (scores ==, hypotheses ==) {same}, "
+            f"hypothesis agreement {agree}; 2-rank seconds "
+            f"{ranks[0]['score_seconds']:.2f}; scores "
+            + ", ".join(f"{k} {v}" for k, v in scores.items())
+            + f" [{smi}]")
+        if not all(same[DDP_SCORE_BATCH // 2]):
+            raise RuntimeError(f"{tag}: two ranks differ from one rank at "
+                               f"the per-card batch: {same}")
+        out[tag] = launches
+        out["score-ddp-agree"] = agree
+
+        # serve-devices: one pipeline over two replicas on cuda:0
+        tag = "serve-devices"
+        w2i, i2w = cli.placeholder_vocab(VOCAB)
+        rng = np.random.default_rng(36)
+        requests = [rng.integers(0, 256, (n, 224, 224, 3), dtype=np.uint8)
+                    for n in DDP_REQUESTS]
+        single = CaptionPipeline(base_cap, w2i, i2w, max_length=MAX_LEN,
+                                 batch_buckets=(2, 16, 64))
+        double = CaptionPipeline(base_cap, w2i, i2w, max_length=MAX_LEN,
+                                 batch_buckets=(1, 16, 64),
+                                 devices=["cuda:0", "cuda:0"])
+        if double.batch_buckets != (2, 16, 64):
+            raise RuntimeError(f"{tag}: buckets {double.batch_buckets}")
+        want, once = run_requests(single, requests, smi, f"{tag} one")
+        got, launches = run_requests(double, requests, smi, tag)
+        chunks = [-(-n // 64) for n in DDP_REQUESTS]
+        if launches != dict(dict.fromkeys(launches, 0),
+                            decode_seq=2 * sum(chunks)):
+            raise RuntimeError(f"{tag}: launches {launches}, expected K2 2 "
+                               f"a chunk")
+        equal = [bool(np.array_equal(g, w)) for g, w in zip(got, want)]
+        agree = token_agreement(np.concatenate(got), np.concatenate(want))
+        # the same per-replica shapes: each half alone on one device
+        by_half = CaptionPipeline(base_cap, w2i, i2w, max_length=MAX_LEN,
+                                  batch_buckets=(8, 32))
+        halves = []
+        for req in requests[:2]:
+            h = len(req) // 2
+            halves.append(np.concatenate([by_half.caption_tokens(req[:h]),
+                                          by_half.caption_tokens(req[h:])]))
+        half_equal = [bool(np.array_equal(g, h))
+                      for g, h in zip(got, halves)]
+        log(tag, f"CaptionPipeline over [cuda:0, cuda:0] (buckets "
+            f"{double.batch_buckets}): requests {list(DDP_REQUESTS)}, tokens "
+            f"== one device {equal} (agreement {agree:.4f}), == one device "
+            f"on each replica's half {half_equal}; launches {launches}, one "
+            f"device {once} [{smi}]")
+        if not all(half_equal) or agree < MIN_AGREEMENT:
+            raise RuntimeError(f"{tag}: tokens differ from one device")
+        out[tag] = launches
+        log("ddp", f"phases 34-36 in {time.perf_counter() - t_phase:.1f} s")
+        del double
+        return out
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
 def main():
     smi = phase_env()
     import torch
@@ -5319,6 +5981,8 @@ def main():
     by_path.update(phase_caches_and_training(smi, est))
     by_path.update(phase_sample_mode(smi, base_cap))
     by_path.update(phase_export(smi, base_cap, est))
+    ddp = phase_data_parallel(smi, base_cap)
+    by_path.update((path, ddp[path]) for path in DDP_PATHS)
     if tuple(by_path) != PATHS:
         raise RuntimeError(f"paths run {tuple(by_path)}, expected {PATHS}")
     kernels = [step, seq, nic_k, beam_k, vit]
@@ -5334,4 +5998,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--ddp-rank"]:     # a gloo rank of phases 34-35
+        ddp_child(int(sys.argv[2]), int(sys.argv[3]), *sys.argv[4:7])
+    else:
+        main()

@@ -16,7 +16,8 @@ from __future__ import annotations
 import queue as queue_mod
 import random
 import threading
-from typing import Dict, Iterator, List, NamedTuple, Optional, Sequence
+from typing import (Dict, Iterator, List, NamedTuple, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 
@@ -56,26 +57,26 @@ def make_train_batch(images: Sequence[np.ndarray],
                      max_len: int,
                      rng: random.Random,
                      batch_size: Optional[int] = None,
-                     indices: Optional[Sequence[int]] = None) -> Batch:
+                     indices: Optional[Sequence[int]] = None,
+                     rows: Optional[Sequence[int]] = None) -> Batch:
     """Pick one of each image's captions with ``rng``, tokenize, pad to
-    ``max_len``, and pad the rows to ``batch_size`` with repeats."""
+    ``max_len``, and pad the rows to ``batch_size`` with repeats (row i
+    of the padded batch is image ``i % n``). ``rows``: keep only these
+    rows of the padded batch (a rank's share), ``images`` then holding
+    one image a kept row."""
     tokens = [tokenize_caption(rng.choice(list(caps)), word_to_id)
               for caps in caption_sets]
     captions, lengths = pad_captions(tokens, word_to_id[SPECIAL.null], max_len)
+    n = len(caption_sets)
     imgs = np.stack(images)
-    n = imgs.shape[0]
-    target = batch_size or n
+    if rows is None:
+        rows = np.arange(batch_size or n)
+        imgs = imgs[rows % n]
+    rows = np.asarray(rows)
+    src = rows % n
     idx = np.asarray(list(indices) if indices is not None else range(n),
                      dtype=np.int32)
-    pad_mask = np.ones((target,), dtype=bool)
-    if n < target:
-        reps = [i % n for i in range(n, target)]
-        imgs = np.concatenate([imgs, imgs[reps]], axis=0)
-        captions = np.concatenate([captions, captions[reps]], axis=0)
-        lengths = np.concatenate([lengths, lengths[reps]], axis=0)
-        idx = np.concatenate([idx, idx[reps]], axis=0)
-        pad_mask[n:] = False
-    return Batch(imgs, captions, lengths, pad_mask, idx)
+    return Batch(imgs, captions[src], lengths[src], rows < n, idx[src])
 
 
 class EvalBatch(NamedTuple):
@@ -87,20 +88,20 @@ class EvalBatch(NamedTuple):
 def make_eval_batch(images: Sequence[np.ndarray],
                     caption_sets: Sequence[Sequence[str]],
                     word_to_id: Dict[str, int],
-                    batch_size: Optional[int] = None) -> EvalBatch:
+                    batch_size: Optional[int] = None,
+                    rows: Optional[Sequence[int]] = None) -> EvalBatch:
     """Images and their cleaned reference strings, padded to
-    ``batch_size`` rows."""
+    ``batch_size`` rows with repeats. ``rows``: the images are only these
+    rows of the padded batch (a rank's share), one image a row; the
+    references and ``pad_mask`` stay the whole batch's."""
     refs = [[untokenize_caption(c, word_to_id) for c in caps]
             for caps in caption_sets]
-    imgs = np.stack(images)
-    n = imgs.shape[0]
+    n = len(caption_sets)
     target = batch_size or n
-    pad_mask = np.ones((target,), dtype=bool)
-    if n < target:
-        reps = [i % n for i in range(n, target)]
-        imgs = np.concatenate([imgs, imgs[reps]], axis=0)
-        pad_mask[n:] = False
-    return EvalBatch(imgs, refs, pad_mask)
+    imgs = np.stack(images)
+    if rows is None:
+        imgs = imgs[np.arange(target) % n]
+    return EvalBatch(imgs, refs, np.arange(target) < n)
 
 
 def generate_subset(dataset, ratio: float, random_seed: int = 0):
@@ -120,33 +121,60 @@ def batched_indices(n: int, batch_size: int, shuffle: bool = False,
     return [idx[i: i + batch_size] for i in range(0, n, batch_size)]
 
 
+def shard_rows(target: int, shard: Tuple[int, int]) -> np.ndarray:
+    """Rank ``shard[0]``'s contiguous rows (of ``shard[1]`` ranks) of a
+    batch padded to ``target`` rows."""
+    rank, ranks = shard
+    if target % ranks:
+        raise ValueError(f"padded batch {target} does not split over "
+                         f"{ranks} ranks")
+    per = target // ranks
+    return np.arange(rank * per, (rank + 1) * per)
+
+
+def _load_rows(dataset, chunk, rows):
+    """The image of each of ``rows`` (row i is ``chunk[i % len(chunk)]``),
+    each image decoded once."""
+    pos = [int(i) % len(chunk) for i in rows]
+    uniq = sorted(set(pos))
+    imgs = np.stack(_load_chunk(dataset, [chunk[p] for p in uniq]))
+    return imgs[[uniq.index(p) for p in pos]]
+
+
 def train_batches(dataset, word_to_id: Dict[str, int], batch_size: int,
                   max_len: int, shuffle: bool, seed: int,
                   epoch: int = 0,
                   pad_to: Optional[int] = None,
                   indices: Optional[Sequence[int]] = None,
-                  start: int = 0) -> Iterator[Batch]:
+                  start: int = 0,
+                  shard: Tuple[int, int] = (0, 1)) -> Iterator[Batch]:
     """Fixed-shape train batches over a dataset with ``load_image(i)`` (or
     ``load_images_batch``), ``captions(i)`` and ``len``: the order
     shuffled by ``random.Random(seed * 100003 + epoch)``, which also picks
     each image's caption; every batch padded to ``pad_to or batch_size``
     rows. ``start`` > 0 yields from batch ``start`` on, the batches after
     it as without ``start``: the skipped batches' caption draws are made,
-    their images are not decoded (a resumed epoch)."""
+    their images are not decoded (a resumed epoch). ``shard=(rank,
+    ranks)``: each batch is that rank's contiguous rows of the padded
+    batch (the padded size must divide by ``ranks``), and only their
+    images are decoded; every rank makes every caption draw, so the ranks'
+    batches are the rows of one batch."""
     rng = random.Random(seed * 100003 + epoch)
     order = list(indices) if indices is not None else list(range(len(dataset)))
     if shuffle:
         rng.shuffle(order)
     chunks = [order[i: i + batch_size] for i in range(0, len(order), batch_size)]
+    target = pad_to or batch_size
     for n, chunk in enumerate(chunks):
         caps = [dataset.captions(i) for i in chunk]
         if n < start:
             for c in caps:      # make_train_batch's draws, in its order
                 rng.choice(list(c))
             continue
-        yield make_train_batch(_load_chunk(dataset, chunk), caps, word_to_id,
-                               max_len, rng, batch_size=pad_to or batch_size,
-                               indices=chunk)
+        rows = shard_rows(target, shard)
+        yield make_train_batch(_load_rows(dataset, chunk, rows), caps,
+                               word_to_id, max_len, rng, batch_size=target,
+                               indices=chunk, rows=rows)
 
 
 def _load_chunk(dataset, chunk):
@@ -157,12 +185,18 @@ def _load_chunk(dataset, chunk):
 
 
 def eval_batches(dataset, word_to_id: Dict[str, int], batch_size: int,
-                 pad_to: Optional[int] = None) -> Iterator[EvalBatch]:
+                 pad_to: Optional[int] = None,
+                 shard: Tuple[int, int] = (0, 1)) -> Iterator[EvalBatch]:
+    """Evaluation batches in dataset order, padded to ``pad_to or
+    batch_size`` rows. ``shard=(rank, ranks)``: the images are that
+    rank's contiguous rows of each padded batch (only those decoded); the
+    references and ``pad_mask`` stay the whole batch's."""
     for chunk in batched_indices(len(dataset), batch_size):
-        imgs = _load_chunk(dataset, chunk)
         caps = [dataset.captions(i) for i in chunk]
-        yield make_eval_batch(imgs, caps, word_to_id,
-                              batch_size=pad_to or batch_size)
+        rows = shard_rows(pad_to or batch_size, shard)
+        yield make_eval_batch(_load_rows(dataset, chunk, rows), caps,
+                              word_to_id, batch_size=pad_to or batch_size,
+                              rows=rows)
 
 
 class Prefetcher:

@@ -37,6 +37,17 @@ the entries to disk (``engine/eval_cache_store.py``), so that a later run
 replays them from there. Replayed entries are the same tensors a
 recompute gives, so hypotheses and scores are equal; hard attention still
 draws each set's region noise from the set's own seed.
+
+Data parallel (the JAX ``evaluate``'s mesh over every device): in a
+process group of R ranks (``parallel/multihost.initialize``, one process
+per card under ``torchrun``) each batch is padded to a multiple of R and
+each rank decodes and captions its contiguous rows (its kernels on its
+card), the tokens are gathered, and rank 0 detokenizes, scores, prints
+and writes the pickle; every rank returns rank 0's scores. Hard
+attention draws the whole padded batch's noise on every rank, each
+keeping its rows, so the hypotheses are one rank's. The set cache keeps
+each rank's rows; its disk store holds whole batches, which rank 0 writes
+(gathered from the ranks) and every rank reads its rows of.
 """
 
 from __future__ import annotations
@@ -59,9 +70,13 @@ from depth_image_captioning_pub_torch.models.captioner import Captioner
 from depth_image_captioning_pub_torch.models.decoder import AttNoise
 from depth_image_captioning_pub_torch.ops.image_ops import (
     imagenet_normalize, to_unit_float)
+from depth_image_captioning_pub_torch.ops.decode import region_noise
 from depth_image_captioning_pub_torch.ops.kernels.beam_seq import (
     check_beam_size)
 from depth_image_captioning_pub_torch.ops.pooling import global_avg_pool
+from depth_image_captioning_pub_torch.parallel.mesh import (
+    all_gather_rows, any_rank, batch_sharding, broadcast_object,
+    global_rows, make_mesh, pad_batch_to_devices)
 from depth_image_captioning_pub_torch.utils.jax_bridge import (
     flatten_tree, params_from_jax)
 
@@ -220,6 +235,12 @@ def generate_captions(caption_fn: Callable, dataset,
     are dropped before detokenization). Detokenizing batch i overlaps the
     device's work on batch i+1: the host waits one batch behind.
 
+    Over several ranks (``parallel/mesh``) each batch is padded to a
+    multiple of their count and each rank captions its contiguous rows
+    (``att_noise(i)`` is then the whole batch's hook, drawn at its shape
+    with this rank's rows kept); the tokens are gathered and rank 0 alone
+    returns the hypotheses (the other ranks an empty list).
+
     The caches: ``set_cache``
     ({"entries": [...], "refs": ...}) in mode "fill" keeps each batch's
     frozen-stage entry and the references; in mode "use" the batches are
@@ -232,14 +253,20 @@ def generate_captions(caption_fn: Callable, dataset,
     hypos: List[str] = []
     refs: List[List[str]] = []
     pending: List[Tuple[torch.Tensor, int]] = []
+    mesh = make_mesh()
+    pad_to = pad_batch_to_devices(batch_size, mesh.size)
 
     def drain(entry):
         tokens, n_valid = entry
+        tokens = all_gather_rows(tokens)
+        if mesh.rank != 0:
+            return
         for row in tokens.cpu().numpy()[:n_valid]:
             hypos.append(ids_to_caption(row, id_to_word))
 
     def noise(i):
-        return {} if att_noise is None else {"att_noise": att_noise(i)}
+        return {} if att_noise is None else {
+            "att_noise": global_rows(att_noise(i), mesh)}
 
     if set_cache_mode == "use":
         for i, (entry, n_valid) in enumerate(set_cache["entries"]):
@@ -250,8 +277,10 @@ def generate_captions(caption_fn: Callable, dataset,
             drain(entry)
         return hypos, [list(r) for r in set_cache["refs"]]
 
-    it = Prefetcher(eval_batches(dataset, word_to_id, batch_size),
-                    depth=prefetch)
+    it = Prefetcher(eval_batches(
+        dataset, word_to_id, batch_size, pad_to=pad_to,
+        shard=(mesh.rank, mesh.size)),
+        depth=prefetch)
     try:
         for i, batch in enumerate(it):
             refs.extend(batch.references)
@@ -341,10 +370,22 @@ def evaluate(kind: str, use_data: str, cap: Captioner,
     batch). ``att_noise(set_idx, batch_idx)``, when given, returns each
     batch's ``att_noise(t, shape)`` hook instead (the tests feed the JAX
     split chain through it).
+
+    Over several ranks (``parallel/mesh``) the batches are sharded
+    (``generate_captions``), rank 0 alone prints, scores and writes, and
+    every rank returns its scores.
     """
     cfg = cfg or ConfigEval()
+    mesh = make_mesh()
+    quiet = quiet or mesh.rank != 0
     generator = (torch.Generator(device=cap.device)
                  if cap.spec.attention == "hard" else None)
+    if mesh.sharded and generator is not None and att_noise is None:
+        def att_noise(set_idx, batch_idx):
+            """The generator's draws, made on every rank at the whole
+            batch's shape (``generate_captions`` keeps this rank's
+            rows)."""
+            return region_noise(generator)
     caption_fn = make_caption_fn(cap, word_to_id[SPECIAL.start],
                                  cfg.max_length, depth_fn,
                                  end_id=word_to_id[SPECIAL.end],
@@ -371,8 +412,9 @@ def evaluate(kind: str, use_data: str, cap: Captioner,
     store = dkey = mkey = None
     if set_cache is not None and eval_cache_dir:
         from depth_image_captioning_pub_torch.engine import eval_cache_store
-        dkey = eval_cache_store.data_key(dataset, cfg.batch_size,
-                                         cfg.batch_size)
+        dkey = eval_cache_store.data_key(
+            dataset, cfg.batch_size,
+            pad_batch_to_devices(cfg.batch_size, mesh.size))
         if dkey is None:
             if not quiet:
                 print("eval cache dir: the dataset has no image paths to "
@@ -401,8 +443,9 @@ def evaluate(kind: str, use_data: str, cap: Captioner,
                         frozen_enc, depth_fn.model.state_dict()
                         if uses_depth else None,
                         cap.encoder_dtype, cfg, kind)
-                    loaded = store.load(eval_cache_dir, dkey, mkey,
-                                        cap.device, quiet=quiet)
+                    loaded = _rows_of_store(store.load(
+                        eval_cache_dir, dkey, mkey, cap.device,
+                        quiet=quiet), mesh)
                     if loaded is not None:
                         set_cache.update(loaded)
                         set_mode = "use"
@@ -440,13 +483,40 @@ def evaluate(kind: str, use_data: str, cap: Captioner,
             set_cache=set_cache, set_cache_mode=set_mode,
             depth_cache=depth_cache, depth_cache_mode=depth_mode)
         if set_idx == 1 and set_mode == "fill" and store is not None:
-            store.save(eval_cache_dir, dkey, mkey, set_cache, quiet=quiet)
-        result = score(*load_textfiles(refs, hypos))
+            whole = _gathered(set_cache)
+            if mesh.rank == 0:
+                store.save(eval_cache_dir, dkey, mkey, whole, quiet=quiet)
+        result = (score(*load_textfiles(refs, hypos)) if mesh.rank == 0
+                  else None)
+        result = broadcast_object(result)
         if not quiet:
             print(result)
         for k, v in result.items():
             scores[k].append(v)
-    if scores_pickle:
+    if scores_pickle and mesh.rank == 0:
         with open(scores_pickle, "wb") as f:
             pickle.dump(scores, f)
     return scores
+
+
+def _rows_of_store(loaded: Optional[Dict], mesh) -> Optional[Dict]:
+    """This rank's rows of each batch of a set cache read from the disk
+    store (whole batches), or None when any rank missed it: all ranks
+    replay, or all fill."""
+    if not mesh.sharded:
+        return loaded
+    if any_rank(loaded is None):
+        return None
+    entries = [({name: None if t is None else t[batch_sharding(
+        mesh, t.shape[0])] for name, t in aux.items()}, n_valid)
+        for aux, n_valid in loaded["entries"]]
+    return dict(loaded, entries=entries)
+
+
+def _gathered(set_cache: Dict) -> Dict:
+    """A filled set cache with the ranks' rows of each batch gathered into
+    whole batches (the disk store's layout)."""
+    entries = [({name: None if t is None else all_gather_rows(t)
+                 for name, t in aux.items()}, n_valid)
+               for aux, n_valid in set_cache["entries"]]
+    return dict(set_cache, entries=entries)

@@ -29,6 +29,22 @@ from the generator in turn, or from the hooks, which then take the
 microbatch index first (``dropout_keep(j, t, shape)``, ``att_noise(j, t,
 shape)``: the tests replay the JAX step's ``jax.random.split(rng, k)``
 through them).
+
+Over several ranks (``parallel/mesh``: one process per card, each with
+its contiguous rows of the global batch) a step computes what one rank
+computes on the whole batch: the normalizers are the global batch's
+(``caption_denoms`` and ``nic_denom`` all-reduce the counts), so each
+rank's loss is its rows' share of the global loss; the gradients are
+summed across ranks in one flattened collective before AdamW
+(``mesh.all_reduce_grads``, with the metrics in the same buffer, so every
+rank returns the global loss); the noise is drawn at the global shape and
+each rank keeps its rows (``mesh.global_rows`` around the hooks or the
+generator's draws); the depth CNN's BatchNorms see the global
+(micro)batch (``models/depth_encoders.BatchNorm2d``). With accumulation a
+rank's rows ``j::k`` are the global microbatch j's rows of that rank as
+long as k divides each rank's row count, which the trainer's padding to a
+multiple of ranks * k keeps. A group of one rank runs the same
+collectives, which leave every value as it is.
 """
 
 from __future__ import annotations
@@ -41,10 +57,14 @@ import torch
 from depth_image_captioning_pub_torch.engine.losses import (
     Metrics, caption_loss, nic_loss, token_mask)
 from depth_image_captioning_pub_torch.models.captioner import Captioner
+from depth_image_captioning_pub_torch.ops.decode import (
+    dropout_masks, region_noise)
 from depth_image_captioning_pub_torch.ops.image_ops import (
     imagenet_normalize, to_unit_float)
 from depth_image_captioning_pub_torch.ops.pooling import global_avg_pool
 from depth_image_captioning_pub_torch.ops.precision import full_f32
+from depth_image_captioning_pub_torch.parallel.mesh import (
+    all_reduce_grads, all_reduce_sum, global_rows, make_mesh)
 
 DeviceBatch = Dict[str, torch.Tensor]
 
@@ -68,16 +88,15 @@ def check_accum_steps(accum_steps: int,
                          f"accum_steps={accum_steps}")
 
 
-def accum_pad_to(batch_size: int, accum_steps: int) -> int:
-    """The padded batch size of a run with ``accum_steps`` microbatches:
-    ``batch_size`` rounded up to a multiple of it."""
-    check_accum_steps(accum_steps)
-    return -(-batch_size // accum_steps) * accum_steps
-
-
 def _micro(batch: DeviceBatch, j: int, k: int) -> DeviceBatch:
     """Microbatch j of k: rows ``j::k`` of every tensor."""
     return {name: t[j::k] for name, t in batch.items()}
+
+
+def _sharded_denoms(batch: DeviceBatch):
+    """The global batch's normalizers over several ranks; None (each
+    loss counts its own batch) with one."""
+    return caption_denoms(batch) if make_mesh().sharded else None
 
 
 def _micro_hook(hook, j: int):
@@ -87,9 +106,16 @@ def _micro_hook(hook, j: int):
 
 def caption_denoms(batch: DeviceBatch):
     """(token_total, example_total): the whole batch's normalizers of
-    ``caption_loss`` (the JAX ``_global_denoms``)."""
+    ``caption_loss`` (the JAX ``_global_denoms``); over several ranks the
+    global batch's, all-reduced."""
     captions, pad = batch["captions"], batch.get("pad_mask")
     mask = token_mask(batch["lengths"], captions.shape[1] - 1, pad)
+    if make_mesh().sharded:
+        rows = (pad.sum() if pad is not None else
+                torch.tensor(captions.shape[0], device=captions.device))
+        tok, ex = all_reduce_sum(torch.stack([mask.sum(), rows]))
+        return (torch.clamp(tok, min=1),
+                torch.clamp(ex.to(torch.float32), min=1.0))
     tok = torch.clamp(mask.sum(), min=1)
     ex = (torch.clamp(pad.sum().to(torch.float32), min=1.0)
           if pad is not None else
@@ -99,13 +125,33 @@ def caption_denoms(batch: DeviceBatch):
 
 def nic_denom(batch: DeviceBatch) -> torch.Tensor:
     """The whole batch's token count of ``nic_loss`` (targets t <
-    length)."""
+    length); over several ranks the global batch's."""
     captions, pad = batch["captions"], batch.get("pad_mask")
     t = torch.arange(captions.shape[1], device=captions.device)[None, :]
     mask = t < batch["lengths"][:, None]
     if pad is not None:
         mask = mask & pad[:, None]
-    return torch.clamp(mask.sum(), min=1)
+    return torch.clamp(all_reduce_sum(mask.sum()) if make_mesh().sharded
+                       else mask.sum(), min=1)
+
+
+def _global_noise(decoder, generator, dropout_keep, att_noise,
+                  stochastic: bool):
+    """The decoder's noise hooks over several ranks: the given hooks, or
+    the generator's draws the decoder would make, at the global batch's
+    shape with this rank's rows kept (``mesh.global_rows``); the hooks as
+    they are with one rank. ``stochastic``: training noise is on (dropout
+    is drawn)."""
+    mesh = make_mesh()
+    if not mesh.sharded:
+        return dropout_keep, att_noise
+    if generator is not None:
+        if att_noise is None and getattr(
+                decoder, "attention_kind", None) == "hard":
+            att_noise = region_noise(generator)
+        if dropout_keep is None and stochastic and decoder.dropout > 0.0:
+            dropout_keep = dropout_masks(generator, decoder.dropout)
+    return global_rows(dropout_keep, mesh), global_rows(att_noise, mesh)
 
 
 def batch_to_device(batch, device, depth=None,
@@ -149,6 +195,9 @@ def attention_loss(cap: Captioner, features: torch.Tensor,
     dep = None
     if cap.spec.uses_depth:
         dep = cap.depth_encoder_apply(train=train)(batch["depth"])
+    dropout_keep, att_noise = _global_noise(
+        cap.decoder, generator, dropout_keep, att_noise,
+        train and not hard_eval_sampling)
     logits, alphas = cap.decoder(
         features, batch["captions"], dep, train=train, temp=temp,
         hard_eval_sampling=hard_eval_sampling, generator=generator,
@@ -163,6 +212,8 @@ def nic_loss_of(cap: Captioner, pooled: torch.Tensor, batch: DeviceBatch,
     """(loss, metrics) of NIC on the pooled backbone features: the
     projection, the teacher-forced decoder and ``nic_loss`` (``denom``: a
     whole batch's token count, for a microbatch)."""
+    dropout_keep, _ = _global_noise(cap.decoder, generator, dropout_keep,
+                                    None, train)
     logits = cap.decoder(cap.projection(pooled), batch["captions"],
                          train=train, generator=generator,
                          dropout_keep=dropout_keep)
@@ -170,21 +221,40 @@ def nic_loss_of(cap: Captioner, pooled: torch.Tensor, batch: DeviceBatch,
                     batch["pad_mask"], denom=denom)
 
 
-def _apply(optimizer: torch.optim.Optimizer, loss: torch.Tensor) -> None:
+def _params(optimizer: torch.optim.Optimizer):
+    return [p for group in optimizer.param_groups for p in group["params"]]
+
+
+def _update(optimizer: torch.optim.Optimizer, metrics: Metrics) -> Metrics:
+    """Sum the gradients (and the metrics) across the ranks, then the
+    AdamW update; returns the metrics, detached and global."""
+    names = list(metrics)
+    summed = all_reduce_grads(_params(optimizer),
+                              [metrics[k].detach() for k in names])
+    optimizer.step()
+    return dict(zip(names, summed))
+
+
+def _apply(optimizer: torch.optim.Optimizer, loss: torch.Tensor,
+           metrics: Metrics) -> Metrics:
     optimizer.zero_grad(set_to_none=True)
     loss.backward()
-    optimizer.step()
+    return _update(optimizer, metrics)
 
 
 def _detached(metrics: Metrics) -> Metrics:
-    return {k: v.detach() for k, v in metrics.items()}
+    """The metrics detached and, over ranks, summed (an eval step's)."""
+    names = list(metrics)
+    return dict(zip(names, all_reduce_grads(
+        [], [metrics[k].detach() for k in names])))
 
 
 def _accumulate(optimizer: torch.optim.Optimizer, loss_of, batch,
                 features: torch.Tensor, accum_steps: int) -> Metrics:
     """Backward of ``loss_of(j, microbatch, features rows)`` for each of
     the k microbatches in order, the gradients summed in ``.grad``, then
-    one optimizer step; returns the summed metrics."""
+    one reduction across the ranks and one optimizer step; returns the
+    summed metrics."""
     check_accum_steps(accum_steps, features.shape[0])
     optimizer.zero_grad(set_to_none=True)
     total: Optional[Metrics] = None
@@ -192,11 +262,10 @@ def _accumulate(optimizer: torch.optim.Optimizer, loss_of, batch,
         loss, metrics = loss_of(j, _micro(batch, j, accum_steps),
                                 features[j::accum_steps])
         loss.backward()
-        metrics = _detached(metrics)
+        metrics = {k: v.detach() for k, v in metrics.items()}
         total = metrics if total is None else {
             k: total[k] + v for k, v in metrics.items()}
-    optimizer.step()
-    return total
+    return _update(optimizer, total)
 
 
 @full_f32()
@@ -224,9 +293,9 @@ def attention_train_step(cap: Captioner, optimizer: torch.optim.Optimizer,
             batch, features, accum_steps)
     loss, metrics = attention_loss(
         cap, features, batch, train=True, temp=temp, alpha_reg=alpha_reg,
-        generator=generator, dropout_keep=dropout_keep, att_noise=att_noise)
-    _apply(optimizer, loss)
-    return _detached(metrics)
+        generator=generator, dropout_keep=dropout_keep, att_noise=att_noise,
+        denoms=_sharded_denoms(batch))
+    return _apply(optimizer, loss, metrics)
 
 
 @torch.no_grad()
@@ -247,7 +316,8 @@ def attention_eval_step(cap: Captioner, batch: DeviceBatch, *,
         cap, features, batch, train=False,
         alpha_reg=alpha_reg,
         hard_eval_sampling=cap.spec.attention == "hard",
-        generator=generator, att_noise=att_noise)
+        generator=generator, att_noise=att_noise,
+        denoms=_sharded_denoms(batch))
     return _detached(metrics)
 
 
@@ -270,11 +340,11 @@ def nic_train_step(cap: Captioner, optimizer: torch.optim.Optimizer,
             cap, feats, mb, train=True, generator=generator,
             dropout_keep=_micro_hook(dropout_keep, j), denom=denom),
             batch, features, accum_steps)
-    loss, metrics = nic_loss_of(cap, features, batch, train=True,
-                                generator=generator,
-                                dropout_keep=dropout_keep)
-    _apply(optimizer, loss)
-    return _detached(metrics)
+    loss, metrics = nic_loss_of(
+        cap, features, batch, train=True, generator=generator,
+        dropout_keep=dropout_keep,
+        denom=nic_denom(batch) if make_mesh().sharded else None)
+    return _apply(optimizer, loss, metrics)
 
 
 @torch.no_grad()
@@ -283,5 +353,7 @@ def nic_eval_step(cap: Captioner, batch: DeviceBatch,
                   features: Optional[torch.Tensor] = None) -> Metrics:
     if features is None:
         features = frozen_features(cap, batch["images"])
-    _, metrics = nic_loss_of(cap, features, batch, train=False)
+    _, metrics = nic_loss_of(
+        cap, features, batch, train=False,
+        denom=nic_denom(batch) if make_mesh().sharded else None)
     return _detached(metrics)

@@ -27,6 +27,18 @@ mixed-precision decoder, f32 parameters and AdamW state) and the
 profiler window (``cfg.profile_dir``, ``profile_start``, ``profile_stop``:
 ``utils/logging.ProfilerTrace`` over those host steps, counted across
 epochs).
+
+Data parallel (the JAX trainer's mesh): in a process group of R ranks
+(``parallel/multihost.initialize``, one process per card under
+``torchrun``) rank 0's weights are broadcast to every rank, every rank
+builds the same shuffled order and decodes only its contiguous rows of
+each global batch (padded to a multiple of R * ``grad_accum``), and the
+steps combine the ranks into the single-device step
+(``engine/steps.py``); the generator draws the whole batch's noise and
+each rank keeps its rows. Rank 0 alone writes the logs, the best-val
+files, the checkpoints and the feature cache (the others wait for it);
+every rank restores on ``resume``; a preemption seen by any rank stops
+all of them after the same step.
 """
 
 from __future__ import annotations
@@ -47,11 +59,13 @@ from depth_image_captioning_pub_torch.data.pipeline import (
     Prefetcher, train_batches)
 from depth_image_captioning_pub_torch.data.vocab import load_vocab
 from depth_image_captioning_pub_torch.engine.steps import (
-    accum_pad_to, attention_eval_step, attention_train_step,
+    attention_eval_step, attention_train_step,
     batch_to_device, check_accum_steps, frozen_features, make_optimizer,
     nic_eval_step, nic_train_step)
 from depth_image_captioning_pub_torch.models.captioner import (
     Captioner, CaptionerSpec, build_captioner)
+from depth_image_captioning_pub_torch.parallel.mesh import (
+    any_rank, barrier, make_mesh, pad_batch_to_devices, replicate)
 from depth_image_captioning_pub_torch.utils.checkpoint import (
     TrainCheckpointer, save_component)
 from depth_image_captioning_pub_torch.utils.jax_bridge import (
@@ -98,7 +112,8 @@ def feature_providers(cap: Captioner, train_ds, val_ds, cache_dir: str,
                       batch_size: int, quiet: bool = False):
     """(train, val) providers of the frozen features, each from its
     split's cache under ``cache_dir`` (built first where missing or
-    stale): ``engine/feature_cache.build_or_open``."""
+    stale): ``engine/feature_cache.build_or_open``. Over several ranks
+    rank 0 builds, and the others open the caches once it is done."""
     from depth_image_captioning_pub_torch.engine import feature_cache as fc
     frozen = cap.backbone if cap.spec.is_nic else cap.encoder
     probe = torch.from_numpy(np.stack([train_ds.load_image(0)])).to(
@@ -111,10 +126,18 @@ def feature_providers(cap: Captioner, train_ds, val_ds, cache_dir: str,
 
     shape = tuple(out.shape[1:])
     digest = fc.frozen_digest(frozen, out.dtype, shape)
-    return tuple(fc.build_or_open(
-        cache_dir, split, ds, encode, frozen, shape, out.dtype, cap.device,
-        batch_size=batch_size, quiet=quiet, digest=digest)
-        for split, ds in (("train", train_ds), ("val", val_ds)))
+
+    def providers():
+        return tuple(fc.build_or_open(
+            cache_dir, split, ds, encode, frozen, shape, out.dtype,
+            cap.device, batch_size=batch_size, quiet=quiet, digest=digest)
+            for split, ds in (("train", train_ds), ("val", val_ds)))
+    if make_mesh().rank == 0:
+        built = providers()
+        barrier()
+        return built
+    barrier()
+    return providers()
 
 
 def device_batch(cap: Captioner, batch, depth_provider=None,
@@ -225,16 +248,22 @@ def train(kind: str, ext: int, use_data: str = "coco",
     else:
         train_ds, val_ds = datasets
 
+    mesh = make_mesh()
+    lead = mesh.rank == 0       # the one rank that writes and prints
+    quiet = quiet or not lead
     save_directory = cfg.save_dir(_save_dir_kind(kind), use_ori)
-    os.makedirs(save_directory, exist_ok=True)
     prefix = _KIND_PREFIX[kind]
     suffix = f"{use_data}{ext}" if kind != "nic" else f"{ext}"
     sep = "_" if kind != "nic" else ""
-    train_csv = CsvLossLog(
-        f"{save_directory}/{prefix}_train_loss{sep}{suffix}.csv")
-    val_csv = CsvLossLog(f"{save_directory}/{prefix}_val_loss{sep}{suffix}.csv")
-    jsonl = (JsonlLog(f"{save_directory}/{prefix}_metrics_{suffix}.jsonl")
-             if cfg.log_jsonl else None)
+    train_csv = val_csv = jsonl = None
+    if lead:
+        os.makedirs(save_directory, exist_ok=True)
+        train_csv = CsvLossLog(
+            f"{save_directory}/{prefix}_train_loss{sep}{suffix}.csv")
+        val_csv = CsvLossLog(
+            f"{save_directory}/{prefix}_val_loss{sep}{suffix}.csv")
+        jsonl = (JsonlLog(f"{save_directory}/{prefix}_metrics_{suffix}.jsonl")
+                 if cfg.log_jsonl else None)
 
     cap = build_captioner(kind, len(word_to_id), cfg,
                           resnet_layers=resnet_layers, device=device,
@@ -245,6 +274,7 @@ def train(kind: str, ext: int, use_data: str = "coco",
         cap.init(torch.Generator().manual_seed(cfg.seed + ext))
     if resnet_variables is not None:
         encoder_from_jax(cap, resnet_variables)
+    replicate(mesh, [cap])
     dev = cap.device
     opt = make_optimizer(cap, cfg.lr)
     feature_provider = val_feature_provider = None
@@ -253,7 +283,9 @@ def train(kind: str, ext: int, use_data: str = "coco",
             cap, train_ds, val_ds, f"{save_directory}/feat_cache",
             cfg.batch_size, quiet=quiet)
     accum = cfg.grad_accum
-    pad_to = accum_pad_to(cfg.batch_size, accum)
+    # each rank's rows must split into the k microbatches
+    pad_to = pad_batch_to_devices(cfg.batch_size, mesh.size * accum)
+    shard = (mesh.rank, mesh.size)
 
     nic = cap.spec.is_nic
     alpha_reg = cfg.alpha_reg if cap.spec.attention == "soft" else 0.0
@@ -267,6 +299,7 @@ def train(kind: str, ext: int, use_data: str = "coco",
 
     ckptr = None
     if checkpoint_every or resume:
+        barrier()       # rank 0 made the save directory
         ckptr = TrainCheckpointer(
             f"{save_directory}/full_state_{prefix}_{suffix}",
             async_save=True, keep=cfg.checkpoint_keep)
@@ -301,8 +334,9 @@ def train(kind: str, ext: int, use_data: str = "coco",
     flag = threading.Event()
 
     def preempted() -> bool:
-        return ckptr is not None and (flag.is_set() or (
-            preempt_event is not None and preempt_event.is_set()))
+        # over ranks, every rank stops once any rank was asked to
+        return ckptr is not None and any_rank(flag.is_set() or (
+            preempt_event is not None and preempt_event.is_set()), dev)
 
     trap = (ckptr is not None and preempt_save
             and threading.current_thread() is threading.main_thread())
@@ -317,8 +351,9 @@ def train(kind: str, ext: int, use_data: str = "coco",
                     epoch_train_seconds=list(run["epoch_seconds"]))
 
     def finish_preempted(epoch, where, state):
-        ckptr.save(epoch, state)
-        ckptr.wait()
+        if lead:
+            ckptr.save(epoch, state)
+            ckptr.wait()
         if not quiet:
             print(f"preempted: checkpoint saved at {where}")
         return summary(preempted=1.0)
@@ -341,7 +376,7 @@ def train(kind: str, ext: int, use_data: str = "coco",
             it = Prefetcher(train_batches(
                 train_ds, word_to_id, cfg.batch_size, cfg.max_caption_len,
                 shuffle=True, seed=cfg.seed + ext, epoch=epoch,
-                pad_to=pad_to, start=n_steps))
+                pad_to=pad_to, start=n_steps, shard=shard))
             try:
                 for batch in it:
                     dev_batch, feats = device_batch(
@@ -364,8 +399,11 @@ def train(kind: str, ext: int, use_data: str = "coco",
                     loss_dev = metrics["loss"]
                     loss_sum = (loss_dev if loss_sum is None
                                 else loss_sum + loss_dev)
+                    # the global batch's real rows
+                    run["train_rows"] += min(
+                        cfg.batch_size,
+                        len(train_ds) - n_steps * cfg.batch_size)
                     n_steps += 1
-                    run["train_rows"] += int(batch.pad_mask.sum())
                     meter.update_lazy(lambda ld=loss_dev: ld)
                     if preempted():
                         meter.close()
@@ -381,14 +419,16 @@ def train(kind: str, ext: int, use_data: str = "coco",
                           else float("nan"))
             run["train_loss"] = train_loss
             run["epoch_seconds"].append(time.time() - t0)
-            train_csv.append(epoch, train_loss)
+            if lead:
+                train_csv.append(epoch, train_loss)
             if not quiet:
                 print(f"[epoch:{epoch}] train loss: {train_loss}")
 
             val_sum, n_val = None, 0
             itv = Prefetcher(train_batches(
                 val_ds, word_to_id, cfg.batch_size, cfg.max_caption_len,
-                shuffle=False, seed=cfg.seed, epoch=epoch, pad_to=pad_to))
+                shuffle=False, seed=cfg.seed, epoch=epoch, pad_to=pad_to,
+                shard=shard))
             try:
                 for batch in itv:
                     dev_batch, feats = device_batch(
@@ -405,7 +445,8 @@ def train(kind: str, ext: int, use_data: str = "coco",
             finally:
                 itv.close()
             val_loss = float(val_sum) / n_val if n_val else float("nan")
-            val_csv.append(epoch, val_loss)
+            if lead:
+                val_csv.append(epoch, val_loss)
             if not quiet:
                 print(f"[epoch:{epoch}] Validation loss: {val_loss}")
             if jsonl:
@@ -415,7 +456,8 @@ def train(kind: str, ext: int, use_data: str = "coco",
                               "temp": float(np.float32(temp))})
             if val_loss < run["best_val"]:
                 run["best_val"] = val_loss
-                _save_best(save_directory, prefix, suffix, sep, cap)
+                if lead:
+                    _save_best(save_directory, prefix, suffix, sep, cap)
                 if not quiet:
                     print("best model parameters are changed")
             if preempted():
@@ -423,7 +465,8 @@ def train(kind: str, ext: int, use_data: str = "coco",
                 # checkpoint is an ordinary end-of-epoch one
                 return finish_preempted(epoch, f"end of epoch {epoch}",
                                         payload(epoch))
-            if checkpoint_every and (epoch + 1) % checkpoint_every == 0:
+            if (lead and checkpoint_every
+                    and (epoch + 1) % checkpoint_every == 0):
                 ckptr.save(epoch, payload(epoch))
     finally:
         # the window outran the run, or a preemption landed inside it:

@@ -52,6 +52,15 @@ with ``--stochastic`` draws from the filtered distribution
 ``torch.Generator`` of its own, seeded from ``--seed`` and the image's
 position, so a rerun repeats its captions; hard attention's greedy region
 draws come from it too.
+
+Data parallel: under ``torchrun`` (``WORLD_SIZE`` > 1) each process joins
+the group (``parallel/multihost.initialize``: NCCL on the cards, gloo with
+``--device cpu``) on ``cuda:LOCAL_RANK`` and captions its rows of every
+batch; rank 0 scores, writes the pickle and prints (sample mode runs on
+rank 0 alone):
+
+    torchrun --nproc-per-node 8 \\
+        -m depth_image_captioning_pub_torch.evaluation depth soft score coco
 """
 
 from __future__ import annotations
@@ -70,6 +79,7 @@ from depth_image_captioning_pub_torch.data.coco import (
     CocoCaptions, Subset, load_index_file)
 from depth_image_captioning_pub_torch.engine.evaluate import evaluate
 from depth_image_captioning_pub_torch.models.captioner import build_captioner
+from depth_image_captioning_pub_torch.parallel import multihost
 
 EVAL_DATA = ("coco", "rem_coco", "rem_original")
 SAMPLE_DATA = ("coco", "original")
@@ -87,7 +97,8 @@ def _load_vocabs(w2i_path: str, i2w_path: str):
 
 
 def _report(scores) -> int:
-    print({k: float(np.mean(v)) for k, v in scores.items()})
+    if multihost.process_index() == 0:
+        print({k: float(np.mean(v)) for k, v in scores.items()})
     return 0
 
 
@@ -106,7 +117,8 @@ def score_mode(atten: str, use_data: str, cfg: ConfigEval, depth: bool,
     ds = CocoCaptions(cfg.val_img_directory, anno)
     if index_file:
         ds = Subset(ds, load_index_file(index_file))
-        print(f"subset size : {len(ds)}")
+        if multihost.process_index() == 0:
+            print(f"subset size : {len(ds)}")
     mlp = depth and encoder == "mlp"
     kind = f"{('mdepth' if mlp else 'depth') if depth else 'base'}-{atten}"
     depth_fn = cli.eval_depth_fn(cfg, device) if depth else None
@@ -220,6 +232,21 @@ def nic_mode(cfg: ConfigEval, num_sets: int, beam_size: int, cache: Dict,
 
 
 def main(argv: Optional[List[str]] = None) -> int:
+    if multihost.launched_ranks() == 1:
+        return _main(argv)
+    args = _parser().parse_args(argv)
+    device = multihost.local_device(args.device)
+    multihost.initialize(device=device)
+    try:
+        multihost.build_kernels(device)
+        if "sample" in args.words[2:3] and multihost.process_index() != 0:
+            return 0
+        return _main(argv, device)
+    finally:
+        multihost.shutdown()
+
+
+def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         description=__doc__, formatter_class=argparse.RawTextHelpFormatter)
     p.add_argument("words", nargs="+",
@@ -249,7 +276,14 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--top-p", type=float, default=1.0)
     p.add_argument("--seed", type=int, default=0,
                    help="sample mode: seeds each image's draws")
-    args = p.parse_args(argv)
+    return p
+
+
+def _main(argv, device=None) -> int:
+    """The evaluation on ``device`` (default ``--device``)."""
+    args = _parser().parse_args(argv)
+    if device is not None:
+        args.device = device
     cache = {"depth_eval_cache": args.eval_cache,
              "eval_cache_dir": (args.eval_cache_dir
                                 or os.environ.get("DCAP_EVAL_CACHE_DIR")

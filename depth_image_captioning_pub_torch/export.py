@@ -177,11 +177,18 @@ def draw_noise(meta: Dict, bucket: int, generator: torch.Generator
 
 
 def check_exportable(pipe: CaptionPipeline) -> None:
-    """The port's own refusals: a bf16 decoder and, on a CUDA device, a
+    """The refusals: a pipeline over several devices (the JAX export's:
+    serving over several devices splits its chunks around the loaded
+    program), and the port's own: a bf16 decoder and, on a CUDA device, a
     soft-attention beam width with no kernel instance (the live pipeline
     refuses the latter too)."""
     from depth_image_captioning_pub_torch.ops.kernels.beam_seq import (
         check_beam_size)
+    if len(pipe.devices) > 1:
+        raise ValueError(
+            "export a single-device pipeline (pass devices=[one device]); "
+            "serve-side data parallelism splits the chunks around the "
+            "loaded program")
     if pipe.cap.decoder.dtype != torch.float32:
         raise ValueError(f"a {pipe.cap.decoder.dtype} decoder cannot "
                          f"decode: export a float32 decoder on the same "
@@ -261,6 +268,7 @@ class ExportedPipeline(CaptionPipeline):
         self.batch_stats = variables["batch_stats"]
         self.meta = meta
         self.device = torch.device(device)
+        self.devices = [self.device]
         self._experiment = None
         self.id_to_word = {int(i): w for i, w in meta["id_to_word"].items()}
         self.image_hw = tuple(meta["image_hw"])

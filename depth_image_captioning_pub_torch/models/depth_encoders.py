@@ -21,6 +21,22 @@ from depth_image_captioning_pub_torch.models.initializers import (
 from depth_image_captioning_pub_torch.ops.pooling import (
     adaptive_avg_pool2d, nchw, nhwc)
 from depth_image_captioning_pub_torch.ops.precision import full_f32
+from depth_image_captioning_pub_torch.parallel.mesh import (
+    all_reduce_autograd, make_mesh)
+
+
+def _global_moments(x32: torch.Tensor, axes):
+    """(mean, biased variance) per channel of the ranks' batches
+    together: one all-reduce of [sum, sum of squares, count]."""
+    count = x32.numel() // x32.shape[1]
+    stats = torch.cat([x32.sum(axes), (x32 * x32).sum(axes),
+                       x32.new_full((1,), float(count))])
+    stats = all_reduce_autograd(stats)
+    c = x32.shape[1]
+    total = stats[2 * c]
+    mean = stats[:c] / total
+    var = torch.clamp(stats[c:2 * c] / total - mean * mean, min=0.0)
+    return mean, var
 
 
 class BatchNorm2d(nn.Module):
@@ -34,7 +50,11 @@ class BatchNorm2d(nn.Module):
     as flax does (``use_fast_variance``: E[x²] − E[x]², clipped at 0, the
     biased variance), gradients flowing through them, and moves the
     buffers to ``momentum * running + (1 - momentum) * batch``. Every row
-    counts, the batch's repeated pad rows too, as in the JAX step.
+    counts, the batch's repeated pad rows too, as in the JAX step. Over
+    several ranks (``parallel/mesh``) the batch is the global one: the
+    per-channel sums, sums of squares and counts are all-reduced with
+    autograd through them, as the JAX step's BatchNorm sees its whole
+    sharded batch; one rank computes as before, bit for bit.
     """
 
     def __init__(self, channels: int, *, device=None, eps: float = 1e-5,
@@ -61,8 +81,11 @@ class BatchNorm2d(nn.Module):
                                 self.weight, self.bias, False, 0.0, self.eps)
         x32 = x.to(torch.float32)
         axes = (0, 2, 3)
-        mean = x32.mean(axes)
-        var = torch.clamp((x32 * x32).mean(axes) - mean * mean, min=0.0)
+        if make_mesh().sharded:
+            mean, var = _global_moments(x32, axes)
+        else:
+            mean = x32.mean(axes)
+            var = torch.clamp((x32 * x32).mean(axes) - mean * mean, min=0.0)
         with torch.no_grad():
             m = self.momentum
             self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)

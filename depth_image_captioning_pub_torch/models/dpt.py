@@ -446,13 +446,19 @@ class DPTDepthEstimator:
         """fn(images [B,H,W,3], uint8 or [0,1] float) -> standardized depth
         maps [B,224,224,1]: resize to ``image_size``, DPT-normalize, DPT,
         standardize per image, resize to 224."""
-        model, size = self.model, self.image_size
+        return make_depth_fn(self.model, self.image_size)
 
-        @torch.inference_mode()
-        def fn(images: torch.Tensor) -> torch.Tensor:
-            x = resize_bilinear(to_unit_float(images), (size, size))
-            depth = model(dpt_normalize(x))[..., None]
-            return resize_bilinear(standardize_depth_map(depth), (224, 224))
-        fn.model = model        # the eval cache's key hashes its weights
-        fn.image_size = size    # the export records it
-        return fn
+
+def make_depth_fn(model: DPTDepthModel, size: int
+                  ) -> Callable[[torch.Tensor], torch.Tensor]:
+    """``DPTDepthEstimator.depth_fn`` over ``model`` at input side
+    ``size`` (a pipeline's replica of the DPT on another card takes its
+    own)."""
+    @torch.inference_mode()
+    def fn(images: torch.Tensor) -> torch.Tensor:
+        x = resize_bilinear(to_unit_float(images), (size, size))
+        depth = model(dpt_normalize(x))[..., None]
+        return resize_bilinear(standardize_depth_map(depth), (224, 224))
+    fn.model = model        # the eval cache's key hashes its weights
+    fn.image_size = size    # the export records it
+    return fn

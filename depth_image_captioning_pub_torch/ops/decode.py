@@ -32,6 +32,8 @@ from typing import Callable, Dict, Sequence, Tuple
 
 import torch
 
+from depth_image_captioning_pub_torch.parallel.mesh import any_rank, make_mesh
+
 NEG_INF = -1e9   # score of dead beams and of finished beams' other tokens
 
 State = Dict[str, torch.Tensor]
@@ -180,6 +182,17 @@ def select_best(scores: torch.Tensor, history: torch.Tensor, end_id: int,
     return history[rows, best], norm[rows, best]
 
 
+def _all_done(finished: torch.Tensor) -> bool:
+    """Every beam finished; over several ranks (``parallel/mesh``), every
+    rank's: the search of a global batch exits at one step on all ranks,
+    as one rank's search of the whole batch would, so that noise drawn a
+    step stays in step across the ranks."""
+    done = bool(finished.all())
+    if not make_mesh().sharded:
+        return done
+    return not any_rank(not done, finished.device)
+
+
 def beam_search(step_fn: Callable, init_state: State, batch: int,
                 start_id: int, end_id: int, *, beam_size: int = 5,
                 max_length: int = 30, length_penalty: float = 0.0,
@@ -189,7 +202,8 @@ def beam_search(step_fn: Callable, init_state: State, batch: int,
 
     ``init_state`` tensors are already tiled to [B*W, ...]
     (``tile_for_beams``). ``early_exit`` stops once every beam of every
-    image has emitted <end>. It is exact: such a step offers each beam its
+    image has emitted <end> (over several ranks, of every rank's images).
+    It is exact: such a step offers each beam its
     own <end> at an unchanged score, and the top-W order gives back the
     sorted beams with identity parents. Under ``torch.export`` every step
     runs (a graph has no exit that depends on the data).
@@ -205,7 +219,7 @@ def beam_search(step_fn: Callable, init_state: State, batch: int,
     finished = torch.zeros((batch, beam_size), dtype=torch.bool,
                            device=device)
     for t in range(max_length):
-        if early_exit and bool(finished.all()):
+        if early_exit and _all_done(finished):
             break
         state, logprobs = step_fn(state, prev, t)
         lp = restrict_finished(

@@ -42,7 +42,16 @@ captioner and loads one checkpoint set that the JAX trainer wrote (the
 components``); ``reload_weights`` swaps trees in place and
 ``reload_from_experiment`` re-reads the same files. The decoders repack
 their kernel weights on every call, so a swap reaches the next chunk.
-Several devices wait for a later slice (ROADMAP.md).
+
+``devices=["cuda:0", "cuda:1", ...]`` captions over several cards (the
+JAX pipeline's ``devices=``, a device may repeat): one replica of the
+captioner (and of the DPT) per device, the buckets rounded up to
+multiples of the device count, and each chunk split into contiguous rows,
+one part per replica; every part is launched before the host waits on
+any, and the tokens come back in order. The noise of a hard kind or of
+sampling is drawn at the whole chunk's shape from the one generator, in
+the order one device would draw it, and each replica takes its rows, so
+the captions are one device's. ``reload_weights`` reaches every replica.
 
 An image is a path, a uint8 [H, W, 3] array or a float array in [0, 1]
 (or [0, 255]), of any size: paths go through the native batch decoder
@@ -56,6 +65,7 @@ with no ``batch_buckets`` is the one bucket, as in the JAX pipeline.
 
 from __future__ import annotations
 
+import copy
 from typing import Dict, List, Sequence, Union
 
 import numpy as np
@@ -64,15 +74,45 @@ import torch
 from depth_image_captioning_pub_torch.data.tokenizer import (
     SPECIAL, ids_to_caption)
 from depth_image_captioning_pub_torch.engine.evaluate import make_caption_fn
+from depth_image_captioning_pub_torch.ops.decode import gumbel_noise
+from depth_image_captioning_pub_torch.parallel.mesh import (
+    pad_batch_to_devices)
 
 ImageLike = Union[str, np.ndarray]
+
+
+class _SharedNoise:
+    """One chunk's noise over the replicas: the draw of step t at the
+    whole chunk's shape, made once, in the order the replicas ask for it
+    (replica 0's whole loop first, each later one from the step where the
+    earlier ones stopped: one device's order); replica r takes its
+    rows."""
+
+    def __init__(self, generator: torch.Generator, replicas: int):
+        self.generator, self.replicas = generator, replicas
+        self.draws: Dict = {}
+
+    def rows(self, key, shape, r: int, device) -> torch.Tensor:
+        n = shape[0]
+        if key not in self.draws:
+            self.draws[key] = gumbel_noise((n * self.replicas, *shape[1:]),
+                                           self.generator)
+        return self.draws[key][r * n:(r + 1) * n].to(device)
+
+
+def _replica(cap, device):
+    """A copy of the captioner on ``device``."""
+    rep = copy.deepcopy(cap).to(device)
+    rep.device = torch.device(device)
+    return rep
 
 
 class CaptionPipeline:
     """Batched captioning over one captioner (a depth kind with its
     ``depth_fn``): greedy, beam search when ``beam_size > 1``, or
     stochastic sampling when ``sample`` (soft greedy and beam search ignore
-    ``seed``; beam search with ``sample`` raises)."""
+    ``seed``; beam search with ``sample`` raises); over the ``devices``
+    given, one replica each."""
 
     def __init__(self, cap, word_to_id: Dict[str, int],
                  id_to_word: Dict[int, str], *, depth_fn=None,
@@ -80,14 +120,19 @@ class CaptionPipeline:
                  batch_buckets=None, image_hw=(224, 224), beam_size: int = 1,
                  length_penalty: float = 0.0, sample: bool = False,
                  temperature: float = 1.0, top_k: int = 0,
-                 top_p: float = 1.0, seed: int = 0):
+                 top_p: float = 1.0, seed: int = 0, devices=None):
         self.cap = cap
         self.device = cap.device
         self._experiment = None     # (save_dir, files) of from_experiment
         self.max_length = int(max_length)
         self.id_to_word = id_to_word
-        self.batch_buckets = tuple(sorted({int(b) for b in (
-            batch_buckets or (batch_size,))}))
+        self.devices = [torch.device(d) for d in (devices or [cap.device])]
+        if self.devices[0] != cap.device:
+            self.cap = cap = _replica(cap, self.devices[0])
+            self.device = cap.device
+        self.batch_buckets = tuple(sorted({pad_batch_to_devices(
+            int(b), len(self.devices))
+            for b in (batch_buckets or (batch_size,))}))
         if self.batch_buckets[0] < 1:
             raise ValueError(f"bad batch_buckets {batch_buckets}")
         self.batch_size = self.batch_buckets[-1]   # the chunk size
@@ -106,12 +151,28 @@ class CaptionPipeline:
         self.length_penalty = float(length_penalty)
         self.sampling = ({"temperature": temperature, "top_k": top_k,
                           "top_p": top_p} if self.sample else None)
-        self._fn = make_caption_fn(
-            cap, start_id=word_to_id[SPECIAL.start],
-            max_length=self.max_length, depth_fn=depth_fn,
-            end_id=word_to_id.get(SPECIAL.end), beam_size=beam_size,
-            length_penalty=length_penalty, sampling=self.sampling,
-            generator=self.generator)
+        self.replicas = [cap] + [_replica(cap, d) for d in self.devices[1:]]
+        depth_fns = {}          # the frozen DPT: one per device
+        if depth_fn is not None:
+            model = getattr(depth_fn, "model", None)
+            depth_fns[self.device if model is None else
+                      next(model.parameters()).device] = depth_fn
+        self._fns = []
+        for rep in self.replicas:
+            if depth_fn is not None and rep.device not in depth_fns:
+                from depth_image_captioning_pub_torch.models.dpt import (
+                    make_depth_fn)
+                depth_fns[rep.device] = make_depth_fn(
+                    copy.deepcopy(depth_fn.model).to(rep.device),
+                    depth_fn.image_size)
+            self._fns.append(make_caption_fn(
+                rep, start_id=word_to_id[SPECIAL.start],
+                max_length=self.max_length,
+                depth_fn=depth_fns.get(rep.device),
+                end_id=word_to_id.get(SPECIAL.end), beam_size=beam_size,
+                length_penalty=length_penalty, sampling=self.sampling,
+                generator=self.generator))
+        self._fn = self._fns[0]
 
     @classmethod
     def from_experiment(cls, kind: str, use_data: str = "coco", cfg=None,
@@ -163,8 +224,9 @@ class CaptionPipeline:
             trainable = cur_t if trainable is None else trainable
             frozen_enc = cur_f["encoder"] if frozen_enc is None else frozen_enc
             batch_stats = cur_s if batch_stats is None else batch_stats
-        params_from_jax(self.cap, trainable, {"encoder": frozen_enc},
-                        batch_stats)
+        for rep in self.replicas:
+            params_from_jax(rep, trainable, {"encoder": frozen_enc},
+                            batch_stats)
 
     def reload_from_experiment(self) -> None:
         """Re-read the checkpoint files this pipeline was built from (after
@@ -187,6 +249,10 @@ class CaptionPipeline:
                              f"{arrays.dtype} {arrays.shape}")
         pending = []          # (dispatched tokens, valid) one chunk ahead
         rows = [np.zeros((0, self.max_length), np.int32)]
+
+        def drain(parts, valid):
+            rows.append(torch.cat([p.cpu() for p in parts]).numpy()[:valid])
+
         for lo in range(0, arrays.shape[0], self.batch_size):
             chunk = arrays[lo:lo + self.batch_size]
             valid = chunk.shape[0]
@@ -197,13 +263,39 @@ class CaptionPipeline:
             images = torch.from_numpy(np.ascontiguousarray(chunk))
             if self._reseed:
                 self.generator.manual_seed(self.seed)
-            pending.append((self._fn(images.to(self.device)), valid))
+            pending.append((self._dispatch(images), valid))
             if len(pending) > 1:
-                toks, v = pending.pop(0)
-                rows.append(toks.cpu().numpy()[:v])
-        for toks, v in pending:
-            rows.append(toks.cpu().numpy()[:v])
+                drain(*pending.pop(0))
+        for parts, valid in pending:
+            drain(parts, valid)
         return np.concatenate(rows, axis=0)
+
+    def _dispatch(self, images: torch.Tensor) -> List[torch.Tensor]:
+        """Launch one chunk: the whole chunk on the one device, or each
+        replica's contiguous rows on its device (all launched before any
+        is waited on); returns the parts' token tensors in order."""
+        if len(self.devices) == 1:
+            return [self._fn(images.to(self.device))]
+        per = images.shape[0] // len(self.replicas)
+        shared = _SharedNoise(self.generator, len(self.replicas)) \
+            if self.generator is not None else None
+        vocab = self.cap.decoder.vocab_size
+        parts = []
+        for r, (fn, rep) in enumerate(zip(self._fns, self.replicas)):
+            hooks = {}
+            if shared is not None:
+                dev = rep.device
+                if self.cap.spec.attention == "hard":
+                    hooks["att_noise"] = (
+                        lambda t, shape, r=r, dev=dev:
+                        shared.rows(("regions", t), shape, r, dev))
+                if self.sample:
+                    hooks["noise"] = (
+                        lambda t, r=r, dev=dev:
+                        shared.rows(("tokens", t), (per, vocab), r, dev))
+            parts.append(fn(images[r * per:(r + 1) * per].to(rep.device),
+                            **hooks))
+        return parts
 
     def _to_arrays(self, images: Sequence[ImageLike]) -> np.ndarray:
         """Paths and arrays -> [N, H, W, 3] uint8 at ``image_hw`` (the JAX

@@ -35,8 +35,14 @@ Run (on the CUDA card; ``--device cpu`` runs the kernels' plain versions):
 ``depth_image_captioning_pub_torch.export`` wrote to DIR instead of the
 ``exp_result/`` files (its decode settings are baked in; the model flags
 are ignored; ``--device`` and ``--seed`` apply; ``POST /reload`` has no
-files to re-read and answers with an error). ``--devices`` takes 0 or 1
-(one card; several wait for ROADMAP.md Queue A item 8).
+files to re-read and answers with an error).
+
+``--devices N`` (N > 1) serves over the first N visible cards, as the
+JAX server's ``--devices`` takes the first N chips: the pipeline keeps a
+replica on each and splits every device call's chunk over them
+(``CaptionPipeline(devices=...)``; the buckets round up to multiples of
+N). With ``--device cpu`` it takes N replicas on the CPU. 0 and 1 serve
+on ``--device`` alone; an export is served on one device.
 """
 
 from __future__ import annotations
@@ -57,8 +63,19 @@ from depth_image_captioning_pub_torch import cli
 from depth_image_captioning_pub_torch.data.image_io import decode_image_bytes
 from depth_image_captioning_pub_torch.data.tokenizer import ids_to_caption
 
-DEVICES_NOT_PORTED = ("--devices {n}: serving over several cards is not "
-                      "ported yet (ROADMAP.md, Queue A item 8); pass 0 or 1")
+
+
+def serving_devices(device: str, n: int) -> List[str]:
+    """The first ``n`` visible cards for a CUDA ``device`` (ValueError if
+    fewer are visible), or ``n`` times ``device`` otherwise."""
+    import torch
+    if torch.device(device).type != "cuda":
+        return [device] * n
+    count = torch.cuda.device_count()
+    if n > count:
+        raise ValueError(f"--devices {n}: only {count} CUDA devices are "
+                         f"visible")
+    return [f"cuda:{i}" for i in range(n)]
 
 
 class _Job:
@@ -372,7 +389,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu (the kernels' plain versions)")
     p.add_argument("--devices", type=int, default=0,
-                   help="0 or 1: one card (several are not ported yet)")
+                   help="serve on the first N cards (0 or 1: --device "
+                        "alone)")
     cli.add_dpt_flags(p)
     p.add_argument("--export-dir", default=None,
                    help="serve an export.py artifact instead of exp_result/ "
@@ -384,8 +402,12 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     from depth_image_captioning_pub_torch.pipeline import CaptionPipeline
     args = build_parser().parse_args(argv)
+    devices = None
     if args.devices > 1:
-        raise ValueError(DEVICES_NOT_PORTED.format(n=args.devices))
+        if args.export_dir:
+            raise ValueError("--export-dir serves on one device; drop "
+                             "--devices")
+        devices = serving_devices(args.device, args.devices)
     if args.export_dir:
         from depth_image_captioning_pub_torch.export import ExportedPipeline
         pipe = ExportedPipeline.load(args.export_dir, device=args.device,
@@ -401,9 +423,10 @@ def main(argv=None) -> int:
         device=args.device, beam_size=args.beam, batch_size=args.batch_size,
         batch_buckets=buckets, sample=args.sample,
         temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
-        seed=args.seed)
+        seed=args.seed, devices=devices)
     httpd = serve(pipe, args.host, args.port, args.batch_window_ms)
-    print(f"serving {args.kind} on http://{args.host}:{args.port}",
+    print(f"serving {args.kind} on http://{args.host}:{args.port}"
+          + (f" over {len(devices)} devices" if devices else ""),
           flush=True)
     return _run_forever(httpd)
 

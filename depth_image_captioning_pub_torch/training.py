@@ -48,6 +48,19 @@ evaluation runs f32). ``--profile DIR`` records a ``torch.profiler`` trace
 (CPU and CUDA activities, a Chrome trace ``trace_<pid>_0.json`` in DIR)
 of host steps [``--profile-start``, ``--profile-stop``) (default [10,
 15), counted across epochs).
+
+Data parallel: under ``torchrun`` (``WORLD_SIZE`` > 1) each process joins
+the group (``parallel/multihost.initialize``: NCCL on the cards, gloo with
+``--device cpu``), takes ``cuda:LOCAL_RANK``, and trains its rows of every
+batch; rank 0 builds the kernels and the caches first, writes the files
+and prints:
+
+    torchrun --nproc-per-node 8 -m depth_image_captioning_pub_torch.training \\
+        depth soft cnn coco
+    torchrun --nproc-per-node 2 -m depth_image_captioning_pub_torch.training \\
+        base soft coco --device cpu
+
+Without ``torchrun`` nothing changes.
 """
 
 from __future__ import annotations
@@ -62,6 +75,8 @@ import torch
 
 from depth_image_captioning_pub_torch import cli
 from depth_image_captioning_pub_torch.config import ConfigTrain
+from depth_image_captioning_pub_torch.parallel import multihost
+from depth_image_captioning_pub_torch.parallel.mesh import barrier, make_mesh
 
 EXP_TIME = 3
 DATAS = ("coco", "original")
@@ -123,8 +138,8 @@ def _kind(words: List[str]):
 def depth_providers(cfg: ConfigTrain, atten: str, use_data: str, device,
                     cache: bool):
     """(train provider, val provider) of a depth run: the train set's depth
-    cache (built first if it is not complete) and per-batch validation
-    depth, or per-batch depth for both."""
+    cache (built first by rank 0 if it is not complete) and per-batch
+    validation depth, or per-batch depth for both."""
     from depth_image_captioning_pub_torch.data.coco import CocoCaptions
     from depth_image_captioning_pub_torch.engine.depth_cache import (
         DepthMapCache, cached_depth_provider, online_depth_provider)
@@ -137,19 +152,31 @@ def depth_providers(cfg: ConfigTrain, atten: str, use_data: str, device,
     train_ds = CocoCaptions(cfg.train_img_directory, anno)
     dc = DepthMapCache(f"{cfg.save_dir('depth_' + atten, use_ori)}"
                        f"/depth_cache_{use_data}.npy", len(train_ds))
-    if not dc.exists():
+    if make_mesh().rank == 0 and not dc.exists():
         dc.build(train_ds, depth_fn, device)
+    barrier()
     return cached_depth_provider(dc), online
 
 
 def main(argv: Optional[List[str]] = None) -> int:
-    from depth_image_captioning_pub_torch.engine.train import train
     args = build_parser().parse_args(argv)
     parsed = _kind(args.words)
     if parsed is None:
         print(f"input {USAGE}", file=sys.stderr)
         return 1
-    kind, use_data, _ = parsed
+    if multihost.launched_ranks() == 1:
+        return _train_runs(args, *parsed[:2], args.device)
+    device = multihost.local_device(args.device)
+    multihost.initialize(device=device)
+    try:
+        multihost.build_kernels(device)
+        return _train_runs(args, *parsed[:2], device)
+    finally:
+        multihost.shutdown()
+
+
+def _train_runs(args, kind: str, use_data: str, device) -> int:
+    from depth_image_captioning_pub_torch.engine.train import train
     cfg = ConfigTrain()
     cfg.checkpoint_keep = args.checkpoint_keep
     cfg.grad_accum, cfg.decoder_dtype = args.grad_accum, args.decoder_dtype
@@ -168,7 +195,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     provider = val_provider = None
     if kind not in ("nic",) and not kind.startswith("base"):
         provider, val_provider = depth_providers(
-            cfg, args.words[1], use_data, args.device,
+            cfg, args.words[1], use_data, device,
             cache=not args.no_depth_cache)
     layers = cli.resnet_layers_from_env()
     resnet = cli.load_resnet_variables(args.resnet_weights, kind == "nic",
@@ -177,7 +204,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         out = train(kind, ext=ext, use_data=use_data, cfg=cfg,
                     depth_provider=provider, val_depth_provider=val_provider,
                     num_epochs=args.epochs, resnet_variables=resnet,
-                    resnet_layers=layers, device=args.device,
+                    resnet_layers=layers, device=device,
                     checkpoint_every=args.checkpoint_every,
                     resume=args.resume, feature_cache=args.feature_cache)
         if out.get("preempted"):    # stop cleanly; --resume continues

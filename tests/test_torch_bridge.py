@@ -36,6 +36,7 @@ from depth_image_captioning_pub_torch.utils.jax_bridge import flatten_tree
 from test_bridge_numeric import TorchTinyResNet, _randomize_bn_stats
 from test_dpt import _make_tiny_sd
 from test_token_parity import TorchNICDecoder, TorchSoftDecoder
+from torch_threads import one_thread  # noqa: F401 (autouse fixture)
 
 TINY = (1, 1, 1, 1)
 DPT_TINY = dict(resnet_layers=(1, 1, 1), vit_blocks=3)

@@ -24,6 +24,7 @@ from depth_image_captioning_pub_tpu import caption as jcaption
 from depth_image_captioning_pub_tpu.models import captioner as jcaptioner
 from depth_image_captioning_pub_torch import caption as caption_cli
 from depth_image_captioning_pub_torch.models import captioner as tcaptioner
+from torch_threads import one_thread  # noqa: F401 (autouse fixture)
 
 
 def test_expand_paths(tmp_path):

@@ -35,6 +35,7 @@ from depth_image_captioning_pub_torch.utils.checkpoint import (
     load_component, save_component)
 from depth_image_captioning_pub_torch.utils.jax_bridge import (
     params_from_jax, params_to_jax)
+from torch_threads import one_thread  # noqa: F401 (autouse fixture)
 
 KINDS = ("nic", "base-soft", "depth-soft")
 LAYERS = (1, 1, 1, 1)

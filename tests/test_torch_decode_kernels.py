@@ -19,6 +19,7 @@ from depth_image_captioning_pub_tpu.ops.pallas import decode_step as jstep
 from depth_image_captioning_pub_torch.models.decoder import AttentionDecoder
 from depth_image_captioning_pub_torch.ops.kernels import (
     decode_seq, decode_step)
+from torch_threads import one_thread  # noqa: F401 (autouse fixture)
 
 B, K, D, A, H, E = 16, 196, 64, 32, 32, 24   # tests/test_pallas_decode.py
 

@@ -46,6 +46,7 @@ from depth_image_captioning_pub_torch.ops.kernels import (
 from depth_image_captioning_pub_torch.pipeline import CaptionPipeline
 from depth_image_captioning_pub_torch.utils.jax_bridge import (
     dpt_params_from_jax, flax_state_dict, params_from_jax, save_npz)
+from torch_threads import one_thread  # noqa: F401 (autouse fixture)
 
 LAYERS = (1, 1, 1, 1)
 HW = 64

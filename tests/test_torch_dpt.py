@@ -29,6 +29,7 @@ from depth_image_captioning_pub_torch.ops import image_ops as timg
 from depth_image_captioning_pub_torch.ops.kernels import vit_attention
 from depth_image_captioning_pub_torch.utils.jax_bridge import (
     dpt_params_from_jax, flax_state_dict)
+from torch_threads import one_thread  # noqa: F401 (autouse fixture)
 
 ATOL = 1e-5
 TINY = dict(vit_blocks=3, hooks=(1, 2), resnet_layers=(1, 1, 1), vit_dim=64,

@@ -30,6 +30,7 @@ from depth_image_captioning_pub_torch.config import ConfigEval
 from depth_image_captioning_pub_torch.models import dpt as tdpt
 from depth_image_captioning_pub_torch.utils.jax_bridge import (
     dpt_params_from_jax)
+from torch_threads import one_thread  # noqa: F401 (autouse fixture)
 
 TINY = tdpt.TINY_DPT
 ATOL = 1e-4          # the tiny DPT twin's (tests/test_torch_dpt.py)

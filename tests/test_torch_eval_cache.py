@@ -48,6 +48,7 @@ from test_torch_evaluate import (
     LAYERS, _cfgs, _scale_kernels, _Recorder, coco_dir, dataset,
     experiments, tiny_dpt)
 from test_torch_mdepth import _trees
+from torch_threads import one_thread  # noqa: F401 (autouse fixture)
 
 __all__ = ["coco_dir", "dataset", "experiments", "tiny_dpt"]
 SETS = (1, 2, 1)

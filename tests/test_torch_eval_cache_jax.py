@@ -19,6 +19,7 @@ from test_torch_evaluate import (
     HW, _cfgs, _jax_cap, _Recorder, coco_dir, dataset, experiments,
     tiny_dpt)
 from test_torch_mdepth import jax_eval_noise
+from torch_threads import one_thread  # noqa: F401 (autouse fixture)
 
 __all__ = ["coco_dir", "dataset", "experiments", "hard_sets", "tiny_dpt"]
 

@@ -67,6 +67,7 @@ from depth_image_captioning_pub_torch.utils.checkpoint import (
     load_component, save_component)
 from depth_image_captioning_pub_torch.utils.jax_bridge import (
     dpt_params_from_jax)
+from torch_threads import one_thread  # noqa: F401 (autouse fixture)
 
 LAYERS = (1, 1, 1, 1)
 HW = 64
@@ -80,6 +81,7 @@ WORDS = ("a the dog cat man red blue small ball tree park street sitting "
 
 
 # ---- metrics ---------------------------------------------------------------
+
 
 def _corpus(seed, n=40):
     rng = random.Random(seed)

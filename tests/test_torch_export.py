@@ -49,6 +49,7 @@ from depth_image_captioning_pub_torch.pipeline import CaptionPipeline
 from depth_image_captioning_pub_torch.serve import serve
 from depth_image_captioning_pub_torch.utils.checkpoint import save_component
 from depth_image_captioning_pub_torch.utils.jax_bridge import params_to_jax
+from torch_threads import one_thread  # noqa: F401 (autouse fixture)
 
 LAYERS = (1, 1, 1, 1)
 HW = 64

@@ -25,6 +25,7 @@ from depth_image_captioning_pub_torch.pipeline import CaptionPipeline
 from depth_image_captioning_pub_torch.utils.jax_bridge import params_from_jax
 
 from test_torch_evaluate import _np_tree, _scale_kernels
+from torch_threads import one_thread  # noqa: F401 (autouse fixture)
 
 LAYERS, HW, MAX_LEN = (1, 1, 1, 1), 64, 8
 

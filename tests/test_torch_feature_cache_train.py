@@ -27,19 +27,9 @@ from depth_image_captioning_pub_torch.models.captioner import build_captioner
 
 from test_torch_train_loop import (
     EPOCHS, LAYERS, STEPS_PER_EPOCH, StepSpy, check_run, coco, configs)
+from torch_threads import one_thread  # noqa: F401 (autouse fixture)
 
 __all__ = ["coco"]      # the module-scoped dataset fixture
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """One intra-op thread, as ``tests/test_torch_resume.py`` pins it: the
-    tests hold runs to other runs, and a reduction split over threads may
-    sum in another order."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.mark.parametrize("kind", ["base-soft"])

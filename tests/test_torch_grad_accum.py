@@ -16,7 +16,8 @@ accumulated step == the one-shot step.
   microbatch index first. Bounds: ``tests/test_torch_train_steps.py``'s
   (loss 1e-5, parameters rtol 1e-3 / atol 2e-5 with 2 * lr of room for a
   small gradient, BN statistics 1e-5).
-* B % k != 0 raises ValueError; ``accum_pad_to`` rounds up.
+* B % k != 0 raises ValueError; the trainer's padding
+  (``parallel/mesh.pad_batch_to_devices``) rounds up to a multiple of k.
 
 B=6 (one pad row), L=8, 64x64 images, ResNet blocks 1,1,1,1, f32
 encoders, V=24.
@@ -33,10 +34,12 @@ from depth_image_captioning_pub_tpu.engine import steps as jsteps
 from depth_image_captioning_pub_torch.config import ConfigTrain
 from depth_image_captioning_pub_torch.engine import steps as tsteps
 from depth_image_captioning_pub_torch.models.captioner import build_captioner
+from depth_image_captioning_pub_torch.parallel.mesh import pad_batch_to_devices
 
 import test_torch_train_steps as base
 from test_torch_train_steps import (
     Twin, assert_metrics_close, assert_params_close, count_noise, jax_hooks)
+from torch_threads import one_thread  # noqa: F401 (autouse fixture)
 
 B, K_ACCUM = 6, 2
 SUM_TOL = 1e-6
@@ -152,5 +155,6 @@ def test_indivisible_batch_raises():
         tsteps.attention_train_step(cap, opt, batch, accum_steps=2)
     with pytest.raises(ValueError, match="accum_steps must be >= 1"):
         tsteps.check_accum_steps(0)
-    assert [tsteps.accum_pad_to(30, k) for k in (1, 2, 3, 4, 7)] == \
+    # the trainer's padding: a multiple of ranks * k (one rank here)
+    assert [pad_batch_to_devices(30, k) for k in (1, 2, 3, 4, 7)] == \
         [30, 30, 30, 32, 35]

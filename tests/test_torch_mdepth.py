@@ -61,6 +61,7 @@ from depth_image_captioning_pub_torch.ops.kernels import (
 from depth_image_captioning_pub_torch.utils.checkpoint import save_component
 from depth_image_captioning_pub_torch.utils.jax_bridge import (
     dpt_params_from_jax, flax_state_dict, params_from_jax, params_to_jax)
+from torch_threads import one_thread  # noqa: F401 (autouse fixture)
 
 LAYERS = (1, 1, 1, 1)
 HW = 64
@@ -223,12 +224,24 @@ def _jax_cap(kind, n_words):
                                       resnet_layers=LAYERS)
 
 
+_TREES = {}
+
+
 def _trees(kind, w2i, seed):
     """A checkpoint set of ``kind`` as the JAX trainer would hold it:
     (frozen encoder, trainable, stats), scaled so that the features are
     image-dependent, the depth features count beside the RGB ones and the
-    attention scores are of order 1 (hard attention's noise matters)."""
-    jcap = _jax_cap(kind, len(w2i))
+    attention scores are of order 1 (hard attention's noise matters).
+    One JAX init per kind, vocabulary size and seed, shared by the cases,
+    which only read it."""
+    key = (kind, len(w2i), seed)
+    if key not in _TREES:
+        _TREES[key] = _init_trees(kind, len(w2i), seed)
+    return _TREES[key]
+
+
+def _init_trees(kind, n_words, seed):
+    jcap = _jax_cap(kind, n_words)
     params, frozen, stats = jcap.init(jax.random.PRNGKey(seed),
                                       image_hw=(HW, HW))
     trainable = _np_tree(params)

@@ -45,6 +45,7 @@ from depth_image_captioning_pub_torch.utils.jax_bridge import (
     flatten_tree, params_from_jax, params_to_jax)
 
 import test_torch_train_steps as base
+from torch_threads import one_thread  # noqa: F401 (autouse fixture)
 
 EPS = float(torch.finfo(torch.bfloat16).eps)        # 2^-7
 U = EPS / 2                                         # 2^-8

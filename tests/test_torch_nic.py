@@ -42,6 +42,7 @@ from depth_image_captioning_pub_torch.ops.kernels import decode_seq, nic_seq
 from depth_image_captioning_pub_torch.pipeline import CaptionPipeline
 from depth_image_captioning_pub_torch.utils.jax_bridge import (
     params_from_jax, save_npz)
+from torch_threads import one_thread  # noqa: F401 (autouse fixture)
 
 B, E, H, V, T = 10, 24, 16, 40, 9
 END = 7

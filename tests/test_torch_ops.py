@@ -15,6 +15,7 @@ from depth_image_captioning_pub_torch.ops import attention as tatt
 from depth_image_captioning_pub_torch.ops import image_ops as timg
 from depth_image_captioning_pub_torch.ops import lstm as tlstm
 from depth_image_captioning_pub_torch.ops import pooling as tpool
+from torch_threads import one_thread  # noqa: F401 (autouse fixture)
 
 ATOL = 1e-5
 B, K, D, A, H, E = 3, 49, 40, 16, 12, 10

@@ -292,3 +292,18 @@ def test_training_modules_are_guarded(tmp_path, monkeypatch):
     with pytest.raises((RuntimeError, AssertionError)):
         train.train("nic", 0, datasets=([], []), word_to_id={"a": 0},
                     num_epochs=0, resnet_layers=(1, 1, 1, 1))
+
+
+def test_parallel_modules_are_guarded():
+    """The data-parallel modules are among the sources the import guard
+    walks; joining a group defaults to the card (NCCL) and looks for no
+    card to fall back from."""
+    from depth_image_captioning_pub_torch.parallel import mesh, multihost
+    names = {p.relative_to(REPO).as_posix() for p in _port_sources()}
+    pkg = "depth_image_captioning_pub_torch"
+    assert {f"{pkg}/parallel/__init__.py", f"{pkg}/parallel/mesh.py",
+            f"{pkg}/parallel/multihost.py"} <= names
+    assert inspect.signature(multihost.initialize).parameters[
+        "device"].default == "cuda"
+    for module in (mesh, multihost):
+        assert "is_available" not in inspect.getsource(module)

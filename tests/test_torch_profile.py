@@ -25,6 +25,7 @@ from depth_image_captioning_pub_tpu.data.vocab import (
 from depth_image_captioning_pub_torch.config import ConfigTrain
 from depth_image_captioning_pub_torch.engine import train as ttrain
 from depth_image_captioning_pub_torch.utils import logging as tlogging
+from torch_threads import one_thread  # noqa: F401 (autouse fixture)
 
 LAYERS, HW = (1, 1, 1, 1), 64
 

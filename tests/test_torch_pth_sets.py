@@ -49,6 +49,7 @@ from test_dpt import _make_tiny_sd
 from test_torch_evaluate import (  # noqa: F401 (fixtures)
     BATCH, HW, LAYERS, _cfgs, _jax_cap, _np_tree, _random_stats,
     _Recorder, _scale_kernels, _tables, coco_dir, dataset, tiny_dpt)
+from torch_threads import one_thread  # noqa: F401 (autouse fixture)
 
 ATOL = 1e-4       # the tiny DPT twin's (tests/test_torch_dpt.py)
 DPT_TINY = dict(resnet_layers=(1, 1, 1), vit_blocks=3)

@@ -18,6 +18,7 @@ from depth_image_captioning_pub_torch.models.resnet import (
     AttentionGridEncoder, Bottleneck)
 from depth_image_captioning_pub_torch.utils.jax_bridge import (
     encoder_state_dict)
+from torch_threads import one_thread  # noqa: F401 (autouse fixture)
 
 LAYERS = (1, 1, 1, 1)
 

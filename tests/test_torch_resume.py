@@ -40,6 +40,7 @@ from depth_image_captioning_pub_torch.engine import train as ttrain
 from depth_image_captioning_pub_torch.models.captioner import build_captioner
 from depth_image_captioning_pub_torch.utils.checkpoint import (
     TrainCheckpointer, host_copy)
+from torch_threads import one_thread  # noqa: F401 (autouse fixture)
 
 LAYERS, HW, TRAIN, VAL, BATCH = (1, 1, 1, 1), 64, 20, 6, 4
 STEPS = TRAIN // BATCH
@@ -60,14 +61,6 @@ class Rows:
 
     def captions(self, i):
         return self.data.captions(self.rows[i])
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

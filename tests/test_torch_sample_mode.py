@@ -47,6 +47,7 @@ from depth_image_captioning_pub_torch.utils.jax_bridge import params_to_jax
 
 from test_torch_evaluate import (  # noqa: F401 (module-scoped fixtures)
     _scale_kernels, coco_dir, experiments, f32_builders, tiny_dpt)
+from torch_threads import one_thread  # noqa: F401 (autouse fixture)
 
 ALPHA_ATOL = 2e-5
 PIC = "dog"

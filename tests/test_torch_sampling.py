@@ -41,6 +41,7 @@ from depth_image_captioning_pub_torch.ops.kernels import (
     decode_seq, decode_step)
 from depth_image_captioning_pub_torch.pipeline import CaptionPipeline
 from depth_image_captioning_pub_torch.utils.jax_bridge import params_from_jax
+from torch_threads import one_thread  # noqa: F401 (autouse fixture)
 
 VOCAB, K, D, DIM = 37, 12, 16, 8
 START = 1

@@ -11,7 +11,8 @@ on the CPU: each test of ``tests/test_serve.py`` on the port, and
   rewritten files' weights exactly (a fresh pipeline's captions);
 * ``--sample``: two servers with one seed answer the same captions to the
   same sequential requests;
-* ``--devices`` above 1 raises; ``--export-dir`` serves an artifact.
+* ``--devices`` above 1 takes that many cards (raising when fewer are
+  visible); ``--export-dir`` serves an artifact.
 
 Every server binds port 0 and is stopped in its fixture's teardown or a
 ``finally``; every request carries its own timeout.
@@ -50,6 +51,7 @@ from depth_image_captioning_pub_torch.serve import (
 from depth_image_captioning_pub_torch.utils.checkpoint import save_component
 from depth_image_captioning_pub_torch.utils.jax_bridge import (
     params_from_jax, params_to_jax)
+from torch_threads import one_thread  # noqa: F401 (autouse fixture)
 
 TIMEOUT = 60
 LAYERS = (1, 1, 1, 1)
@@ -202,8 +204,23 @@ def test_main_threads_sampling_flags(monkeypatch):
 
 
 def test_main_devices_above_one_raises(monkeypatch):
-    with pytest.raises(ValueError, match="Queue A item 8"):
+    """``--devices N`` above 1 takes the first N cards and raises when
+    fewer are visible, or with ``--export-dir``; on the CPU it takes N
+    replicas there."""
+    import torch
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="only 1 CUDA devices"):
         _fake_main(monkeypatch, ["--devices", "2"])
+    with pytest.raises(ValueError, match="one device"):
+        _fake_main(monkeypatch, ["--devices", "2", "--export-dir", "x"])
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    seen, rc = _fake_main(monkeypatch, ["--devices", "3"])
+    assert rc == 0 and seen["devices"] == ["cuda:0", "cuda:1", "cuda:2"]
+    seen, rc = _fake_main(monkeypatch, ["--devices", "2", "--device",
+                                        "cpu"])
+    assert rc == 0 and seen["devices"] == ["cpu", "cpu"]
+    seen, rc = _fake_main(monkeypatch, ["--devices", "1"])
+    assert rc == 0 and seen["devices"] is None
 
 
 def test_main_export_dir(monkeypatch, capsys):

@@ -47,6 +47,7 @@ from depth_image_captioning_pub_torch.utils.torch_bridge import (
     encoder_to_flax)
 
 from test_bridge_numeric import TorchTinyResNet, _randomize_bn_stats
+from torch_threads import one_thread  # noqa: F401 (autouse fixture)
 
 
 @pytest.mark.parametrize("words", [[], ["base"], ["base", "soft"],

@@ -30,6 +30,7 @@ from depth_image_captioning_pub_torch.data import synthetic as tsynthetic
 from depth_image_captioning_pub_torch.data import tokenizer as ttokenizer
 from depth_image_captioning_pub_torch.engine import depth_cache as tcache
 from depth_image_captioning_pub_torch.utils import logging as tlogging
+from torch_threads import one_thread  # noqa: F401 (autouse fixture)
 
 
 @pytest.fixture(scope="module")

@@ -24,6 +24,7 @@ within 2e-2 of their largest value.
 import pytest
 
 from test_torch_train_steps import check_one_step, check_trajectory, twin
+from torch_threads import one_thread  # noqa: F401 (autouse fixture)
 
 
 @pytest.mark.parametrize("kind", ["depth-soft", "depth-hard",

@@ -49,21 +49,11 @@ from depth_image_captioning_pub_torch.utils.jax_bridge import (
     flatten_tree, params_to_jax)
 
 from test_torch_train_steps import SMALL_GRAD
+from torch_threads import one_thread  # noqa: F401 (autouse fixture)
 
 LAYERS, HW, LR = (1, 1, 1, 1), 64, 1e-3
 EPOCHS, STEPS_PER_EPOCH = 2, 2
 LOSS_TOL, PARAM_RTOL, PARAM_ATOL = 1e-5, 1e-3, 2e-5
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """One intra-op thread, as ``tests/test_torch_resume.py`` pins it: the
-    tests hold runs to other runs, and a reduction split over threads may
-    sum in another order."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -17,22 +17,10 @@ set.
 """
 
 import numpy as np
-import pytest
-import torch
 
 from test_torch_train_loop import (
     HW, check_loaders, check_run, coco, run_both)  # noqa: F401 (fixture)
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """One intra-op thread, as ``tests/test_torch_resume.py`` pins it: the
-    tests hold runs to other runs, and a reduction split over threads may
-    sum in another order."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+from torch_threads import one_thread  # noqa: F401 (autouse fixture)
 
 
 def depth_provider(images, indices):

@@ -38,6 +38,7 @@ from depth_image_captioning_pub_torch.models.nic import NICDecoder
 from depth_image_captioning_pub_torch.ops import attention as tatt
 from depth_image_captioning_pub_torch.utils.jax_bridge import (
     flax_state_dict, flax_trees)
+from torch_threads import one_thread  # noqa: F401 (autouse fixture)
 
 V, L, B, K = 24, 8, 5, 6
 D_ENC, D_ATT, D_EMB, D_HID, D_DEP = 40, 16, 12, 16, 8

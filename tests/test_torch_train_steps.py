@@ -46,6 +46,7 @@ from depth_image_captioning_pub_torch.engine import steps as tsteps
 from depth_image_captioning_pub_torch.models.captioner import build_captioner
 from depth_image_captioning_pub_torch.utils.jax_bridge import (
     flatten_tree, params_from_jax, params_to_jax)
+from torch_threads import one_thread  # noqa: F401 (autouse fixture)
 
 LAYERS, HW, V, L, B = (1, 1, 1, 1), 64, 24, 8, 5
 LR, TEMP, STEPS = 1e-3, 0.7, 4

@@ -29,6 +29,7 @@ from depth_image_captioning_pub_torch.ops.attention import project_features
 from depth_image_captioning_pub_torch.ops.kernels import (
     beam_seq, decode_seq, decode_step)
 from depth_image_captioning_pub_torch.pipeline import CaptionPipeline
+from torch_threads import one_thread  # noqa: F401 (autouse fixture)
 
 K, V, L = 12, 41, 9
 START, END = 1, 2
