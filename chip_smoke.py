@@ -12,8 +12,9 @@ reference-layout weight files (torchvision, Omnidata, the reference's own
 frozen-stage caches and the rest of training: the train-time feature
 cache, gradient accumulation, the bf16 decoder, the profiler window and
 the eval set cache with its disk store, sample mode with its attention
-overlays and the AOT export, and data parallelism (training and scoring
-over two ranks, a pipeline over two replicas).
+overlays and the AOT export, data parallelism (training and scoring
+over two ranks, a pipeline over two replicas), and tensor, sequence and
+pipeline parallelism (four ranks sharing the card).
 
 Run from the root of a checkout, on a machine with one CUDA card (written
 for an NVIDIA H100):
@@ -61,8 +62,10 @@ the script exits non-zero:
    N=584 with n_valid=577: max and mean abs error <= one bf16 ulp of max|v|
    (p and the output are rounded to bf16, and the f32 sums run in another
    order); the same check and times at the 1- and 16-image requests' Z=12
-   and Z=192, and at d=32 and d=128 (Z=96); ptxas' register and spill lines
-   of the kernel's bf16 instances;
+   and Z=192, at d=32 and d=128 (Z=96) and at tensor parallelism's Z=24 (4
+   images x 6 heads), and in f32 at phases 39-40's shapes (Z=24 at N=577,
+   Z=12 at N=578 with n_valid=577; max abs err <= 1e-5); ptxas' register
+   and spill lines of the kernel's bf16 instances;
 7. depth-soft path: ``CaptionPipeline`` over a seeded random-weight
    depth-soft captioner at full width (ResNet-152 bf16 at 224x224, the
    DPT-hybrid bf16 at 384x384, ``DepthCNNEncoder`` bf16, V=9956, buckets
@@ -349,7 +352,39 @@ the script exits non-zero:
    replica's half of the rows, and >= 0.99 of them equal to one device's
    over the whole request.
 
-Each path (phases 5, 7, 9, 11-36: ``PATHS``) runs with every launch counter
+Phases 37-40 run in four gloo ranks on this card (child processes of this
+script, ``--mp-rank``), on a (data 2, model 2) mesh (``parallel/tp``) and
+a mesh of 4 stages (``parallel/pp``), each path with the counters set to 0
+just before it and read just after in every rank, K5 a DPT block (no
+decode kernel: a split decoder refuses them), and each held to one
+process on the same inputs:
+
+37. train-tp: depth-soft at full width (phase 7's DPT, bf16, its ViT
+   blocks split by heads and MLP; the captioner's decoder split over V,
+   the LSTM gates and the embedding), 5 AdamW steps on one batch of 8
+   (4 rows a data row), the depth maps made by the split DPT: the loss
+   falls, every rank's losses are equal, and every step's is within
+   ``MP_LOSS_RTOL`` of one process's on the same batch, depth maps and
+   dropout draws; the same run under a planted fault (``MpFault``:
+   copy-to-region's backward without its all-reduce) must part from one
+   process by more.
+38. tp-greedy: ``make_caption_fn`` over a split depth-soft captioner and
+   DPT on 32 images (f32 decoder, V=9956): tokens >= 0.99 equal to one
+   process's step loop (``AttentionDecoder.loop_greedy``) on the ranks'
+   own features and depth maps, and their agreement with K2 there.
+39. sp-dpt: the DPT with its 577 tokens split over the model axis (padded
+   to 578) and its blocks split, f32 and bf16, 4 images: the f32 maps
+   within ``MP_SP_F32_ATOL`` of the unsplit DPT's; bf16's gap printed as a
+   share of the map's max.
+40. pp-vit: the f32 DPT's 12 ViT blocks as 4 stages of 3, B=8, M=4:
+   taps 8 and 11 within ``MP_PP_RTOL`` of their max of the sequential
+   fold; every rank returns the same taps.
+
+The ranks' waits are bounded (``wait_ranks``: one deadline for a group,
+the others killed as soon as one rank fails; each rank's collectives give
+up after ``RANK_TIMEOUT_S`` without their peers).
+
+Each path (phases 5, 7, 9, 11-40: ``PATHS``) runs with every launch counter
 set to 0 just before it and read just after. The line before the last is a JSON
 object with the five ported kernels (K1 step, K2 greedy, K3 NIC greedy, K4
 beam, K5 ViT attention): launches per path, error, time beside the plain
@@ -363,6 +398,7 @@ also carries ``ms_by_shape``. The last line is
 ``{"ok": true, "device": {...}}``.
 """
 
+import datetime
 import json
 import subprocess
 import sys
@@ -384,8 +420,13 @@ SEQ_TPU = "depth_image_captioning_pub_tpu/ops/pallas/decode_seq.py:287"
 VIT_SRC = "depth_image_captioning_pub_torch/csrc/vit_attention.cu"
 VIT_TPU = "depth_image_captioning_pub_tpu/ops/pallas/vit_attention.py:77"
 VIT_Z, VIT_N, VIT_D = 64 * 12, 577, 64
-# K5 also at the 1- and 16-image requests' Z and at the other head dims
-VIT_MORE = ((12, 64), (192, 64), (96, 32), (96, 128))     # Z, d at N=577
+# K5 also at the 1- and 16-image requests' Z, at the other head dims and
+# at tensor parallelism's 4 images x 6 of the 12 heads (phases 37-38)
+VIT_MORE = ((12, 64), (192, 64), (96, 32), (96, 128), (24, 64))  # Z, d
+# f32 K5 as phases 39-40 launch it: pp-vit's microbatch of 2 images x 12
+# heads at N=577, sp-dpt's 2 images x 6 heads over the 578 gathered tokens
+VIT_F32 = ((24, VIT_N), (12, VIT_N + 1))       # Z, N at n_valid=577, d=64
+VIT_F32_ATOL = 1e-5
 NIC_SRC = "depth_image_captioning_pub_torch/csrc/nic_seq.cu"
 NIC_TPU = "depth_image_captioning_pub_tpu/ops/pallas/nic_seq.py:178"
 BEAM_SRC = "depth_image_captioning_pub_torch/csrc/beam_seq.cu"
@@ -412,8 +453,9 @@ PATHS = ("base-soft", "depth-soft", "nic", "base-soft-beam5",
          "train-nic", "train-base-hard", "train-mdepth-soft",
          "reference-weights", "train-resume", "train-feature-cache",
          "train-accum", "train-bf16", "train-profile", "score-cached",
-         "sample", "export", "train-ddp", "score-ddp", "serve-devices")
-DDP_PATHS = PATHS[-3:]
+         "sample", "export", "train-ddp", "score-ddp", "serve-devices",
+         "train-tp", "tp-greedy", "sp-dpt", "pp-vit")
+DDP_PATHS = PATHS[-7:-4]
 TOP_P = 0.9          # the sampling path's nucleus
 SCORE_IMAGES, SCORE_SETS, SCORE_BATCH = 256, 3, 64
 SEED = 0             # the serving phases' request images
@@ -961,9 +1003,10 @@ def ptxas_report(kernel, typed=False):
     return {args: "; ".join(lines) for args, lines in report.items()}
 
 
-def attention_case(q, k, v, n_valid, iters=10):
+def attention_case(q, k, v, n_valid, iters=10, tol=None):
     """K5 vs its plain version on q/k/v: (max abs err, mean abs err, tol,
-    kernel ms, plain ms); raises on non-finite output or err > tol."""
+    kernel ms, plain ms); raises on non-finite output or err > tol (by
+    default one bf16 ulp of max|v|)."""
     import torch
     from depth_image_captioning_pub_torch.ops.kernels import vit_attention
     scale = q.shape[-1] ** -0.5
@@ -977,7 +1020,7 @@ def attention_case(q, k, v, n_valid, iters=10):
     if not bool(torch.isfinite(got).all()):
         raise RuntimeError("vit_attention kernel produced non-finite values")
     diff = (got.float() - want.float()).abs()
-    tol = bf16_ulp(v)
+    tol = bf16_ulp(v) if tol is None else tol
     err, mean = diff.max().item(), diff.mean().item()
     if err > tol:
         raise RuntimeError(f"vit_attention {tuple(q.shape)} n_valid="
@@ -1024,6 +1067,15 @@ def phase_vit(smi):
         log("vit_attention", f"Z={z} N={VIT_N} d={d} bf16: max abs err "
             f"{err:.3e}, mean {mean:.3e} (tol {tol:.3e}); kernel {k_ms:.4f} "
             f"ms, plain {p_ms:.3f} ms [{smi}]")
+    for z, n in VIT_F32:
+        args = [t.float() for t in qkv(z, n, VIT_D)]
+        err, mean, tol, k_ms, p_ms = attention_case(*args, VIT_N,
+                                                    tol=VIT_F32_ATOL)
+        by_shape[f"Z={z} N={n} n_valid={VIT_N} d={VIT_D} f32"] = {
+            "ms": k_ms, "plain_ms": p_ms, "max_abs_err": err}
+        log("vit_attention", f"Z={z} N={n} n_valid={VIT_N} d={VIT_D} f32: "
+            f"max abs err {err:.3e}, mean {mean:.3e} (tol {tol:.0e}); "
+            f"kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms [{smi}]")
 
     # yardstick: one PyTorch call for the same function, keys < n_valid
     n, n_valid = VIT_N + 7, VIT_N
@@ -5369,6 +5421,7 @@ DDP_BF16_GRAD1 = 0.25    # |g2 - g1| / |g1| over the step-1 gradients
 DDP_FAULTS = ("grads", "bn")
 DDP_REQUESTS = (16, 64, 7)                   # serve-devices' request sizes
 DDP_TIMEOUT = 600        # seconds for the two gloo ranks
+RANK_TIMEOUT_S = 120     # a gloo rank's collective waits this for a peer
 
 
 def ddp_train(root, est, caches=None):
@@ -5547,7 +5600,8 @@ def ddp_child(rank, world, store, root, out):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
     multihost.initialize(f"file://{store}", world, rank, backend="gloo",
-                         device="cuda:0")
+                         device="cuda:0",
+                         timeout=datetime.timedelta(seconds=RANK_TIMEOUT_S))
     try:
         _build.load()
         est = ddp_dpt()
@@ -5574,38 +5628,76 @@ def ddp_child(rank, world, store, root, out):
             result[name + "_launches"] = read_counts()
             result[name + "_plain"] = sorted(set(plain.calls))
         torch.save(result, out)
-    finally:
-        multihost.shutdown()
+    except BaseException:
+        rank_failed()
+    multihost.shutdown()
 
 
-def ddp_ranks(world, store, root):
-    """Start ``world`` gloo ranks of this script on ``cuda:0``."""
+def rank_failed():
+    """End a failed rank at once, its traceback in its log first: its
+    peers then fail in their next collective, and no teardown waits on
+    them."""
+    import os
+    import traceback
+    traceback.print_exc()
+    sys.stderr.flush()
+    os._exit(1)
+
+
+def start_ranks(flag, world, store, root):
+    """Start ``world`` gloo ranks of this script on ``cuda:0`` (``flag``:
+    ``--ddp-rank`` or ``--mp-rank``); rank r writes its output to
+    ``root/<flag>r.log`` and its result to ``root/<flag>r.pt``. Returns
+    (processes, name of the files)."""
     import os
     env = dict(os.environ, OMP_NUM_THREADS="4")
     env.pop("WORLD_SIZE", None)
-    return [subprocess.Popen(
-        [sys.executable, __file__, "--ddp-rank", str(rank), str(world),
-         store, root, f"{root}/rank{rank}.pt"], env=env,
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for rank in range(world)]
+    name = f"{root}/{flag.strip('-')}"
+    procs = []
+    for rank in range(world):
+        with open(f"{name}{rank}.log", "w") as out:
+            procs.append(subprocess.Popen(
+                [sys.executable, __file__, flag, str(rank), str(world),
+                 store, root, f"{name}{rank}.pt"], env=env, stdout=out,
+                stderr=subprocess.STDOUT))
+    return procs, name
 
 
-def ddp_wait(procs, root):
+def wait_ranks(group, timeout):
+    """Every rank's result, in rank order. One deadline for the group:
+    each rank is polled, and as soon as one exits non-zero the others are
+    killed and a RuntimeError gives the output of every rank that did not
+    finish (a rank whose peer failed may exit before that peer does); at
+    the deadline every rank is killed. (A rank's collectives give up after
+    ``RANK_TIMEOUT_S`` when a peer is gone.)"""
     import torch
-    logs = []
+    procs, name = group
+    deadline = time.monotonic() + timeout
+    late = False
     try:
-        for proc in procs:
-            logs.append(proc.communicate(timeout=DDP_TIMEOUT)[0])
+        while True:
+            codes = [proc.poll() for proc in procs]
+            if any(codes) or all(code == 0 for code in codes):
+                break
+            late = time.monotonic() > deadline
+            if late:
+                break
+            time.sleep(0.1)
     finally:
         for proc in procs:
             if proc.poll() is None:
                 proc.kill()
-                proc.wait()
-    for rank, (proc, text) in enumerate(zip(procs, logs)):
-        if proc.returncode != 0:
-            raise RuntimeError(f"gloo rank {rank} exited "
-                               f"{proc.returncode}:\n{text[-4000:]}")
-    return [torch.load(f"{root}/rank{r}.pt", weights_only=False)
+            proc.wait()
+    failed = [r for r, code in enumerate(codes) if code]
+    failed += [r for r, code in enumerate(codes) if code is None]
+    if failed:
+        raise RuntimeError("\n".join(
+            f"gloo rank {r} "
+            + (f"exited {codes[r]}" if codes[r] else
+               f"still running after {timeout} s" if late else "stopped")
+            + ":\n" + open(f"{name}{r}.log").read()[-4000:]
+            for r in failed))
+    return [torch.load(f"{name}{r}.pt", weights_only=False)
             for r in range(len(procs))]
 
 
@@ -5777,7 +5869,9 @@ def phase_data_parallel(smi, base_cap):
                 f"{tag}: NCCL at world size 1 is not bit-equal to the plain "
                 f"trainer: losses {nccl_run['losses']} vs "
                 f"{plain_run['losses']}")
-        ranks = ddp_wait(ddp_ranks(2, f"{root}/gloo_store", root), root)
+        ranks = wait_ranks(start_ranks("--ddp-rank", 2,
+                                       f"{root}/gloo_store", root),
+                           DDP_TIMEOUT)
         for r in ranks:
             if any(r[f"{name}_plain"] for name in (
                     "train", "train_f32", "score",
@@ -5951,6 +6045,401 @@ def phase_data_parallel(smi, base_cap):
         torch.cuda.empty_cache()
 
 
+# ---- 37-40: tensor, sequence and pipeline parallelism ---------------------
+
+MP_PATHS = ("train-tp", "tp-greedy", "sp-dpt", "pp-vit")
+MP_DATA, MP_MODEL, MP_STAGES = 2, 2, 4
+MP_WORLD = MP_DATA * MP_MODEL
+MP_TRAIN_BATCH, MP_TRAIN_STEPS = 8, 5
+# train-tp's losses against one process's, each step: between the sound
+# run's largest gap on an H100 (1.39e-4) and the planted fault's (1.42e-2)
+MP_LOSS_RTOL = 1e-3
+MP_GREEDY_BATCH = 32
+MP_SP_BATCH = 4
+MP_SP_F32_ATOL = 1e-3    # sp-dpt's f32 depth maps against unsharded ones
+MP_PP_BATCH, MP_PP_MB = 8, 4
+MP_PP_RTOL = 1e-4        # pp-vit's taps, of their largest |value|
+MP_TIMEOUT = 420         # seconds for the four gloo ranks
+# K5 launches a rank: a DPT forward 12 (one a block), sp-dpt's two DPTs
+# (f32, bf16), pp-vit's 3 blocks a stage at each of M + S - 1 steps
+MP_K5 = {"train-tp": 12, "tp-greedy": 12, "sp-dpt": 24,
+         "pp-vit": 12 // MP_STAGES * (MP_PP_MB + MP_STAGES - 1)}
+
+
+class MpFault:
+    """A planted fault of train-tp (a control for its loss bound):
+    copy-to-region's backward without its all-reduce over ``model``, so
+    that the gradient reaching a replicated input of a split matmul is
+    this rank's part of it."""
+
+    def __enter__(self):
+        from depth_image_captioning_pub_torch.parallel import tp
+        self.saved = tp._CopyToRegion.backward
+        tp._CopyToRegion.backward = staticmethod(
+            lambda ctx, grad: (grad, None))
+        return self
+
+    def __exit__(self, *exc):
+        from depth_image_captioning_pub_torch.parallel import tp
+        tp._CopyToRegion.backward = self.saved
+
+
+def mp_images(n, seed, hw=224):
+    return np.random.default_rng(seed).integers(0, 256, (n, hw, hw, 3),
+                                                dtype=np.uint8)
+
+
+def mp_dpt(dtype, mesh=None, token_sharding=False):
+    """Phase 7's DPT-hybrid at 384x384 (seed 1) in ``dtype``, its ViT
+    blocks split over ``mesh``'s model axis (and its tokens with
+    ``token_sharding``)."""
+    import torch
+    from depth_image_captioning_pub_torch.models.dpt import (
+        DPTDepthEstimator)
+    from depth_image_captioning_pub_torch.parallel import tp
+    est = DPTDepthEstimator(dtype=dtype, device=torch.device("cuda"),
+                            token_sharding=mesh if token_sharding else None)
+    est.init(torch.Generator().manual_seed(1))
+    if mesh is not None:
+        tp.shard_tree(mesh, est.model)
+    return est
+
+
+def mp_captioner(seed):
+    """A depth-soft captioner at full width (bf16 encoders, f32 decoder,
+    V=9956) drawn from ``seed``."""
+    import torch
+    from depth_image_captioning_pub_torch.models.captioner import (
+        build_captioner)
+    cap = build_captioner("depth-soft", VOCAB, device=torch.device("cuda"))
+    cap.init(torch.Generator().manual_seed(seed))
+    return cap
+
+
+def mp_train_batch():
+    """train-tp's global batch: 224x224 images, 32-token captions."""
+    rng = np.random.default_rng(37)
+    n, length = MP_TRAIN_BATCH, 32
+    caps = rng.integers(4, VOCAB, (n, length)).astype(np.int32)
+    return {"images": mp_images(n, 38), "captions": caps,
+            "lengths": rng.integers(10, length + 1, (n,)).astype(np.int32),
+            "pad_mask": np.ones((n,), bool)}
+
+
+def mp_train_steps(cap, batch, steps_n):
+    """``steps_n`` AdamW steps of ``cap`` on ``batch`` (its depth maps
+    given), dropout from a card generator seeded 39: the global losses."""
+    import torch
+    from depth_image_captioning_pub_torch.engine import steps
+    opt = steps.make_optimizer(cap, 1e-3)
+    gen = torch.Generator(device=torch.device("cuda")).manual_seed(39)
+    return [float(steps.attention_train_step(cap, opt, batch,
+                                             generator=gen)["loss"])
+            for _ in range(steps_n)]
+
+
+def mp_to_card(batch):
+    import torch
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).cuda()
+            for k, v in batch.items()}
+
+
+def mp_train(mesh, est, depth=None):
+    """train-tp in a rank: the depth maps of its data row's rows by the
+    TP-split DPT (or ``depth``), then MP_TRAIN_STEPS steps of the TP-split
+    depth-soft captioner."""
+    from depth_image_captioning_pub_torch.parallel import tp
+    cap = mp_captioner(36)
+    tp.shard_tree(mesh, cap)
+    batch = mp_to_card(tp.shard_batch_2d(mesh, mp_train_batch()))
+    batch["depth"] = (est.depth_fn()(batch["images"]).clone()
+                      if depth is None else depth.cuda())
+    losses = mp_train_steps(cap, batch, MP_TRAIN_STEPS)
+    return {"losses": losses, "depth": batch["depth"].cpu()}
+
+
+def mp_caption_fn(cap, est):
+    from depth_image_captioning_pub_torch.cli import (
+        SPECIAL, placeholder_vocab)
+    from depth_image_captioning_pub_torch.engine.evaluate import (
+        make_caption_fn)
+    w2i, _ = placeholder_vocab(VOCAB)
+    return make_caption_fn(cap, w2i[SPECIAL.start], MAX_LEN,
+                           depth_fn=est.depth_fn(), end_id=w2i[SPECIAL.end])
+
+
+def mp_greedy(mesh, est):
+    """tp-greedy in a rank: ``make_caption_fn`` over the TP-split
+    depth-soft captioner and DPT on its data row's images; the tokens and
+    the frozen stages' entry."""
+    import torch
+    from depth_image_captioning_pub_torch.parallel import tp
+    cap = mp_captioner(40)
+    tp.shard_tree(mesh, cap)
+    fn = mp_caption_fn(cap, est)
+    images = torch.from_numpy(tp.shard_batch_2d(
+        mesh, mp_images(MP_GREEDY_BATCH, 41))).cuda()
+    entry = fn.frozen(images)
+    tokens = fn.decode(entry)
+    return {"tokens": tokens.cpu(), "feats": entry["feats"].cpu(),
+            "depth_maps": entry["depth_maps"].cpu()}
+
+
+def mp_sp(mesh):
+    """sp-dpt in a rank: the token-sharded, TP-split DPT in f32 and bf16
+    on its data row's images."""
+    import torch
+    from depth_image_captioning_pub_torch.parallel import tp
+    images = torch.from_numpy(tp.shard_batch_2d(
+        mesh, mp_images(MP_SP_BATCH, 42))).cuda()
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        est = mp_dpt(dtype, mesh, token_sharding=True)
+        out[str(dtype)] = est.depth_fn()(images).cpu()
+        del est
+    return out
+
+
+def mp_pp_tokens():
+    return np.random.default_rng(43).standard_normal(
+        (MP_PP_BATCH, VIT_N, 768)).astype(np.float32)
+
+
+def mp_pp(stages):
+    """pp-vit in a rank: the f32 DPT's 12 ViT blocks as MP_STAGES stages
+    (this rank keeps its 3), MP_PP_MB microbatches; rank 0 returns the
+    taps after blocks 8 and 11, the others their sums."""
+    import torch
+    from depth_image_captioning_pub_torch.parallel import pp
+    est = mp_dpt(torch.float32)
+    blocks = [getattr(est.model, n) for n in est.model.blocks]
+    tokens = torch.from_numpy(mp_pp_tokens()).cuda()
+    with torch.no_grad():
+        taps = pp.vit_taps_pipelined(blocks, tokens, stages, MP_PP_MB)
+    del est, blocks
+    if stages.stage.rank == 0:
+        return {"taps": [t.cpu() for t in taps]}
+    return {"sums": [float(t.double().sum()) for t in taps]}
+
+
+def mp_child(rank, world, store, root, out):
+    """One gloo rank on ``cuda:0`` (``chip_smoke.py --mp-rank``) of phases
+    37-40: the (data 2, model 2) mesh and the 4-stage mesh, then each path
+    with the launch counters set to 0 just before and read just after,
+    then train-tp under ``MpFault`` (on the same depth maps); results to
+    ``out``."""
+    import torch
+    from depth_image_captioning_pub_torch.ops.kernels import _build
+    from depth_image_captioning_pub_torch.parallel import multihost, pp, tp
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    multihost.initialize(f"file://{store}", world, rank, backend="gloo",
+                         device="cuda:0",
+                         timeout=datetime.timedelta(seconds=RANK_TIMEOUT_S))
+    try:
+        _build.load()
+        with tp.make_mesh_2d(MP_DATA, MP_MODEL) as mesh:
+            stages = pp.make_stage_mesh(MP_STAGES)
+            est = mp_dpt(torch.bfloat16, mesh)
+            result = {"mesh": (mesh.data.rank, mesh.model.rank,
+                               stages.stage.rank)}
+            for name, fn in zip(MP_PATHS, (
+                    lambda: mp_train(mesh, est),
+                    lambda: mp_greedy(mesh, est),
+                    lambda: mp_sp(mesh), lambda: mp_pp(stages))):
+                torch.cuda.synchronize()
+                reset_counts()
+                with PlainCalls() as plain:
+                    t0 = time.perf_counter()
+                    result[name] = fn()
+                    torch.cuda.synchronize()
+                    result[name + "_seconds"] = time.perf_counter() - t0
+                result[name + "_launches"] = read_counts()
+                result[name + "_plain"] = sorted(set(plain.calls))
+            with MpFault():
+                result["train-tp-fault"] = mp_train(
+                    mesh, est, result["train-tp"]["depth"])
+        torch.save(result, out)
+    except BaseException:
+        rank_failed()
+    multihost.shutdown()
+
+
+def mp_rows(ranks, path, key):
+    """``key`` of ``path`` from the model-rank-0 ranks, joined in data-row
+    order (the model ranks of a row hold the same rows)."""
+    import torch
+    return torch.cat([ranks[d * MP_MODEL][path][key]
+                      for d in range(MP_DATA)])
+
+
+def phase_model_parallel(smi):
+    """Phases 37-40 (``PATHS``' train-tp, tp-greedy, sp-dpt, pp-vit):
+    tensor, sequence and pipeline parallelism over four gloo ranks sharing
+    this card, each held to one process on the same inputs."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+    import torch
+    here = Path(__file__).resolve().parent
+    (here / "build").mkdir(exist_ok=True)
+    root = tempfile.mkdtemp(dir=here / "build", prefix="mp_")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    out = {}
+    try:
+        t_phase = time.perf_counter()
+        ranks = wait_ranks(start_ranks("--mp-rank", MP_WORLD,
+                                       f"{root}/gloo_store", root),
+                           MP_TIMEOUT)
+        t_ranks = time.perf_counter() - t_phase
+        for path in MP_PATHS:
+            counts = [r[path + "_launches"] for r in ranks]
+            if any(r[path + "_plain"] for r in ranks):
+                raise RuntimeError(f"plain versions ran on the {path} path")
+            want = dict(dict.fromkeys(counts[0], 0),
+                        vit_attention=MP_K5[path])
+            if any(c != want for c in counts):
+                raise RuntimeError(f"{path}: launches a rank {counts}, "
+                                   f"expected {want}")
+            out[path] = {k: sum(c[k] for c in counts) for k in counts[0]}
+        seconds = {p: max(r[p + "_seconds"] for r in ranks)
+                   for p in MP_PATHS}
+        with torch.no_grad():
+            est16 = mp_dpt(torch.bfloat16)
+
+            # train-tp: falling losses, equal on every rank; every step
+            # against one process on the same batch, the ranks' depth maps
+            # and the same dropout draws; the planted fault seen
+            tag = "train-tp"
+            losses = [r[tag]["losses"] for r in ranks]
+            if any(lo != losses[0] for lo in losses) or not all(
+                    np.isfinite(losses[0])):
+                raise RuntimeError(f"{tag}: rank losses {losses}")
+            if not losses[0][-1] < losses[0][0]:
+                raise RuntimeError(f"{tag}: loss did not fall: {losses[0]}")
+        batch = mp_to_card(mp_train_batch())
+        batch["depth"] = mp_rows(ranks, tag, "depth").cuda()
+        one = mp_train_steps(mp_captioner(36), batch, MP_TRAIN_STEPS)
+        with torch.no_grad():
+            plain_depth = est16.depth_fn()(batch["images"])
+            dgap = float((plain_depth - batch["depth"]).abs().max())
+
+            def loss_gap(got):
+                return max(abs(g - w) / abs(w) for g, w in zip(got, one))
+            rel = loss_gap(losses[0])
+            fault = [r[tag + "-fault"]["losses"] for r in ranks]
+            fault_rel = max(loss_gap(f) for f in fault)
+            log(tag, f"depth-soft (data {MP_DATA}, model {MP_MODEL}) over "
+                f"{MP_WORLD} gloo ranks on cuda:0, B={MP_TRAIN_BATCH}: "
+                f"losses {losses[0]}; one process {one}: max relative gap "
+                f"{rel:.3e} (limit {MP_LOSS_RTOL}), step 1 "
+                f"{abs(losses[0][0] - one[0]) / abs(one[0]):.3e}; planted "
+                f"fault (copy-to-region's backward without its all-reduce) "
+                f"{fault_rel:.3e}, rank 0 {fault[0]}; TP depth maps vs "
+                f"unsplit bf16 max {dgap:.3e}; launches {out[tag]}; "
+                f"{seconds[tag]:.2f} s [{smi}]")
+            if rel > MP_LOSS_RTOL:
+                raise RuntimeError(f"{tag}: losses {losses[0]} vs one "
+                                   f"process {one}")
+            if not fault_rel > MP_LOSS_RTOL:
+                raise RuntimeError(f"{tag}: the planted fault's losses "
+                                   f"{fault} pass the bound")
+
+            # tp-greedy: against one process's step loop and K2 on the
+            # ranks' own frozen-stage entries
+            tag = "tp-greedy"
+            for d in range(MP_DATA):
+                row = ranks[d * MP_MODEL:(d + 1) * MP_MODEL]
+                if any(not torch.equal(r[tag]["tokens"],
+                                       row[0][tag]["tokens"])
+                       for r in row):
+                    raise RuntimeError(f"{tag}: model ranks disagree")
+            got = mp_rows(ranks, tag, "tokens").numpy()
+            cap = mp_captioner(40)
+            fn = mp_caption_fn(cap, est16)
+            entry = {"feats": mp_rows(ranks, tag, "feats").cuda(),
+                     "depth_maps": mp_rows(ranks, tag, "depth_maps").cuda()}
+            k2 = fn.decode(entry).cpu().numpy()
+            from depth_image_captioning_pub_torch.cli import (
+                SPECIAL, placeholder_vocab)
+            w2i, _ = placeholder_vocab(VOCAB)
+            loop = cap.decoder.loop_greedy(
+                entry["feats"], w2i[SPECIAL.start],
+                cap.depth_encoder_apply()(entry["depth_maps"]),
+                max_length=MAX_LEN, end_id=w2i[SPECIAL.end]).cpu().numpy()
+            agree = token_agreement(got, loop)
+            agree_k2 = token_agreement(got, k2)
+            log(tag, f"depth-soft greedy, f32 decoder split over model "
+                f"{MP_MODEL} (V={VOCAB}), {MP_GREEDY_BATCH} images over "
+                f"data {MP_DATA}: tokens vs one process's step loop "
+                f"{agree:.4f} (>= {MIN_AGREEMENT}), vs one process's K2 "
+                f"{agree_k2:.4f}; launches {out[tag]}; {seconds[tag]:.2f} "
+                f"s [{smi}]")
+            if agree < MIN_AGREEMENT:
+                raise RuntimeError(f"{tag}: agreement {agree}")
+            del cap, fn, entry
+
+            # sp-dpt: the token-sharded, TP-split DPT against one process
+            tag = "sp-dpt"
+            images = torch.from_numpy(mp_images(MP_SP_BATCH, 42)).cuda()
+            gaps = {}
+            for dtype, est in ((torch.float32, mp_dpt(torch.float32)),
+                               (torch.bfloat16, est16)):
+                want = est.depth_fn()(images).cpu()
+                got = mp_rows(ranks, tag, str(dtype))
+                if not bool(torch.isfinite(got).all()):
+                    raise RuntimeError(f"{tag}: {dtype} maps not finite")
+                gaps[str(dtype)] = (float((got - want).abs().max()),
+                                    float(want.abs().max()))
+                del est
+            f32_gap = gaps["torch.float32"][0]
+            b16_gap, b16_max = gaps["torch.bfloat16"]
+            log(tag, f"DPT-hybrid at 384x384 (N={VIT_N} tokens padded to "
+                f"{VIT_N + VIT_N % MP_MODEL}, split over model {MP_MODEL}, "
+                f"heads and MLP split too), {MP_SP_BATCH} images over data "
+                f"{MP_DATA}: f32 max |diff| {f32_gap:.3e} (limit "
+                f"{MP_SP_F32_ATOL}); bf16 {b16_gap:.3e}, "
+                f"{b16_gap / b16_max:.3e} of the map's max; launches "
+                f"{out[tag]}; {seconds[tag]:.2f} s [{smi}]")
+            if f32_gap > MP_SP_F32_ATOL:
+                raise RuntimeError(f"{tag}: f32 gap {f32_gap}")
+
+            # pp-vit: the taps against the sequential fold
+            tag = "pp-vit"
+            est = mp_dpt(torch.float32)
+            t = torch.from_numpy(mp_pp_tokens()).cuda()
+            fold = {}
+            for i, name in enumerate(est.model.blocks):
+                t = getattr(est.model, name)(t)
+                if i in (8, 11):
+                    fold[i] = t.cpu()
+            del est
+            taps = ranks[0][tag]["taps"]
+            for r in ranks[1:]:
+                if r[tag]["sums"] != [float(x.double().sum()) for x in taps]:
+                    raise RuntimeError(f"{tag}: ranks' taps differ")
+            rel_gap = max(float((g - fold[i]).abs().max()
+                                / fold[i].abs().max())
+                          for g, i in zip(taps, (8, 11)))
+            log(tag, f"the f32 DPT's 12 ViT blocks as {MP_STAGES} stages "
+                f"of 3 (one a rank), B={MP_PP_BATCH}, M={MP_PP_MB}, "
+                f"N={VIT_N}: taps 8, 11 vs the sequential fold max |diff| "
+                f"{rel_gap:.3e} of max |tap| (limit {MP_PP_RTOL}); "
+                f"launches {out[tag]}; {seconds[tag]:.2f} s [{smi}]")
+            if rel_gap > MP_PP_RTOL:
+                raise RuntimeError(f"{tag}: taps gap {rel_gap}")
+        del est16
+        log("mp", f"phases 37-40 in {time.perf_counter() - t_phase:.1f} s "
+            f"({t_ranks:.1f} s of ranks)")
+        return out
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
 def main():
     smi = phase_env()
     import torch
@@ -5983,6 +6472,7 @@ def main():
     by_path.update(phase_export(smi, base_cap, est))
     ddp = phase_data_parallel(smi, base_cap)
     by_path.update((path, ddp[path]) for path in DDP_PATHS)
+    by_path.update(phase_model_parallel(smi))
     if tuple(by_path) != PATHS:
         raise RuntimeError(f"paths run {tuple(by_path)}, expected {PATHS}")
     kernels = [step, seq, nic_k, beam_k, vit]
@@ -6000,5 +6490,7 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--ddp-rank"]:     # a gloo rank of phases 34-35
         ddp_child(int(sys.argv[2]), int(sys.argv[3]), *sys.argv[4:7])
+    elif sys.argv[1:2] == ["--mp-rank"]:    # a gloo rank of phases 37-40
+        mp_child(int(sys.argv[2]), int(sys.argv[3]), *sys.argv[4:7])
     else:
         main()

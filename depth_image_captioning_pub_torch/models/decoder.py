@@ -32,6 +32,16 @@ XLA ops), its dropout keep-masks and hard attention's Gumbel noise from a
 ``att_noise(t, shape)`` hooks, through which the tests replay the JAX
 package's draws.
 
+Under tensor parallelism (``parallel/tp.shard_tree``: ``tp`` is the model
+axis) the vocab head, the LSTM's gate columns and the embedding's features
+are split over the model ranks; the embedding rows, the gates and the
+logits are gathered before they are used, so everything else runs
+replicated. The kernels take whole weight matrices, so such a decoder
+never reaches them: its greedy decode, sampling, ``greedy_alphas`` and
+beam search run their steps as PyTorch ops with the collectives (soft
+attention in f32, the counterpart of the JAX package's XLA paths), and
+training the teacher-forced pass.
+
 Mixed precision (``dtype=torch.bfloat16``, the JAX ``decoder_dtype``, for
 training only): the parameters stay f32 and the teacher-forced pass casts
 them to bf16 at each use, as the JAX module's ``_w`` does, so every op
@@ -67,6 +77,8 @@ from depth_image_captioning_pub_torch.ops.kernels.decode_step import (
 from depth_image_captioning_pub_torch.ops.lstm import LSTMCellParams, lstm_cell
 from depth_image_captioning_pub_torch.ops.precision import (
     full_f32, matmul_f32)
+from depth_image_captioning_pub_torch.parallel.tp import (
+    copy_to_region, gather_from_region)
 
 AttNoise = Callable[[int, Sequence[int]], torch.Tensor]
 
@@ -102,7 +114,10 @@ class AttentionDecoder(nn.Module):
     ``"none"``, ``"add"`` or ``"concat"`` fusion of depth annotation
     vectors; concat widens the annotation vectors by ``dim_depth``.
     ``dtype`` is the teacher-forced pass's compute dtype (f32, or bf16
-    for mixed-precision training)."""
+    for mixed-precision training). ``tp``: the model axis of a
+    tensor-parallel decoder (``parallel/tp.shard_tree``)."""
+
+    tp = None
 
     def __init__(self, vocab_size: int, dim_attention: int = 128,
                  dim_embedding: int = 128, dim_encoder: int = 2048,
@@ -194,8 +209,13 @@ class AttentionDecoder(nn.Module):
         return DecoderState(h.contiguous(), c.contiguous())
 
     def seq_weights(self) -> DecodeSeqWeights:
-        """The kernels' packed weights (K1, K2, K4: f32 decoders only)."""
+        """The kernels' packed weights (K1, K2, K4: f32 decoders only,
+        whole weights)."""
         refuse_mixed(self.dtype, "the decode kernels")
+        if self.tp is not None:
+            raise ValueError("the decode kernels take whole weight "
+                             "matrices: a tensor-parallel decoder runs its "
+                             "steps as PyTorch ops")
         step = pack_weights(self.att_w_dec, self.att_b_dec,
                             self.att_w_full[:, 0], self.att_b_full[0],
                             self.f_beta_w, self.f_beta_b, self.lstm_w_ih,
@@ -220,7 +240,22 @@ class AttentionDecoder(nn.Module):
         * context] -> (h', c'), on ``params`` (``_cell_params()``)."""
         f_beta_w, f_beta_b, lstm = params or self._cell_params()
         gate = torch.sigmoid(h @ f_beta_w + f_beta_b)
-        return lstm_cell(lstm, torch.cat([emb, gate * context], dim=-1), h, c)
+        return lstm_cell(lstm, torch.cat([emb, gate * context], dim=-1), h, c,
+                         self.tp)
+
+    def _embedding(self, ids: torch.Tensor) -> torch.Tensor:
+        """The embedding rows of ``ids`` (gathered over ``tp``)."""
+        emb = self.embed[ids]
+        return emb if self.tp is None else gather_from_region(emb, self.tp,
+                                                              -1)
+
+    def _logits(self, h: torch.Tensor) -> torch.Tensor:
+        """The vocab head on h (over ``tp``: this rank's vocabulary
+        columns, gathered)."""
+        if self.tp is None:
+            return h @ self.out_w + self.out_b
+        return gather_from_region(copy_to_region(h, self.tp) @ self.out_w
+                                  + self.out_b, self.tp, -1)
 
     def _tail(self, context: torch.Tensor, emb: torch.Tensor,
               h: torch.Tensor, c: torch.Tensor
@@ -228,7 +263,7 @@ class AttentionDecoder(nn.Module):
         """The step after the attention (JAX ``_step``): ``_cell`` and the
         vocab head -> (h', c', logits)."""
         h, c = self._cell(context, emb, h, c)
-        return h, c, h @ self.out_w + self.out_b
+        return h, c, self._logits(h)
 
     @full_f32()   # every f32 product, forward (and the caller's backward)
     def forward(self, features: torch.Tensor, captions: torch.Tensor,
@@ -271,6 +306,8 @@ class AttentionDecoder(nn.Module):
         proj = project_features(att, feats)
         h, c = self.init_state(feats)
         emb = self._w(self.embed)[captions[:, :-1].long()]   # [B, L-1, E]
+        if self.tp is not None:
+            emb = gather_from_region(emb, self.tp, -1)
         cell = self._cell_params()
         stochastic = train and not hard_eval_sampling
         hard = self.attention_kind == "hard"
@@ -297,8 +334,12 @@ class AttentionDecoder(nn.Module):
                 out = torch.where(keep, out / (1.0 - self.dropout), 0.0)
             outs.append(out)
             alphas.append(alpha)
-        logits = (matmul_f32(torch.stack(outs, 1), self._w(self.out_w))
-                  + self.out_b)
+        outs = torch.stack(outs, 1)
+        if self.tp is not None:
+            outs = copy_to_region(outs, self.tp)
+        logits = matmul_f32(outs, self._w(self.out_w)) + self.out_b
+        if self.tp is not None:
+            logits = gather_from_region(logits, self.tp, -1)
         return logits, torch.stack(alphas, 1)
 
     def _prepare(self, features, depth_features):
@@ -329,18 +370,43 @@ class AttentionDecoder(nn.Module):
 
         Hard attention runs ``_hard_greedy``: all ``max_length`` steps of
         PyTorch ops, the region noise of step t from ``att_noise(t, [B,
-        K])`` or ``generator``.
+        K])`` or ``generator``. A tensor-parallel soft decoder runs
+        ``loop_greedy``.
         """
         refuse_mixed(self.dtype, "greedy decode")
         if self.attention_kind == "hard":
             return self._hard_greedy(
                 features, start_id, depth_features, max_length=max_length,
                 end_id=end_id, att_noise=att_noise or region_noise(generator))
+        if self.tp is not None:
+            return self.loop_greedy(features, start_id, depth_features,
+                                    max_length=max_length, end_id=end_id)
         features, proj, h, c = self._prepare(features, depth_features)
         return fused_greedy_decode(
             features.contiguous(), proj, h, c, self.seq_weights(),
             max_length=max_length, start_id=start_id,
             end_id=-1 if end_id is None else end_id)
+
+    @torch.no_grad()
+    @full_f32()
+    def loop_greedy(self, features: torch.Tensor, start_id: int,
+                    depth_features: Optional[torch.Tensor] = None, *,
+                    max_length: int = 30,
+                    end_id: Optional[int] = None) -> torch.Tensor:
+        """Soft greedy decode as a loop of PyTorch ops, no kernel: soft
+        attention in f32, the gated context, the LSTM cell, the head and
+        the argmax a step (the JAX package's XLA scan). What a
+        tensor-parallel decoder runs, whose split weights the kernels
+        cannot take; K2's tokens are this loop's up to the order of its f32
+        sums."""
+        refuse_mixed(self.dtype, "greedy decode")
+        if self.attention_kind != "soft":
+            raise ValueError("loop_greedy decodes with soft attention")
+        att = self.att_params()
+        return self._step_greedy(
+            features, start_id, depth_features, max_length=max_length,
+            end_id=end_id, attend=lambda t, f, proj, h: soft_attention(
+                att, f, proj, h, torch.float32)[0])
 
     def _hard_greedy(self, features, start_id, depth_features, *,
                      max_length: int, end_id: Optional[int],
@@ -354,19 +420,32 @@ class AttentionDecoder(nn.Module):
         done-mask instead and never waits on the card. The tokens are the
         same: JAX's noise of step t depends on t alone (``fold_in(rng,
         t)``), and a finished row's tokens are <end> either way."""
-        features, proj, h, c = self._prepare(features, depth_features)
         att = self.att_params()
-        bsz, k = features.shape[:2]
+
+        def attend(t, features, proj, h):
+            return gumbel_max_attention(att, features, proj, h, att_noise(
+                t, tuple(features.shape[:2])), torch.float32)[0]
+        return self._step_greedy(features, start_id, depth_features,
+                                 max_length=max_length, end_id=end_id,
+                                 attend=attend)
+
+    def _step_greedy(self, features, start_id, depth_features, *,
+                     max_length: int, end_id: Optional[int],
+                     attend) -> torch.Tensor:
+        """Greedy decode as a loop of PyTorch ops: each step the context
+        ``attend(t, features, proj, h)``, the gated context, the LSTM cell,
+        the head and the argmax (the lowest index on ties); with ``end_id``
+        a finished row emits <end> from then on."""
+        features, proj, h, c = self._prepare(features, depth_features)
+        bsz = features.shape[0]
         dev = features.device
         tokens = torch.empty((bsz, max_length), dtype=torch.int32,
                              device=dev)
         prev = torch.full((bsz,), start_id, dtype=torch.int64, device=dev)
         done = torch.zeros((bsz,), dtype=torch.bool, device=dev)
         for t in range(max_length):
-            ctx, _ = gumbel_max_attention(att, features, proj, h,
-                                          att_noise(t, (bsz, k)),
-                                          torch.float32)
-            h, c, logits = self._tail(ctx, self.embed[prev], h, c)
+            ctx = attend(t, features, proj, h)
+            h, c, logits = self._tail(ctx, self._embedding(prev), h, c)
             token = torch.argmax(logits, dim=-1).to(torch.int32)
             if end_id is not None:
                 token = torch.where(done, end_id, token)
@@ -455,11 +534,13 @@ class AttentionDecoder(nn.Module):
         token) -> (tokens, alphas). Soft attention runs the step as one
         kernel (``fused_decode_core``: h', c', alpha); hard attention draws
         the step's region first (``gumbel_max_attention`` on ``att_noise``,
-        one-hot alphas) and runs the rest in PyTorch ops."""
+        one-hot alphas) and runs the rest in PyTorch ops; so does a
+        tensor-parallel decoder with soft attention in f32."""
         features, proj, h, c = self._prepare(features, depth_features)
         features = features.contiguous()
         hard = self.attention_kind == "hard"
-        if hard:
+        ops = hard or self.tp is not None    # the step in PyTorch ops
+        if ops:
             att = self.att_params()
         else:
             w = self.seq_weights()
@@ -471,11 +552,15 @@ class AttentionDecoder(nn.Module):
         prev = torch.full((bsz,), start_id, dtype=torch.int64,
                           device=features.device)
         for t in range(max_length):
-            if hard:
-                ctx, alpha = gumbel_max_attention(
-                    att, features, proj, h, att_noise(t, (bsz, k)),
-                    torch.float32)
-                h, c, logits = self._tail(ctx, self.embed[prev], h, c)
+            if ops:
+                if hard:
+                    ctx, alpha = gumbel_max_attention(
+                        att, features, proj, h, att_noise(t, (bsz, k)),
+                        torch.float32)
+                else:
+                    ctx, alpha = soft_attention(att, features, proj, h,
+                                                torch.float32)
+                h, c, logits = self._tail(ctx, self._embedding(prev), h, c)
             else:
                 h, c, alpha = fused_decode_core(features, proj,
                                                 w.embed[prev], h, c, w.step)
@@ -503,7 +588,8 @@ class AttentionDecoder(nn.Module):
         whole search in one call (ops/kernels/beam_seq.py,
         csrc/beam_seq.cu; its plain version for CPU tensors), which stops
         once every beam has emitted <end>. Hard attention runs
-        ``ops/decode.beam_search`` over PyTorch steps (``_hard_beam``).
+        ``ops/decode.beam_search`` over PyTorch steps (``_hard_beam``), and
+        so does a tensor-parallel soft decoder (``_loop_beam``).
         ``length_penalty`` alpha ranks the final beams by score /
         length**alpha (GNMT); 0 ranks by log-probability.
         """
@@ -514,6 +600,18 @@ class AttentionDecoder(nn.Module):
                 beam_size=beam_size, max_length=max_length,
                 length_penalty=length_penalty,
                 att_noise=att_noise or region_noise(generator))
+        if self.tp is not None:
+            att = self.att_params()
+
+            def attend(t, features, proj, h):
+                alpha = torch.softmax(self._beam_scores(
+                    att, proj, h).to(torch.float32), dim=-1)
+                return torch.bmm(alpha, features.to(torch.float32)).reshape(
+                    h.shape[0], -1)
+            return self._loop_beam(
+                features, start_id, end_id, depth_features,
+                beam_size=beam_size, max_length=max_length,
+                length_penalty=length_penalty, attend=attend)
         features, proj, h, c = self._prepare(features, depth_features)
         out = fused_beam_decode(
             features.contiguous(), proj, h, c, self.seq_weights(),
@@ -530,24 +628,48 @@ class AttentionDecoder(nn.Module):
         its image's features, which stay [B, K, D] (never tiled by beam),
         then the gated context, the LSTM cell, the head and a log-softmax
         per beam, and the search of ``ops/decode.beam_search``."""
-        features, proj, h0, c0 = self._prepare(features, depth_features)
         att = self.att_params()
-        bsz, k = features.shape[:2]
-        beam = beam_size
-        rows = torch.arange(bsz, device=features.device)[:, None]
+
+        def attend(t, features, proj, h):
+            bsz, k = features.shape[:2]
+            beam = h.shape[0] // bsz
+            logits = self._beam_scores(att, proj, h)          # [B, W, K]
+            pos = torch.argmax(logits + att_noise(t, (bsz, beam, k)), dim=-1)
+            rows = torch.arange(bsz, device=features.device)[:, None]
+            return features[rows, pos].to(torch.float32).reshape(
+                bsz * beam, -1)
+        return self._loop_beam(features, start_id, end_id, depth_features,
+                               beam_size=beam_size, max_length=max_length,
+                               length_penalty=length_penalty, attend=attend)
+
+    @staticmethod
+    def _beam_scores(att: AttentionParams, proj: torch.Tensor,
+                     h: torch.Tensor) -> torch.Tensor:
+        """Each beam's attention scores over its image's regions: h [B *
+        W, H] against proj [B, K, A] -> [B, W, K]."""
+        bsz = proj.shape[0]
+        dec = h.reshape(bsz, h.shape[0] // bsz, -1) @ att.w_dec + att.b_dec
+        act = torch.relu(proj[:, None] + dec[:, :, None, :])
+        return act @ att.w_full + att.b_full
+
+    def _loop_beam(self, features, start_id, end_id, depth_features, *,
+                   beam_size: int, max_length: int, length_penalty: float,
+                   attend) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Beam search over PyTorch steps: each step the beams' contexts
+        ``attend(t, features, proj, h)`` [B * W, D], the gated context,
+        the LSTM cell, the head and a log-softmax per beam, and the search
+        of ``ops/decode.beam_search`` (which stops once every beam
+        ended)."""
+        features, proj, h0, c0 = self._prepare(features, depth_features)
 
         def step_fn(state, prev, t):
-            h, c = state["h"], state["c"]
-            dec = h.reshape(bsz, beam, -1) @ att.w_dec + att.b_dec
-            act = torch.relu(proj[:, None] + dec[:, :, None, :])
-            logits = act @ att.w_full + att.b_full            # [B, W, K]
-            pos = torch.argmax(logits + att_noise(t, (bsz, beam, k)), dim=-1)
-            ctx = features[rows, pos].to(torch.float32).reshape(
-                bsz * beam, -1)
-            h, c, out = self._tail(ctx, self.embed[prev.long()], h, c)
+            ctx = attend(t, features, proj, state["h"])
+            h, c, out = self._tail(ctx, self._embedding(prev.long()),
+                                   state["h"], state["c"])
             return {"h": h, "c": c}, log_softmax(out)
 
-        return beam_search(step_fn, tile_for_beams({"h": h0, "c": c0}, beam),
-                           bsz, start_id, end_id, beam_size=beam,
-                           max_length=max_length,
+        return beam_search(step_fn, tile_for_beams({"h": h0, "c": c0},
+                                                   beam_size),
+                           features.shape[0], start_id, end_id,
+                           beam_size=beam_size, max_length=max_length,
                            length_penalty=length_penalty, early_exit=True)

@@ -33,7 +33,20 @@ and conv3 before the x2 upsample). Both change the depth maps and are off
 by default. ``DPTDepthEstimator(image_size=224)`` runs the DPT at 224x224:
 the position embeddings shrink from 24x24 to 14x14 and the ViT attention
 runs at N = 197 tokens. The other TPU knobs (token padding to a multiple
-of 8, the two-tap upsample, token sharding, ablations) are not ported.
+of 8, the two-tap upsample, ablations) are not ported.
+
+Sequence parallelism (the JAX ``TOKEN_SHARDING``) is the constructor
+argument ``token_sharding``: a ``parallel/tp.Mesh2D`` over whose model axis
+the ``[B, N, C]`` tokens are split between the blocks. The tokens are
+padded with zero rows to a multiple of the axis' size and each rank keeps
+its contiguous share; LayerNorm and the MLP run on the local tokens,
+attention all-gathers them first, so that K5 sees every key, and masks the
+pad keys through its ``n_valid``; the taps are gathered and the pad rows
+dropped. Tensor parallelism (``parallel/tp.shard_tree``) splits each
+block's heads and MLP over the same axis; with both, a block's input is
+gathered and its row-parallel outputs reduced and split again over the
+tokens (Megatron's sequence parallelism). Neither changes the depth maps
+but by the order of the f32 sums.
 """
 
 from __future__ import annotations
@@ -49,6 +62,9 @@ from depth_image_captioning_pub_torch.ops.image_ops import (
     dpt_normalize, resize_bilinear, standardize_depth_map, to_unit_float)
 from depth_image_captioning_pub_torch.ops.kernels import vit_attention
 from depth_image_captioning_pub_torch.ops.pooling import nchw, nhwc
+from depth_image_captioning_pub_torch.parallel.tp import (
+    copy_to_region, gather_from_region, reduce_from_region,
+    scatter_to_region)
 
 
 def resize_align_corners(x: torch.Tensor, out_hw: Tuple[int, int]
@@ -200,7 +216,13 @@ def check_knobs(gelu: str, head: str) -> None:
 class ViTBlock(nn.Module):
     """Pre-LN transformer block (timm ViT), LayerNorm eps 1e-6, the MLP's
     GELU exact (``gelu="erf"``) or tanh-approximated (``"tanh"``).
-    Attention is the fused kernel over Z = batch * heads."""
+    Attention is the fused kernel over Z = batch * heads, on the keys
+    below ``n_valid`` (all N by default). ``tp``: the model axis over which
+    ``parallel/tp.shard_tree`` split the heads and the MLP; ``sp``: the axis
+    over which the tokens are split (``DPTDepthModel(token_sharding=)``)."""
+
+    tp = None
+    sp = None
 
     def __init__(self, dim: int = 768, heads: int = 12, mlp_ratio: int = 4,
                  *, gelu: str = "erf", dtype=torch.float32, device=None):
@@ -216,20 +238,47 @@ class ViTBlock(nn.Module):
         self.fc1 = nn.Linear(dim, dim * mlp_ratio, **kw)
         self.fc2 = nn.Linear(dim * mlp_ratio, dim, **kw)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b, n, d = x.shape
+    def _region_in(self, h: torch.Tensor) -> torch.Tensor:
+        """A block input entering the split weights: all tokens (``sp``),
+        and a gradient summed over the model ranks (``tp``)."""
+        return copy_to_region(gather_from_region(h, self.sp, 1), self.tp)
+
+    def _row(self, h: torch.Tensor, linear: nn.Linear) -> torch.Tensor:
+        """A row-parallel ``linear`` (``tp``: this rank's input features,
+        the partial sums reduced, then the bias), back on this rank's
+        tokens (``sp``)."""
+        if self.tp is None:
+            return linear(scatter_to_region(h, self.sp, 1))
+        y = reduce_from_region(F.linear(h, linear.weight), self.tp)
+        return scatter_to_region(y, self.sp, 1) + linear.bias
+
+    def forward(self, x: torch.Tensor,
+                n_valid: Optional[int] = None) -> torch.Tensor:
+        """K5 runs on this rank's heads (all of them without ``tp``) over
+        every token (gathered under ``sp``); the MLP without ``tp`` on
+        this rank's tokens."""
+        b, d = x.shape[0], x.shape[-1]
         dh = d // self.heads
+        h = self._region_in(self.norm1(x))
+        n = h.shape[1]
+        qkv = self.qkv(h)
+        heads = qkv.shape[-1] // (3 * dh)     # this rank's
         # (B, N, 3, heads, dh) -> (3, B*heads, N, dh), one contiguous copy
         # (at B=1 the reshape alone would return a strided view)
-        qkv = self.qkv(self.norm1(x)).reshape(b, n, 3, self.heads, dh)
-        q, k, v = qkv.permute(2, 0, 3, 1, 4).contiguous().reshape(
-            3, b * self.heads, n, dh)
-        out = vit_attention.fused_attention(q, k, v, scale=dh ** -0.5,
-                                            n_valid=n)
-        out = out.reshape(b, self.heads, n, dh).permute(0, 2, 1, 3)
-        x = x + self.proj(out.reshape(b, n, d))
-        h = F.gelu(self.fc1(self.norm2(x)), approximate=self.approximate)
-        return x + self.fc2(h)
+        q, k, v = qkv.reshape(b, n, 3, heads, dh).permute(
+            2, 0, 3, 1, 4).contiguous().reshape(3, b * heads, n, dh)
+        out = vit_attention.fused_attention(
+            q, k, v, scale=dh ** -0.5, n_valid=n if n_valid is None
+            else n_valid)
+        out = out.reshape(b, heads, n, dh).permute(0, 2, 1, 3)
+        x = x + self._row(out.reshape(b, n, heads * dh), self.proj)
+        h = self.norm2(x)
+        if self.tp is None:
+            return x + self.fc2(F.gelu(self.fc1(h),
+                                       approximate=self.approximate))
+        h = F.gelu(self.fc1(self._region_in(h)),
+                   approximate=self.approximate)
+        return x + self._row(h, self.fc2)
 
 
 class ProjectReadout(nn.Module):
@@ -299,14 +348,16 @@ class DPTDepthModel(nn.Module):
     """images [B, H, W, 3] (DPT-normalized) -> depth [B, H, W]. ``gelu``
     ("erf" or "tanh") is the ViT MLPs' GELU; ``head="lowres"`` runs head
     conv2 and conv3 before the x2 upsample (not exact: a 3x3 conv does not
-    commute with the resize)."""
+    commute with the resize). ``token_sharding``: a ``parallel/tp.Mesh2D``
+    over whose model axis the ViT tokens are split (None: unsplit)."""
 
     def __init__(self, features: int = 256, vit_dim: int = 768,
                  vit_heads: int = 12, vit_blocks: int = 12,
                  hooks: Tuple[int, int] = (8, 11),
                  resnet_layers: Sequence[int] = (3, 4, 9), patch: int = 16,
                  pretrain_grid: int = 24, *, gelu: str = "erf",
-                 head: str = "full", dtype=torch.float32, device=None):
+                 head: str = "full", token_sharding=None,
+                 dtype=torch.float32, device=None):
         super().__init__()
         check_knobs(gelu, head)
         kw = dict(dtype=dtype, device=device)
@@ -326,6 +377,11 @@ class DPTDepthModel(nn.Module):
             self.add_module(f"block{i}", ViTBlock(vit_dim, vit_heads,
                                                   gelu=gelu, **kw))
             self.blocks.append(f"block{i}")
+        self.token_axis = None
+        if token_sharding is not None and token_sharding.model.size > 1:
+            self.token_axis = token_sharding.model
+            for name in self.blocks:
+                getattr(self, name).sp = self.token_axis
         self.pp3_readout = ProjectReadout(vit_dim, **kw)
         self.pp3_conv = Conv(vit_dim, vit_dim, 1, **kw)
         self.pp4_readout = ProjectReadout(vit_dim, **kw)
@@ -371,11 +427,19 @@ class DPTDepthModel(nn.Module):
         pos = resize_pos_embed(self.pos_embed, self.pretrain_grid, (gh, gw))
         tokens = torch.cat([self.cls_token.to(self.dtype).expand(b, 1, dim),
                             tokens], dim=1) + pos.to(self.dtype)
+        n = tokens.shape[1]
+        sp = self.token_axis
+        if sp is not None:         # pad rows to a multiple of the ranks
+            tokens = scatter_to_region(
+                F.pad(tokens, (0, 0, 0, -n % sp.size)), sp, 1)
         taps = {}
         for i, name in enumerate(self.blocks):
-            tokens = getattr(self, name)(tokens)
+            tokens = getattr(self, name)(tokens, n_valid=n)
             if i in self.hooks:
                 taps[i] = tokens
+        if sp is not None:
+            taps = {i: gather_from_region(t, sp, 1)[:, :n]
+                    for i, t in taps.items()}
 
         def tokens_to_map(t, readout):
             return readout(t).reshape(b, gh, gw, dim)

@@ -18,6 +18,12 @@ training) runs the teacher-forced pass as the JAX module at
 ``dtype=bfloat16`` does: the LSTM's inputs, h and c rounded to bf16, the
 products on the f32 parameters in f32, f32 logits; its decode paths
 refuse it, as the JAX kernel path does.
+
+Under tensor parallelism (``parallel/tp.shard_tree``: ``tp`` is the model
+axis) the embedding's features and the vocab head's columns are split
+over the model ranks, as the JAX rules split them, and gathered where
+they are used; the kernel takes whole weights, so greedy decode runs the
+step loop of PyTorch ops (``loop_greedy``).
 """
 
 from __future__ import annotations
@@ -39,11 +45,16 @@ from depth_image_captioning_pub_torch.ops.kernels.nic_seq import (
 from depth_image_captioning_pub_torch.ops.precision import full_f32
 from depth_image_captioning_pub_torch.ops.lstm import (
     LSTMCellParams, StackedLSTMParams, stacked_lstm_step)
+from depth_image_captioning_pub_torch.parallel.tp import (
+    copy_to_region, gather_from_region)
 
 
 class NICDecoder(nn.Module):
     """Stacked-LSTM decoder, float32 parameters; ``dtype`` is the
-    teacher-forced pass's state dtype (f32, or bf16)."""
+    teacher-forced pass's state dtype (f32, or bf16); ``tp``: the model
+    axis of a tensor-parallel decoder."""
+
+    tp = None
 
     def __init__(self, vocab_size: int, dim_embedding: int = 300,
                  dim_hidden: int = 128, num_layers: int = 2, device=None,
@@ -87,8 +98,26 @@ class NICDecoder(nn.Module):
             for li in range(self.num_layers)))
 
     def seq_weights(self) -> NICSeqWeights:
+        if self.tp is not None:
+            raise ValueError("the NIC kernel takes whole weight matrices: "
+                             "a tensor-parallel decoder runs its steps as "
+                             "PyTorch ops")
         return pack_nic_weights(self.lstm(), self.out_w, self.out_b,
                                 self.embed)
+
+    def _embedding(self, ids: torch.Tensor) -> torch.Tensor:
+        """The embedding rows of ``ids`` (gathered over ``tp``)."""
+        emb = self.embed[ids]
+        return emb if self.tp is None else gather_from_region(emb, self.tp,
+                                                              -1)
+
+    def _logits(self, h: torch.Tensor) -> torch.Tensor:
+        """The vocab head on h (over ``tp``: this rank's vocabulary
+        columns, gathered)."""
+        if self.tp is None:
+            return h @ self.out_w + self.out_b
+        return gather_from_region(copy_to_region(h, self.tp) @ self.out_w
+                                  + self.out_b, self.tp, -1)
 
     @full_f32()   # every f32 product, forward (and the caller's backward)
     def forward(self, features: torch.Tensor, captions: torch.Tensor, *,
@@ -103,7 +132,7 @@ class NICDecoder(nn.Module):
         ``dropout_keep(0, [B, L, H])``, drawn from ``generator`` when the
         hook is None. A bf16 decoder casts the inputs and the state to
         bf16; the products and the logits stay f32."""
-        emb = self.embed[captions[:, :-1].long()]
+        emb = self._embedding(captions[:, :-1].long())
         xs = torch.cat([features[:, None, :].to(emb.dtype), emb],
                        dim=1).to(self.dtype)
         bsz = xs.shape[0]
@@ -120,15 +149,18 @@ class NICDecoder(nn.Module):
             keep = (dropout_keep or dropout_masks(generator, self.dropout))(
                 0, tuple(outs.shape))
             outs = torch.where(keep, outs / (1.0 - self.dropout), 0.0)
-        return outs.to(torch.float32) @ self.out_w + self.out_b
+        return self._logits(outs.to(torch.float32))
 
     @torch.no_grad()
     def greedy_sample(self, features: torch.Tensor, *,
                       max_length: int = 30) -> torch.Tensor:
         """Batched greedy decode of image embeddings [B, E]: tokens [B,
         max_length] int32, always ``max_length`` steps (no <end> exit), in
-        one call of the whole-sequence kernel."""
+        one call of the whole-sequence kernel (a tensor-parallel decoder:
+        ``loop_greedy``)."""
         refuse_mixed(self.dtype, "the NIC decode kernel")
+        if self.tp is not None:
+            return self.loop_greedy(features, max_length=max_length)
         return fused_nic_greedy_decode(
             features.to(torch.float32).contiguous(), self.seq_weights(),
             max_length=max_length)
@@ -148,6 +180,33 @@ class NICDecoder(nn.Module):
         ``AttentionDecoder.stochastic_sample``'s (``noise(t)`` or
         ``generator``)."""
         refuse_mixed(self.dtype, "stochastic sampling")
+
+        def choose(t, logits):
+            filt = filtered_logits(logits, temperature=temperature,
+                                   top_k=top_k, top_p=top_p)
+            z = (noise(t) if noise is not None
+                 else gumbel_noise(filt.shape, generator))
+            return gumbel_argmax(filt, z)
+        return self._step_loop(features, choose, max_length)
+
+    @torch.no_grad()
+    @full_f32()   # the f32 LSTM and head products, without TF32
+    def loop_greedy(self, features: torch.Tensor, *,
+                    max_length: int = 30) -> torch.Tensor:
+        """Greedy decode as a loop of PyTorch ops, no kernel (the JAX
+        package's XLA scan): what a tensor-parallel decoder runs; K3's
+        tokens are this loop's up to the order of its f32 sums."""
+        refuse_mixed(self.dtype, "greedy decode")
+        return self._step_loop(
+            features,
+            lambda t, logits: torch.argmax(logits, dim=-1).to(torch.int32),
+            max_length)
+
+    def _step_loop(self, features: torch.Tensor, choose,
+                   max_length: int) -> torch.Tensor:
+        """``max_length`` steps of the stacked LSTM (the image embedding
+        at step 0, then the previous token's embedding), the head and
+        ``choose(t, logits)`` -> the token."""
         bsz = features.shape[0]
         zeros = torch.zeros((self.num_layers, bsz, self.dim_hidden),
                             dtype=torch.float32, device=features.device)
@@ -158,14 +217,9 @@ class NICDecoder(nn.Module):
                              device=features.device)
         for t in range(max_length):
             out, hs, cs = stacked_lstm_step(lstm, x, hs, cs)
-            filt = filtered_logits(out @ self.out_w + self.out_b,
-                                   temperature=temperature, top_k=top_k,
-                                   top_p=top_p)
-            z = (noise(t) if noise is not None
-                 else gumbel_noise(filt.shape, generator))
-            token = gumbel_argmax(filt, z)
+            token = choose(t, self._logits(out))
             tokens[:, t] = token
-            x = self.embed[token.long()]
+            x = self._embedding(token.long())
         return tokens
 
     @torch.no_grad()
@@ -190,9 +244,9 @@ class NICDecoder(nn.Module):
             # the search gathers along dim 0, so state is [B*W, layers, H]
             hs = state["h"].transpose(0, 1)
             cs = state["c"].transpose(0, 1)
-            x = feats if t == 0 else self.embed[prev.long()]
+            x = feats if t == 0 else self._embedding(prev.long())
             out, hs, cs = stacked_lstm_step(lstm, x, hs, cs)
-            logits = out @ self.out_w + self.out_b
+            logits = self._logits(out)
             return ({"h": hs.transpose(0, 1), "c": cs.transpose(0, 1)},
                     log_softmax(logits))
 

@@ -9,6 +9,8 @@ from typing import NamedTuple, Tuple
 import torch
 
 from depth_image_captioning_pub_torch.ops.precision import matmul_f32
+from depth_image_captioning_pub_torch.parallel.tp import (
+    copy_to_region, gather_from_region)
 
 
 class LSTMCellParams(NamedTuple):
@@ -19,15 +21,22 @@ class LSTMCellParams(NamedTuple):
 
 
 def lstm_cell(p: LSTMCellParams, x: torch.Tensor, h: torch.Tensor,
-              c: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+              c: torch.Tensor, axis=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """One LSTMCell step in f32: returns (h', c') in h's and c's dtypes.
     The gate products accumulate in f32 on exactly upcast operands
     (``matmul_f32``: bf16 weights and inputs of the mixed-precision
     decoder keep bf16 values and get an f32 result); the biases are summed
-    in their own dtype, then upcast, as the JAX cell does."""
+    in their own dtype, then upcast, as the JAX cell does. ``axis``: the
+    model axis (``parallel/tp``) over which the weights' ``4H`` gate
+    columns are split; this rank's gates are gathered before the cell."""
     f32 = torch.float32
-    gates = (matmul_f32(x, p.w_ih) + matmul_f32(h, p.w_hh)
+    hx = h
+    if axis is not None:
+        x, hx = copy_to_region(x, axis), copy_to_region(h, axis)
+    gates = (matmul_f32(x, p.w_ih) + matmul_f32(hx, p.w_hh)
              + (p.b_ih + p.b_hh).to(f32))
+    if axis is not None:
+        gates = gather_from_region(gates, axis, -1)
     i, f, g, o = gates.chunk(4, dim=-1)
     c_new = torch.sigmoid(f) * c.to(f32) + torch.sigmoid(i) * torch.tanh(g)
     h_new = torch.sigmoid(o) * torch.tanh(c_new)

@@ -26,6 +26,16 @@ BatchNorm use. Each is a no-op in a process without a group. Under the
 gloo backend a CUDA tensor goes through host memory (gloo's collectives
 other than all-reduce and broadcast take CPU tensors only); under NCCL a
 host tensor goes through the current card.
+
+A mesh may span a sub-group of the ranks (``group``; None is the default
+group). ``parallel/tp.make_mesh_2d`` lays the ranks out as a (data,
+model) grid and makes its data axis the mesh that ``make_mesh`` returns
+(``set_data_axis``) until its ``with`` block ends, so that the trainer's
+batch rows, loss normalizers, noise rows and gradient sum run over the
+ranks of one model column, which hold the same parameter shards. One
+layout at a time sets it; ``multihost.shutdown`` clears it with the group
+it subdivides. ``parallel/pp.make_stage_mesh`` does not set it: the
+pipeline takes its data axis as an argument (``batch_axis``).
 """
 
 from __future__ import annotations
@@ -43,12 +53,14 @@ DATA_AXIS = "data"
 class Mesh:
     """A 1-D mesh: this process's ``rank`` of ``size`` ranks over
     ``axis_name``; ``active`` when a process group exists (a group of one
-    rank is active, and runs its collectives)."""
+    rank is active, and runs its collectives); ``group``: the sub-group of
+    the ranks it spans, None for the default group."""
 
     rank: int
     size: int
     axis_name: str = DATA_AXIS
     active: bool = False
+    group: Any = None
 
     @property
     def sharded(self) -> bool:
@@ -57,12 +69,40 @@ class Mesh:
         return self.size > 1
 
 
+# The data axis of a layout over sub-groups: process-wide, as the default
+# process group it subdivides is, so that the steps, the depth encoder's
+# BatchNorm and the beam search's early exit reach it through make_mesh
+# as they reach the group.
+_DATA_AXIS: Optional[Mesh] = None
+
+
+def set_data_axis(mesh: Optional[Mesh]) -> None:
+    """Make ``mesh`` (the data axis of a layout over sub-groups) what
+    ``make_mesh`` returns; None undoes it. A ValueError when another data
+    axis is set: one layout at a time."""
+    global _DATA_AXIS
+    if mesh is not None and _DATA_AXIS is not None and mesh is not _DATA_AXIS:
+        raise ValueError("a layout's data axis is set already: end its "
+                         "`with` block before making another layout")
+    _DATA_AXIS = mesh
+
+
 def make_mesh(axis_name: str = DATA_AXIS) -> Mesh:
-    """The 1-D data mesh over the ranks of the default process group (one
+    """The 1-D data mesh: the data axis that a layout set
+    (``set_data_axis``), else the ranks of the default process group (one
     rank of one without a group)."""
     if not dist.is_initialized():
         return Mesh(0, 1, axis_name, False)
+    if _DATA_AXIS is not None:
+        return _DATA_AXIS
     return Mesh(dist.get_rank(), dist.get_world_size(), axis_name, True)
+
+
+def global_rank(mesh: Mesh, rank: int) -> int:
+    """The default group's rank of ``mesh``'s rank ``rank``."""
+    if mesh.group is None:
+        return rank
+    return dist.get_global_rank(mesh.group, rank)
 
 
 def pad_batch_to_devices(batch_size: int, n_devices: int) -> int:
@@ -153,10 +193,11 @@ def _to_comm(t: torch.Tensor) -> torch.Tensor:
 def all_reduce_sum(t: torch.Tensor, op=None) -> torch.Tensor:
     """The sum (or ``op``) of ``t`` over the ranks, a new tensor on
     ``t``'s device; ``t`` itself without a group."""
-    if not make_mesh().active:
+    mesh = make_mesh()
+    if not mesh.active:
         return t
     buf = _to_comm(t.detach()).clone()
-    dist.all_reduce(buf, op=op or dist.ReduceOp.SUM)
+    dist.all_reduce(buf, op=op or dist.ReduceOp.SUM, group=mesh.group)
     return buf.to(t.device)
 
 
@@ -164,10 +205,12 @@ def all_reduce_autograd(t: torch.Tensor) -> torch.Tensor:
     """The sum of ``t`` over the ranks with autograd through it (the
     gradient of each rank's copy is the sum of the ranks' gradients of
     the result); ``t`` itself with one rank."""
-    if not make_mesh().sharded:
+    mesh = make_mesh()
+    if not mesh.sharded:
         return t
     from torch.distributed.nn.functional import all_reduce
-    return all_reduce(_to_comm(t)).to(t.device)
+    return all_reduce(_to_comm(t),
+                      group=mesh.group or dist.group.WORLD).to(t.device)
 
 
 def all_gather_rows(t: torch.Tensor) -> torch.Tensor:
@@ -178,23 +221,27 @@ def all_gather_rows(t: torch.Tensor) -> torch.Tensor:
         return t
     src = _to_comm(t.contiguous())
     parts = [torch.empty_like(src) for _ in range(mesh.size)]
-    dist.all_gather(parts, src)
+    dist.all_gather(parts, src, group=mesh.group)
     return torch.cat(parts, dim=0).to(t.device)
 
 
 def broadcast_object(obj: Any, src: int = 0) -> Any:
     """Rank ``src``'s picklable ``obj`` on every rank."""
-    if not make_mesh().sharded:
+    mesh = make_mesh()
+    if not mesh.sharded:
         return obj
     box = [obj]
-    dist.broadcast_object_list(box, src=src)
+    dist.broadcast_object_list(box, src=global_rank(mesh, src),
+                               group=mesh.group)
     return box[0]
 
 
 def barrier() -> None:
-    """Wait until every rank gets here (nothing without a group)."""
-    if make_mesh().sharded:
-        dist.barrier()
+    """Wait until every rank of the mesh gets here (nothing without a
+    group)."""
+    mesh = make_mesh()
+    if mesh.sharded:
+        dist.barrier(group=mesh.group)
 
 
 def any_rank(flag: bool, device=None) -> bool:
@@ -215,7 +262,8 @@ def replicate(mesh: Mesh, modules: Iterable[torch.nn.Module]) -> None:
         for module in modules:
             for t in list(module.parameters()) + list(module.buffers()):
                 buf = _to_comm(t.detach()).clone()
-                dist.broadcast(buf, src=0)
+                dist.broadcast(buf, src=global_rank(mesh, 0),
+                               group=mesh.group)
                 t.copy_(buf.to(t.device))
 
 

@@ -14,11 +14,15 @@ over it.
 The backend is NCCL for a CUDA device and gloo for the CPU, unless the
 caller names one: two gloo ranks may share one card, which NCCL refuses.
 A backend that is not available raises; nothing falls back to another.
+``timeout`` bounds each collective (gloo's default is 30 minutes): a rank
+whose peer died then raises instead of waiting, as the ``timeout`` of
+``jax.distributed.initialize`` bounds the JAX package's.
 """
 
 from __future__ import annotations
 
 import os
+from datetime import timedelta
 from typing import Optional, Tuple
 
 import numpy as np
@@ -29,7 +33,8 @@ import torch.distributed as dist
 def initialize(coordinator_address: Optional[str] = None,
                num_processes: Optional[int] = None,
                process_id: Optional[int] = None,
-               backend: Optional[str] = None, device="cuda") -> None:
+               backend: Optional[str] = None, device="cuda",
+               timeout: Optional[timedelta] = None) -> None:
     """Join the default process group on every process.
 
     ``coordinator_address``: ``host:port`` of rank 0's store (``tcp://``),
@@ -38,6 +43,8 @@ def initialize(coordinator_address: Optional[str] = None,
     the world size and this process's rank (None: from the environment).
     ``backend``: "nccl" or "gloo"; by default NCCL when ``device`` is a
     CUDA device (then also made the current device) and gloo otherwise.
+    ``timeout``: how long a collective waits for its peers (None: the
+    backend's default).
     """
     device = torch.device(device)
     if backend is None:
@@ -61,12 +68,17 @@ def initialize(coordinator_address: Optional[str] = None,
         kwargs["world_size"] = int(num_processes)
     if process_id is not None:
         kwargs["rank"] = int(process_id)
+    if timeout is not None:
+        kwargs["timeout"] = timeout
     dist.init_process_group(backend=backend, init_method=init_method,
                             **kwargs)
 
 
 def shutdown() -> None:
-    """Leave the default process group, if this process joined one."""
+    """Leave the default process group, if this process joined one (and
+    the data axis of a layout over its sub-groups)."""
+    from depth_image_captioning_pub_torch.parallel.mesh import set_data_axis
+    set_data_axis(None)
     if dist.is_initialized():
         dist.destroy_process_group()
 
@@ -102,10 +114,10 @@ def build_kernels(device) -> None:
     if torch.device(device).type != "cuda":
         return
     from depth_image_captioning_pub_torch.ops.kernels import _build
-    from depth_image_captioning_pub_torch.parallel.mesh import barrier
     if process_index() == 0:
         _build.load()
-    barrier()
+    if process_count() > 1:
+        dist.barrier()          # every rank, whatever the mesh's axes
     _build.load()
 
 

@@ -420,6 +420,25 @@ def test_vit_attention_at_dpt_224(cuda):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,n_valid", [(577, 577), (578, 577)])
+def test_vit_attention_at_tp_and_sp_shapes(cuda, dtype, n, n_valid):
+    """K5 as the parallel DPT launches it (``parallel/tp``): half of
+    ViT-B's 12 heads over two model ranks, Z = 4 images x 6 heads of 64,
+    at N = 577, and at the 577 tokens padded to 578 that token sharding
+    gathers over two ranks (n_valid 577)."""
+    q, k, v = _qkv(n + 1, (4 * 6, n, 64), cuda, dtype)
+    before = vit_attention.LAUNCHES
+    got = vit_attention.fused_attention(q, k, v, scale=0.125,
+                                        n_valid=n_valid)
+    torch.cuda.synchronize()
+    assert vit_attention.LAUNCHES == before + 1
+    want = vit_attention.fused_attention_plain(q, k, v, scale=0.125,
+                                               n_valid=n_valid)
+    torch.testing.assert_close(got.float(), want.float(), atol=_vit_atol(v),
+                               rtol=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_vit_attention_masks_padded_keys(cuda, dtype):
     """Keys >= n_valid get no weight: garbage there changes nothing (in
     bf16 the rows are never read, so NaN cannot reach the mma)."""

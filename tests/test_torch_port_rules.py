@@ -307,3 +307,19 @@ def test_parallel_modules_are_guarded():
         "device"].default == "cuda"
     for module in (mesh, multihost):
         assert "is_available" not in inspect.getsource(module)
+
+
+def test_model_parallel_modules_are_guarded():
+    """Tensor and pipeline parallelism's modules are among the sources the
+    import guard walks, and look for no card to fall back from; the
+    models that run them and the port's other entries still default to
+    the card (``test_entry_points_default_to_cuda``)."""
+    from depth_image_captioning_pub_torch.parallel import pp, tp
+    names = {p.relative_to(REPO).as_posix() for p in _port_sources()}
+    pkg = "depth_image_captioning_pub_torch"
+    assert {f"{pkg}/parallel/tp.py", f"{pkg}/parallel/pp.py"} <= names
+    for module in (tp, pp):
+        assert "is_available" not in inspect.getsource(module)
+        assert "\"cpu\"" not in inspect.getsource(module)
+    assert inspect.signature(dpt.DPTDepthEstimator).parameters[
+        "device"].default == "cuda"

@@ -11,6 +11,13 @@ files) and reads back what each rank returns.
 starts ``world`` children of this file on ``TASKS[task]`` and waits for
 them; ``start_ranks`` returns them running (``wait_ranks`` collects), so
 that the test process can compute its references meanwhile.
+
+No run can outlast its test: each child's collectives give up after
+``COLLECTIVE_TIMEOUT`` (gloo's own default is 30 minutes), and
+``wait_ranks`` holds one deadline for the whole group, polls every rank,
+and as soon as one rank exits non-zero kills the others and fails with the
+failed ranks' output (each child writes it to a file of its run
+directory, so that no pipe fills).
 """
 
 import builtins
@@ -20,6 +27,9 @@ import os
 import subprocess
 import sys
 import tempfile
+import time
+import traceback
+from datetime import timedelta
 from pathlib import Path
 
 import numpy as np
@@ -28,6 +38,7 @@ import torch
 HERE = Path(__file__).resolve().parent
 LAYERS, HW = (1, 1, 1, 1), 64
 SMALL_GRAD = 1e-6     # tests/test_torch_train_steps.py's rounding room
+COLLECTIVE_TIMEOUT = timedelta(seconds=120)
 
 
 # ---- the test process's side --------------------------------------------
@@ -49,28 +60,46 @@ def start_ranks(tmp_path, world, task, plain=False, **args):
                "plain": plain}
         path = run / f"job{rank}.json"
         path.write_text(json.dumps(job))
-        procs.append(subprocess.Popen(
-            [sys.executable, str(HERE / "torch_parallel_child.py"),
-             str(path)], env=env, stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True))
+        with open(run / f"log{rank}.txt", "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(HERE / "torch_parallel_child.py"),
+                 str(path)], env=env, stdout=log,
+                stderr=subprocess.STDOUT, text=True))
     return run, procs
 
 
 def wait_ranks(group, timeout=300):
-    """Every rank's result, in rank order; AssertionError with a rank's
-    output if it failed."""
+    """Every rank's result, in rank order. One deadline, ``timeout``
+    seconds, for the whole group: every rank is polled, and as soon as one
+    exits non-zero the others are killed and an AssertionError gives the
+    output of every rank that did not finish (a rank whose peer failed may
+    exit before that peer does); at the deadline every rank is killed."""
     run, procs = group
-    logs = []
+    deadline = time.monotonic() + timeout
+    late = False
     try:
-        for proc in procs:
-            logs.append(proc.communicate(timeout=timeout)[0])
+        while True:
+            codes = [proc.poll() for proc in procs]
+            if any(codes) or all(code == 0 for code in codes):
+                break
+            late = time.monotonic() > deadline
+            if late:
+                break
+            time.sleep(0.05)
     finally:
         for proc in procs:
             if proc.poll() is None:
                 proc.kill()
-                proc.wait()
-    for rank, (proc, log) in enumerate(zip(procs, logs)):
-        assert proc.returncode == 0, f"rank {rank} failed:\n{log}"
+            proc.wait()
+    failed = [r for r, code in enumerate(codes) if code]
+    failed += [r for r, code in enumerate(codes) if code is None]
+    if failed:
+        raise AssertionError("\n".join(
+            f"rank {r} "
+            + (f"failed (exit {codes[r]})" if codes[r] else
+               f"still running after {timeout} s" if late else
+               "stopped") + ":\n" + (run / f"log{r}.txt").read_text()
+            for r in failed))
     return [torch.load(run / f"{r}.pt", weights_only=False)
             for r in range(len(procs))]
 
@@ -346,8 +375,28 @@ def task_evaluate(root, cases):
     return out
 
 
+def task_fail(raise_on):
+    """Rank ``raise_on`` raises; the others wait in a collective for it."""
+    import torch.distributed as dist
+    from depth_image_captioning_pub_torch.parallel import multihost
+    if multihost.process_index() == raise_on:
+        raise RuntimeError(f"rank {raise_on} fails before its collective")
+    dist.all_reduce(torch.zeros(1))
+    return {}
+
+
+def _tasks(module, name):
+    """A task of another module of this directory, imported in the
+    child."""
+    def run(**args):
+        return getattr(__import__(module), name)(**args)
+    return run
+
+
 TASKS = {"train": task_train, "resume": task_resume,
-         "evaluate": task_evaluate}
+         "evaluate": task_evaluate, "fail": task_fail,
+         "tp": _tasks("torch_tp_tasks", "task_tp"),
+         "pp": _tasks("torch_tp_tasks", "task_pp")}
 
 
 def main(job_path):
@@ -356,11 +405,17 @@ def main(job_path):
     from depth_image_captioning_pub_torch.parallel import multihost
     if not job["plain"]:
         multihost.initialize(f"file://{job['store']}", job["world"],
-                             job["rank"], backend="gloo", device="cpu")
+                             job["rank"], backend="gloo", device="cpu",
+                             timeout=COLLECTIVE_TIMEOUT)
     try:
         result = TASKS[job["task"]](**job["args"])
-    finally:
-        multihost.shutdown()
+    except BaseException:
+        # the traceback goes to the log before this rank's peers learn of
+        # its end, and no teardown waits on them
+        traceback.print_exc()
+        sys.stderr.flush()
+        os._exit(1)
+    multihost.shutdown()
     torch.save(result, job["out"])
 
 
