@@ -77,6 +77,7 @@ from depth_image_captioning_pub_torch.ops.pooling import global_avg_pool
 from depth_image_captioning_pub_torch.parallel.mesh import (
     all_gather_rows, any_rank, batch_sharding, broadcast_object,
     global_rows, make_mesh, pad_batch_to_devices)
+from depth_image_captioning_pub_torch.utils import tracing
 from depth_image_captioning_pub_torch.utils.jax_bridge import (
     flatten_tree, params_from_jax)
 
@@ -119,6 +120,11 @@ def make_caption_fn(cap: Captioner, start_id: int, max_length: int = 30,
     -> an entry of the frozen stages' outputs and ``fn.decode(entry,
     att_noise=None, noise=None)`` -> tokens; ``fn(images)`` is the one
     after the other.
+
+    With ``utils/tracing`` on, the stages record their spans:
+    ``frozen.rgb_encoder`` (/255, normalization, the encoder),
+    ``frozen.depth`` (``depth_fn``), ``decode.depth_encoder`` and the
+    decode call, ``decode``, in every mode.
     """
     if beam_size > 1 and cap.spec.attention == "soft":
         check_beam_size(beam_size, cap.device)
@@ -139,23 +145,25 @@ def make_caption_fn(cap: Captioner, start_id: int, max_length: int = 30,
     if cap.spec.is_nic:
         @torch.inference_mode()
         def nic_frozen(images: torch.Tensor) -> Dict[str, torch.Tensor]:
-            x = imagenet_normalize(to_unit_float(images))
-            return {"pooled": global_avg_pool(cap.backbone(x))}
+            with tracing.span("frozen.rgb_encoder"):
+                x = imagenet_normalize(to_unit_float(images))
+                return {"pooled": global_avg_pool(cap.backbone(x))}
 
         @torch.inference_mode()
         def nic_decode(entry: Dict[str, torch.Tensor],
                        att_noise: Optional[AttNoise] = None,
                        noise: Optional[Callable] = None) -> torch.Tensor:
-            feats = cap.projection(entry["pooled"])
-            if beam_size > 1:
-                return cap.decoder.beam_sample(
-                    feats, end_id, beam_size=beam_size,
-                    max_length=max_length, length_penalty=length_penalty,
-                    early_exit=True)[0]
-            if sampling is not None:
-                return sample(feats, generator, max_length=max_length,
-                              noise=noise)
-            return sample(feats, max_length=max_length)
+            with tracing.span("decode"):
+                feats = cap.projection(entry["pooled"])
+                if beam_size > 1:
+                    return cap.decoder.beam_sample(
+                        feats, end_id, beam_size=beam_size,
+                        max_length=max_length,
+                        length_penalty=length_penalty, early_exit=True)[0]
+                if sampling is not None:
+                    return sample(feats, generator, max_length=max_length,
+                                  noise=noise)
+                return sample(feats, max_length=max_length)
         return _two_stage(nic_frozen, nic_decode)
 
     hard = cap.spec.attention == "hard"
@@ -166,10 +174,12 @@ def make_caption_fn(cap: Captioner, start_id: int, max_length: int = 30,
                ) -> Dict[str, Optional[torch.Tensor]]:
         """The frozen stages: {"feats", "depth_maps"} (None without
         depth); ``depth_maps`` given (a replayed set) skips the DPT."""
-        images = to_unit_float(images)
-        feats = encoder(imagenet_normalize(images))
+        with tracing.span("frozen.rgb_encoder"):
+            images = to_unit_float(images)
+            feats = encoder(imagenet_normalize(images))
         if depth_encoder is not None and depth_maps is None:
-            depth_maps = depth_fn(images)
+            with tracing.span("frozen.depth"):
+                depth_maps = depth_fn(images)
         return {"feats": feats, "depth_maps": depth_maps}
 
     @torch.inference_mode()
@@ -185,19 +195,22 @@ def make_caption_fn(cap: Captioner, start_id: int, max_length: int = 30,
         feats = entry["feats"]
         dep = None
         if depth_encoder is not None:
-            dep = depth_encoder(entry["depth_maps"])
-        if sampling is not None:     # the generator draws the tokens too
-            return sample(feats, start_id, generator, dep,
-                          max_length=max_length, noise=noise, **regions)[0]
-        if hard:
-            regions["generator"] = generator
-        if beam_size > 1:
-            return cap.decoder.beam_sample(
-                feats, start_id, end_id, dep, beam_size=beam_size,
-                max_length=max_length, length_penalty=length_penalty,
-                **regions)[0]
-        return sample(feats, start_id, dep, max_length=max_length,
-                      end_id=end_id, **regions)
+            with tracing.span("decode.depth_encoder"):
+                dep = depth_encoder(entry["depth_maps"])
+        with tracing.span("decode"):
+            if sampling is not None:     # the generator draws the tokens too
+                return sample(feats, start_id, generator, dep,
+                              max_length=max_length, noise=noise,
+                              **regions)[0]
+            if hard:
+                regions["generator"] = generator
+            if beam_size > 1:
+                return cap.decoder.beam_sample(
+                    feats, start_id, end_id, dep, beam_size=beam_size,
+                    max_length=max_length, length_penalty=length_penalty,
+                    **regions)[0]
+            return sample(feats, start_id, dep, max_length=max_length,
+                          end_id=end_id, **regions)
 
     return _two_stage(frozen, decode)
 

@@ -79,6 +79,7 @@ from depth_image_captioning_pub_torch.ops.precision import (
     full_f32, matmul_f32)
 from depth_image_captioning_pub_torch.parallel.tp import (
     copy_to_region, gather_from_region)
+from depth_image_captioning_pub_torch.utils import tracing
 
 AttNoise = Callable[[int, Sequence[int]], torch.Tensor]
 
@@ -371,7 +372,8 @@ class AttentionDecoder(nn.Module):
         Hard attention runs ``_hard_greedy``: all ``max_length`` steps of
         PyTorch ops, the region noise of step t from ``att_noise(t, [B,
         K])`` or ``generator``. A tensor-parallel soft decoder runs
-        ``loop_greedy``.
+        ``loop_greedy``. With ``utils/tracing`` on, each adds the rows times
+        the steps it ran to the counter ``decode.steps_run``.
         """
         refuse_mixed(self.dtype, "greedy decode")
         if self.attention_kind == "hard":
@@ -452,6 +454,7 @@ class AttentionDecoder(nn.Module):
                 done = done | (token == end_id)
             tokens[:, t] = token
             prev = token.long()
+        tracing.count("decode.steps_run", bsz * max_length)
         return tokens
 
     @torch.no_grad()
@@ -569,6 +572,7 @@ class AttentionDecoder(nn.Module):
             tokens[:, t] = token
             alphas[:, t] = alpha
             prev = token.long()
+        tracing.count("decode.steps_run", bsz * max_length)
         return tokens, alphas
 
     @torch.no_grad()

@@ -16,10 +16,12 @@ loop); the wrapper calls operator ``dcap::greedy_decode``
 (``library.py``), which dispatches on the device. ``end_id >= 0`` gives
 finished rows <end>-padding and stops once every row is done, the output
 of the JAX early-exit paths; ``end_id < 0`` runs all ``max_length`` steps.
-Any batch size B >= 1 is taken as it is: there is no padding to a multiple
-of 8 as on the TPU. Widths the phases cannot read (D, E or H not a
-multiple of 8, A not of 4) are zero-padded for the launch (``pad_seq``),
-which leaves the tokens as they are.
+With ``utils/tracing`` on, a call adds the steps it ran (``steps_run``) to
+the counter ``decode.steps_run``. Any batch size B >= 1 is taken as it
+is: there is no padding to a multiple of 8 as on the TPU. Widths the
+phases cannot read (D, E or H not a multiple of 8, A not of 4) are
+zero-padded for the launch (``pad_seq``), which leaves the tokens as
+they are.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from depth_image_captioning_pub_torch.ops.kernels.decode_step import (
     check_float32, check_kernel_device, check_same_device, check_shape,
     check_step_weights, cuda_pointers, kernel_widths, pad_step_weights,
     plain_step_params, zero_pad)
+from depth_image_captioning_pub_torch.utils import tracing
 
 LAUNCHES = 0   # kernel launches of dcap_greedy_decode in this process
 
@@ -230,9 +233,26 @@ def fused_greedy_decode(features: torch.Tensor, features_proj: torch.Tensor,
         raise ValueError(f"start_id {start_id} / end_id {end_id} outside "
                          f"the vocabulary of {vocab}")
     check_kernel_device(features.device)
-    return torch.ops.dcap.greedy_decode(features, features_proj, h0, c0,
-                                        seq_list(w), max_length, start_id,
-                                        end_id)
+    tokens = torch.ops.dcap.greedy_decode(features, features_proj, h0, c0,
+                                          seq_list(w), max_length, start_id,
+                                          end_id)
+    tracing.count_later("decode.steps_run", steps_run, tokens, end_id)
+    return tokens
+
+
+def steps_run(tokens: torch.Tensor, end_id: int) -> int:
+    """The rows times the steps a call ran, from its tokens [B, L]. With
+    ``end_id >= 0`` the kernel and the plain version stop after the step in
+    which the last row emits <end> (the kernel also runs the next step's
+    attention phase before its test, not counted): the first step whose
+    column is all <end>, since a row that has ended is <end> from then on.
+    Otherwise, or where a row never ends, all L steps."""
+    bsz, length = tokens.shape
+    if end_id < 0:
+        return bsz * length
+    ended = (tokens.cpu() == end_id).all(0)
+    return bsz * (int(ended.int().argmax()) + 1 if bool(ended.any())
+                  else length)
 
 
 def seq_list(w: DecodeSeqWeights):

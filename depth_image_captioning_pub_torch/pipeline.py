@@ -66,7 +66,7 @@ with no ``batch_buckets`` is the one bucket, as in the JAX pipeline.
 from __future__ import annotations
 
 import copy
-from typing import Dict, List, Sequence, Union
+from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -77,6 +77,7 @@ from depth_image_captioning_pub_torch.engine.evaluate import make_caption_fn
 from depth_image_captioning_pub_torch.ops.decode import gumbel_noise
 from depth_image_captioning_pub_torch.parallel.mesh import (
     pad_batch_to_devices)
+from depth_image_captioning_pub_torch.utils import tracing
 
 ImageLike = Union[str, np.ndarray]
 
@@ -100,6 +101,15 @@ class _SharedNoise:
         return self.draws[key][r * n:(r + 1) * n].to(device)
 
 
+def row_steps(tokens: np.ndarray, end_id: Optional[int]) -> np.ndarray:
+    """Per row of ``tokens``, the decode steps up to and including its
+    first <end> (all of them where it has none, or ``end_id`` is None)."""
+    if end_id is None:
+        return np.full(len(tokens), tokens.shape[1])
+    ended = tokens == end_id
+    return np.where(ended.any(1), ended.argmax(1) + 1, tokens.shape[1])
+
+
 def _replica(cap, device):
     """A copy of the captioner on ``device``."""
     rep = copy.deepcopy(cap).to(device)
@@ -113,6 +123,8 @@ class CaptionPipeline:
     stochastic sampling when ``sample`` (soft greedy and beam search ignore
     ``seed``; beam search with ``sample`` raises); over the ``devices``
     given, one replica each."""
+
+    _end_id: Optional[int] = None
 
     def __init__(self, cap, word_to_id: Dict[str, int],
                  id_to_word: Dict[int, str], *, depth_fn=None,
@@ -151,6 +163,7 @@ class CaptionPipeline:
         self.length_penalty = float(length_penalty)
         self.sampling = ({"temperature": temperature, "top_k": top_k,
                           "top_p": top_p} if self.sample else None)
+        self._end_id = word_to_id.get(SPECIAL.end)
         self.replicas = [cap] + [_replica(cap, d) for d in self.devices[1:]]
         depth_fns = {}          # the frozen DPT: one per device
         if depth_fn is not None:
@@ -247,35 +260,55 @@ class CaptionPipeline:
             raise ValueError(f"expected uint8 [N, {self.image_hw[0]}, "
                              f"{self.image_hw[1]}, 3] images, got "
                              f"{arrays.dtype} {arrays.shape}")
-        pending = []          # (dispatched tokens, valid) one chunk ahead
-        rows = [np.zeros((0, self.max_length), np.int32)]
-
-        def drain(parts, valid):
-            rows.append(torch.cat([p.cpu() for p in parts]).numpy()[:valid])
-
-        for lo in range(0, arrays.shape[0], self.batch_size):
-            chunk = arrays[lo:lo + self.batch_size]
-            valid = chunk.shape[0]
-            bucket = next(b for b in self.batch_buckets if b >= valid)
-            if valid < bucket:
-                reps = np.zeros((bucket - valid,), np.int64)
-                chunk = np.concatenate([chunk, chunk[reps]], axis=0)
-            images = torch.from_numpy(np.ascontiguousarray(chunk))
-            if self._reseed:
-                self.generator.manual_seed(self.seed)
-            pending.append((self._dispatch(images), valid))
-            if len(pending) > 1:
-                drain(*pending.pop(0))
-        for parts, valid in pending:
-            drain(parts, valid)
+        with tracing.request("pipeline.request"):
+            pending = []      # (dispatched tokens, valid) one chunk ahead
+            rows = [np.zeros((0, self.max_length), np.int32)]
+            for lo in range(0, arrays.shape[0], self.batch_size):
+                chunk = arrays[lo:lo + self.batch_size]
+                valid = chunk.shape[0]
+                bucket = next(b for b in self.batch_buckets if b >= valid)
+                with tracing.span("pipeline.chunk", rows=valid,
+                                  bucket=bucket):
+                    if valid < bucket:
+                        reps = np.zeros((bucket - valid,), np.int64)
+                        chunk = np.concatenate([chunk, chunk[reps]], axis=0)
+                    chunk = np.ascontiguousarray(chunk)
+                    images = torch.from_numpy(chunk)
+                    if self._reseed:
+                        self.generator.manual_seed(self.seed)
+                    pending.append((self._dispatch(images), valid))
+                if len(pending) > 1:
+                    rows.append(self._drain(*pending.pop(0)))
+            for parts, valid in pending:
+                rows.append(self._drain(parts, valid))
         return np.concatenate(rows, axis=0)
+
+    def _drain(self, parts: List[torch.Tensor], valid: int) -> np.ndarray:
+        """A chunk's tokens on the host, its padding rows dropped."""
+        with tracing.span("pipeline.drain"):
+            tokens = np.concatenate([p.cpu().numpy() for p in parts])
+        if tracing.enabled():
+            self._count(tokens, valid)
+        return tokens[:valid]
+
+    def _count(self, tokens: np.ndarray, valid: int) -> None:
+        """The tracer's counters of one drained chunk: its rows and, from
+        its tokens, the valid rows' steps (the decode path counts the
+        steps it ran)."""
+        tracing.count("chunks")
+        tracing.count("rows", valid)
+        tracing.count("padding_rows", len(tokens) - valid)
+        tracing.count("decode.row_steps",
+                      int(row_steps(tokens[:valid], self._end_id).sum()))
 
     def _dispatch(self, images: torch.Tensor) -> List[torch.Tensor]:
         """Launch one chunk: the whole chunk on the one device, or each
         replica's contiguous rows on its device (all launched before any
         is waited on); returns the parts' token tensors in order."""
         if len(self.devices) == 1:
-            return [self._fn(images.to(self.device))]
+            with tracing.span("pipeline.h2d"):
+                images = images.to(self.device)
+            return [self._fn(images)]
         per = images.shape[0] // len(self.replicas)
         shared = _SharedNoise(self.generator, len(self.replicas)) \
             if self.generator is not None else None
@@ -293,8 +326,9 @@ class CaptionPipeline:
                     hooks["noise"] = (
                         lambda t, r=r, dev=dev:
                         shared.rows(("tokens", t), (per, vocab), r, dev))
-            parts.append(fn(images[r * per:(r + 1) * per].to(rep.device),
-                            **hooks))
+            with tracing.span("pipeline.h2d"):
+                part = images[r * per:(r + 1) * per].to(rep.device)
+            parts.append(fn(part, **hooks))
         return parts
 
     def _to_arrays(self, images: Sequence[ImageLike]) -> np.ndarray:
