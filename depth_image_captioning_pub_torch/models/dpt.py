@@ -3,7 +3,9 @@
 
 * ResNetV2 stem (weight-standardized 7x7/2 conv + GroupNorm(32) + ReLU +
   SAME max-pool 3x3/2) and three post-activation bottleneck stages (3, 4, 9)
-  with taps after stages 0 (/4) and 1 (/8);
+  with taps after stages 0 (/4) and 1 (/8); every GroupNorm runs the NHWC
+  kernel of ``ops/kernels/group_norm.py`` (its plain version on the CPU),
+  with the ReLU, or a bottleneck's shortcut add and ReLU, fused into it;
 * 1x1 patch projection, class token, position embeddings (bilinearly
   resized for grids other than 24x24), pre-LN transformer blocks with taps
   after blocks 8 and 11; attention runs the CUDA kernel of
@@ -15,14 +17,20 @@
 
 Modules take and return NHWC tensors, as the JAX modules do; convolutions
 see them as channels_last NCHW views, so the layout change copies nothing.
+The backbone's activations stay contiguous NHWC from the stem's input to
+the /16 tap: no GroupNorm, padding or convolution there converts one to
+NCHW.
 Everything runs in the module's ``dtype`` (bf16 on the card, f32 in the
 parity tests), parameters included, except the raw ``StdConv`` kernels,
 the class token and the position embeddings, which stay f32 and are cast
 where they are used, as in the JAX package.
 
 XLA's SAME padding puts the odd pixel of a stride-2 window at the end
-(``lo = total // 2``); ``same_pads`` reproduces it with an explicit
-``F.pad``, since torch's symmetric ``padding`` cannot.
+(``lo = total // 2``); ``same_pads`` reproduces it: where the two sides
+differ (the stem, the stride-2 3x3 convs, the max-pool) with an explicit
+``F.pad`` of the NHWC tensor, since torch's symmetric ``padding`` cannot,
+and where they agree (every stride-1 3x3) with the convolution's own zero
+padding, which is exact.
 
 Submodule names follow the flax names, so ``utils/jax_bridge.py`` maps the
 flax tree path for path. Two of the JAX package's throughput knobs are
@@ -60,7 +68,8 @@ import torch.nn.functional as F
 
 from depth_image_captioning_pub_torch.ops.image_ops import (
     dpt_normalize, resize_bilinear, standardize_depth_map, to_unit_float)
-from depth_image_captioning_pub_torch.ops.kernels import vit_attention
+from depth_image_captioning_pub_torch.ops.kernels import (
+    group_norm, vit_attention)
 from depth_image_captioning_pub_torch.ops.pooling import nchw, nhwc
 from depth_image_captioning_pub_torch.parallel.tp import (
     copy_to_region, gather_from_region, reduce_from_region,
@@ -83,12 +92,12 @@ def same_pads(size: int, kernel: int, stride: int) -> Tuple[int, int]:
 
 def pad_same(x: torch.Tensor, kernel: int, stride: int,
              value: float = 0.0) -> torch.Tensor:
-    """Pad an NCHW tensor for a SAME window of ``kernel``/``stride``."""
-    top, bottom = same_pads(x.shape[2], kernel, stride)
-    left, right = same_pads(x.shape[3], kernel, stride)
+    """Pad an NHWC tensor for a SAME window of ``kernel``/``stride``."""
+    top, bottom = same_pads(x.shape[1], kernel, stride)
+    left, right = same_pads(x.shape[2], kernel, stride)
     if top == bottom == left == right == 0:
         return x
-    return F.pad(x, (left, right, top, bottom), value=value)
+    return F.pad(x, (0, 0, left, right, top, bottom), value=value)
 
 
 class Conv(nn.Conv2d):
@@ -115,13 +124,23 @@ class StdConv(nn.Module):
         var, mean = torch.var_mean(self.weight, dim=(1, 2, 3), correction=0,
                                    keepdim=True)
         w = ((self.weight - mean) / torch.sqrt(var + 1e-6)).to(self.dtype)
-        x = pad_same(nchw(x.to(self.dtype)), self.kernel, self.stride)
         w = w.contiguous(memory_format=torch.channels_last)
-        return nhwc(F.conv2d(x, w, stride=self.stride))
+        x = x.to(self.dtype)
+        top, bottom = same_pads(x.shape[1], self.kernel, self.stride)
+        left, right = same_pads(x.shape[2], self.kernel, self.stride)
+        if top == bottom and left == right:
+            padding = (top, left)
+        else:
+            x, padding = pad_same(x, self.kernel, self.stride), 0
+        return nhwc(F.conv2d(nchw(x), w, stride=self.stride, padding=padding))
 
 
 class GroupNormAct(nn.Module):
-    """GroupNorm(32), eps 1e-5, with optional ReLU (timm GroupNormAct)."""
+    """GroupNorm(32), eps 1e-5, with optional ReLU (timm GroupNormAct), over
+    a contiguous NHWC tensor. ``residual`` (x's shape) is added after the
+    norm and a ReLU follows the add, whatever ``act``: a post-activation
+    bottleneck's ``relu(norm3(y) + shortcut)``. One call of
+    ``group_norm.group_norm_nhwc`` (the kernel on the card)."""
 
     def __init__(self, channels: int, act: bool = True, groups: int = 32, *,
                  dtype=torch.float32, device=None):
@@ -130,14 +149,18 @@ class GroupNormAct(nn.Module):
         self.gn = nn.GroupNorm(groups, channels, eps=1e-5, dtype=dtype,
                                device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = nhwc(self.gn(nchw(x)))
-        return F.relu(y) if self.act else y
+    def forward(self, x: torch.Tensor,
+                residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return group_norm.group_norm_nhwc(
+            x, self.gn.weight, self.gn.bias, groups=self.gn.num_groups,
+            eps=self.gn.eps, relu=self.act or residual is not None,
+            residual=residual)
 
 
 class ResNetV2Bottleneck(nn.Module):
     """Post-activation bottleneck: 1x1+GN+relu -> 3x3(stride)+GN+relu ->
-    1x1(4x)+GN, plus the (projected) shortcut, relu after the add."""
+    1x1(4x)+GN, plus the (projected) shortcut, relu after the add (the add
+    and the ReLU in ``norm3``'s epilogue)."""
 
     def __init__(self, in_c: int, mid: int, stride: int = 1,
                  downsample: bool = False, *, dtype=torch.float32,
@@ -160,8 +183,7 @@ class ResNetV2Bottleneck(nn.Module):
         shortcut = self.ds_norm(self.ds_conv(x)) if self.downsample else x
         y = self.norm1(self.conv1(x))
         y = self.norm2(self.conv2(y))
-        y = self.norm3(self.conv3(y))
-        return F.relu(y + shortcut)
+        return self.norm3(self.conv3(y), residual=shortcut)
 
 
 class HybridResNetStages(nn.Module):
@@ -190,7 +212,7 @@ class HybridResNetStages(nn.Module):
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         x = self.stem_norm(self.stem_conv(x))
         # SAME max-pool 3x3/2 with -inf padding (timm MaxPool2dSame)
-        x = nhwc(F.max_pool2d(pad_same(nchw(x), 3, 2, float("-inf")), 3, 2))
+        x = nhwc(F.max_pool2d(nchw(pad_same(x, 3, 2, float("-inf"))), 3, 2))
         taps = []
         for names in self.stages:
             for name in names:

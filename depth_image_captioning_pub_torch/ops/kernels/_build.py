@@ -25,7 +25,7 @@ from typing import Optional
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC = PKG_DIR / "csrc"
 SOURCES = ("decode_step.cu", "decode_seq.cu", "vit_attention.cu",
-           "nic_seq.cu", "beam_seq.cu")
+           "nic_seq.cu", "beam_seq.cu", "group_norm.cu")
 HEADERS = ("decode_step.cuh", "decode_phases.cuh")
 BUILD_ROOT = PKG_DIR.parent / "build" / "dcap_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -45,6 +45,7 @@ _SIGNATURES = {
     "dcap_nic_max_ctas": [_I],
     "dcap_beam_decode": [_P, _I] + [_P] * 22 + [_I] * 17 + [_P],
     "dcap_beam_max_ctas": [_I] * 3,
+    "dcap_group_norm_nhwc": [_P] * 6 + [_I] * 6 + [ctypes.c_float, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -1,10 +1,11 @@
-"""The five kernels as PyTorch operators in the ``dcap`` namespace.
+"""The package's kernels as PyTorch operators in the ``dcap`` namespace.
 
     dcap::decode_step         K1, ``decode_step.fused_decode_core``
     dcap::greedy_decode       K2, ``decode_seq.fused_greedy_decode``
     dcap::nic_greedy_decode   K3, ``nic_seq.fused_nic_greedy_decode``
     dcap::beam_decode         K4, ``beam_seq.fused_beam_decode``
     dcap::vit_attention       K5, ``vit_attention.fused_attention``
+    dcap::group_norm_nhwc     K6, ``group_norm.group_norm_nhwc``
 
 Its kernel module defines each operator (``implement``), so it exists
 once the module is imported, with two implementations and a fake rule:
@@ -19,7 +20,7 @@ operator; weight structs go in as ``Tensor[]``.
 An exported program (``export.py``) keeps each operator as one node, so
 one artifact runs the kernels on the card and the plain versions on the
 CPU. Loading such a program needs the operators registered:
-``register_all()`` imports the five kernel modules.
+``register_all()`` imports the kernel modules.
 """
 
 from __future__ import annotations
@@ -46,10 +47,13 @@ SCHEMAS = {
                    "-> (Tensor, Tensor, Tensor)",
     "vit_attention": "vit_attention(Tensor q, Tensor k, Tensor v, "
                      "float scale, int n_valid) -> Tensor",
+    "group_norm_nhwc": "group_norm_nhwc(Tensor x, Tensor weight, "
+                       "Tensor bias, Tensor? residual, int groups, "
+                       "float eps, bool relu) -> Tensor",
 }
 
 MODULES = ("decode_step", "decode_seq", "nic_seq", "beam_seq",
-           "vit_attention")
+           "vit_attention", "group_norm")
 
 
 def implement(name: str, cpu: Callable, cuda: Callable,

@@ -12,13 +12,19 @@ the end, which the port has to reproduce.
 
 K5's plain version (``ops/kernels/vit_attention.fused_attention_plain``,
 what the wrapper runs for CPU tensors) is held to the Pallas kernel in
-interpret mode, atol 1e-5."""
+interpret mode, atol 1e-5. K6's plain version
+(``ops/kernels/group_norm.group_norm_nhwc_plain``, what every
+``GroupNormAct`` runs on the CPU) is held to ``nn.GroupNorm`` on the NCHW
+tensor, atol 1e-5 (f32 sums in another order), and its residual epilogue
+to the bottleneck's former ``relu(norm3(y) + shortcut)``, exactly; the
+backbone hands every convolution and GroupNorm a contiguous NHWC tensor."""
 
 import numpy as np
 import pytest
 import jax
 import jax.numpy as jnp
 import torch
+import torch.nn.functional as F
 
 from depth_image_captioning_pub_tpu.models import dpt as jdpt
 from depth_image_captioning_pub_tpu.ops import image_ops as jimg
@@ -26,7 +32,9 @@ from depth_image_captioning_pub_tpu.ops.pallas.vit_attention import (
     fused_attention as jax_fused_attention)
 from depth_image_captioning_pub_torch.models import dpt as tdpt
 from depth_image_captioning_pub_torch.ops import image_ops as timg
-from depth_image_captioning_pub_torch.ops.kernels import vit_attention
+from depth_image_captioning_pub_torch.ops.kernels import (
+    group_norm, vit_attention)
+from depth_image_captioning_pub_torch.ops.pooling import nchw, nhwc
 from depth_image_captioning_pub_torch.utils.jax_bridge import (
     dpt_params_from_jax, flax_state_dict)
 from torch_threads import one_thread  # noqa: F401 (autouse fixture)
@@ -225,6 +233,138 @@ def test_group_norm_act(act):
     want, got = _pair(jdpt.GroupNormAct(act=act),
                       tdpt.GroupNormAct(64, act=act), x)
     _close(got, want)
+
+
+@pytest.mark.parametrize("shape", [(2, 5, 7, 64), (1, 6, 6, 256),
+                                   (3, 4, 3, 1024), (2, 3, 3, 96)])
+@pytest.mark.parametrize("relu", [False, True])
+def test_group_norm_plain_matches_nn_group_norm(shape, relu):
+    """K6's plain version on NHWC == nn.GroupNorm(32) on the NCHW tensor
+    (then the ReLU), f32."""
+    x = torch.from_numpy(_arr(17, *shape, scale=3.0) + 0.5)
+    c = shape[-1]
+    gn = torch.nn.GroupNorm(32, c, eps=1e-5)
+    with torch.no_grad():
+        gn.weight.copy_(torch.from_numpy(_arr(18, c) * 0.2 + 1.0))
+        gn.bias.copy_(torch.from_numpy(_arr(19, c) * 0.1))
+        want = nhwc(gn(nchw(x).contiguous()))
+        got = group_norm.group_norm_nhwc(x, gn.weight, gn.bias, relu=relu)
+    _close(got, torch.relu(want) if relu else want)
+    assert got.is_contiguous() and got.dtype == x.dtype
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_group_norm_residual_epilogue_is_the_old_arithmetic(dtype):
+    """norm3 with the shortcut == relu(norm3(y) + shortcut) as the
+    bottleneck computed it before the add moved into the norm: bit for
+    bit, the add in f32 and rounded to the dtype."""
+    norm3 = tdpt.GroupNormAct(64, act=False, dtype=dtype)
+    with torch.no_grad():
+        norm3.gn.weight.copy_(torch.from_numpy(_arr(20, 64) * 0.2 + 1.0))
+        norm3.gn.bias.copy_(torch.from_numpy(_arr(21, 64) * 0.1))
+    y = torch.from_numpy(_arr(22, 2, 6, 5, 64, scale=2.0)).to(dtype)
+    shortcut = torch.from_numpy(_arr(23, 2, 6, 5, 64)).to(dtype)
+    with torch.inference_mode():
+        got = norm3(y, residual=shortcut)
+        want = F.relu(norm3(y) + shortcut)
+    assert got.dtype == dtype and torch.equal(got, want)
+
+
+def test_group_norm_rejects_bad_input():
+    x, w = torch.zeros(2, 3, 3, 64), torch.ones(64)
+    gn = group_norm.group_norm_nhwc
+    with pytest.raises(ValueError, match="B>=1"):
+        gn(x[0], w, w)
+    with pytest.raises(ValueError, match="groups"):
+        gn(x, w, w, groups=48)
+    with pytest.raises(ValueError, match="weight and bias must be"):
+        gn(x, w[:32], w)
+    with pytest.raises(ValueError, match="residual has shape"):
+        gn(x, w, w, residual=x[:1])
+    with pytest.raises(TypeError, match="bias"):
+        gn(x, w, w.double())
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        gn(x.half(), w.half(), w.half())
+
+
+def test_group_norm_cpu_takes_plain_version():
+    """On CPU tensors the operator runs the plain version and launches
+    nothing, with or without the epilogue."""
+    x = torch.from_numpy(_arr(24, 1, 4, 4, 128))
+    w, b = torch.ones(128), torch.zeros(128)
+    before = group_norm.LAUNCHES
+    for kw in ({}, {"relu": True}, {"residual": x, "relu": True}):
+        got = group_norm.group_norm_nhwc(x, w, b, **kw)
+        want = group_norm.group_norm_nhwc_plain(x, w, b, **kw)
+        assert torch.equal(got, want)
+    assert group_norm.LAUNCHES == before
+
+
+@pytest.mark.parametrize("side", [384, 224])
+@pytest.mark.parametrize("div,c", [(2, 64), (4, 64), (4, 128), (4, 256),
+                                   (8, 128), (8, 256), (8, 512), (16, 256),
+                                   (16, 1024)])
+@pytest.mark.parametrize("vec", [8, 4])
+def test_group_norm_plan_covers_every_row(side, div, c, vec):
+    """K6's tiling at the backbone's shapes: whole row steps a tile
+    (TILE_STEPS, more only where MAX_TILES needs it), every tile holds rows
+    and together they hold each row once, at most MAX_TILES an image, and
+    at 384x384 and B=64 (the main path's chunk) more blocks than the
+    H100's 132 SMs."""
+    hw = (side // div) ** 2
+    tiles, rows = group_norm.plan(hw, c, vec)
+    step = group_norm.THREADS // (c // vec)
+    steps = -(-hw // step)
+    per = max(group_norm.TILE_STEPS, -(-steps // group_norm.MAX_TILES))
+    assert rows == per * step
+    assert 1 <= tiles <= group_norm.MAX_TILES
+    assert (tiles - 1) * rows < hw <= tiles * rows
+    if side == 384:
+        assert tiles * 64 > 132
+
+
+@pytest.mark.parametrize("size", [64, 50])
+def test_backbone_stays_nhwc(size):
+    """Every StdConv and GroupNormAct of the backbone gets a contiguous
+    NHWC tensor with its own channel count last (and a residual of the
+    same kind): no layout round trip between them."""
+    model = tdpt.HybridResNetStages((1, 1, 1))
+    seen = []
+
+    def check(mod, args, kwargs):
+        c = (mod.weight.shape[1] if isinstance(mod, tdpt.StdConv)
+             else mod.gn.num_channels)
+        for t in (*args, *kwargs.values()):
+            if t is None:
+                continue
+            assert t.dim() == 4 and t.shape[-1] == c, (type(mod), t.shape)
+            assert t.is_contiguous(), (type(mod).__name__, t.stride())
+        seen.append(type(mod).__name__)
+
+    for mod in model.modules():
+        if isinstance(mod, (tdpt.StdConv, tdpt.GroupNormAct)):
+            mod.register_forward_pre_hook(check, with_kwargs=True)
+    with torch.inference_mode():
+        taps = model(torch.from_numpy(_arr(25, 2, size, size, 3)))
+    assert seen.count("StdConv") == 13 and seen.count("GroupNormAct") == 13
+    assert all(t.is_contiguous() for t in taps)
+
+
+def test_dpt_routes_every_group_norm(monkeypatch):
+    """Each GroupNormAct call is one call of ``group_norm_nhwc``: 13 a
+    forward of the tests' DPT (stem, 3 bottlenecks x 3, 3 downsample
+    norms), the three norm3s with their shortcut as the residual."""
+    calls = []
+    real = group_norm.group_norm_nhwc
+
+    def spy(x, *args, **kw):
+        calls.append(kw.get("residual") is not None)
+        return real(x, *args, **kw)
+    monkeypatch.setattr(group_norm, "group_norm_nhwc", spy)
+    model = tdpt.DPTDepthModel(**TINY)
+    with torch.inference_mode():
+        model(torch.zeros(1, 64, 64, 3))
+    assert len(calls) == 13 and sum(calls) == 3
 
 
 @pytest.mark.parametrize("size", [8, 9])

@@ -13,7 +13,7 @@ CPU, each case of ``tests/test_export.py`` on the port, and more:
   on a CUDA device); the format-version guard;
 * ``export.main`` then ``caption.main --export-dir`` == the live caption
   CLI, on a working directory with a base-soft experiment;
-* the five kernels as operators: ``torch.library.opcheck`` of each
+* the six kernels as operators: ``torch.library.opcheck`` of each
   (schema, fake rule, dispatch), and a soft artifact's graph calls
   ``dcap::greedy_decode`` once (K2 is one node, not an unrolled plain
   loop) where a sampled one calls ``dcap::decode_step`` once a step.
@@ -312,6 +312,7 @@ def _op_cases():
     nic.requires_grad_(False)
     nw = nic.seq_weights()
     q = torch.randn(4, 10, 32, generator=g)
+    x = torch.randn(2, 3, 5, 64, generator=g)
     return {
         "decode_step": (feats, proj, w.embed[torch.tensor([1, 2, 3])], h, c,
                         list(w.step)),
@@ -323,12 +324,15 @@ def _op_cases():
         "beam_decode": (feats, proj, h, c, decode_seq.seq_list(w), 3, 6, 1,
                         2),
         "vit_attention": (q, q.flip(1).contiguous(), q * 0.5, 0.125, 8),
+        "group_norm_nhwc": (x, 1 + 0.1 * torch.randn(64, generator=g),
+                            0.1 * torch.randn(64, generator=g),
+                            x.flip(1).contiguous(), 32, 1e-5, True),
     }
 
 
 @pytest.mark.parametrize("name", ["decode_step", "greedy_decode",
                                   "nic_greedy_decode", "beam_decode",
-                                  "vit_attention"])
+                                  "vit_attention", "group_norm_nhwc"])
 def test_operator_opcheck(name):
     args = _op_cases()[name]
     result = torch.library.opcheck(getattr(torch.ops.dcap, name).default,
@@ -361,7 +365,7 @@ def test_wrappers_dispatch_through_the_operators():
     implementation is the plain version (no kernel launch)."""
     from torch.utils._python_dispatch import TorchDispatchMode
     from depth_image_captioning_pub_torch.ops.kernels import (
-        beam_seq, decode_step, nic_seq, vit_attention)
+        beam_seq, decode_step, group_norm, nic_seq, vit_attention)
     from depth_image_captioning_pub_torch.ops.kernels.nic_seq import (
         NICSeqWeights)
 
@@ -377,6 +381,7 @@ def test_wrappers_dispatch_through_the_operators():
     w = decode_seq.seq_weights(cases["greedy_decode"][4])
     x0, nws, _ = cases["nic_greedy_decode"]
     q, k, v, scale, n_valid = cases["vit_attention"]
+    x, gw, gb, r, groups, eps, _ = cases["group_norm_nhwc"]
     calls = {
         "decode_step": lambda: decode_step.fused_decode_core(
             feats, proj, emb, h, c, w.step),
@@ -389,8 +394,11 @@ def test_wrappers_dispatch_through_the_operators():
             end_id=2),
         "vit_attention": lambda: vit_attention.fused_attention(
             q, k, v, scale=scale, n_valid=n_valid),
+        "group_norm_nhwc": lambda: group_norm.group_norm_nhwc(
+            x, gw, gb, groups=groups, eps=eps, relu=True, residual=r),
     }
-    mods = (decode_step, decode_seq, nic_seq, beam_seq, vit_attention)
+    mods = (decode_step, decode_seq, nic_seq, beam_seq, vit_attention,
+            group_norm)
     launches = [m.LAUNCHES for m in mods]
     for name, call in calls.items():
         seen.clear()

@@ -26,7 +26,13 @@ in f32, atol 1e-5 (sums in another order); in bf16 (the tensor-core
 route, at d = 32, 64, 128 and N from 1 to 2048), atol of one bf16 ulp of
 max|v| (2^-7 * max|v|; each output is a convex mix of v's rows, so
 |out| <= max|v|), because p and the output are rounded to bf16 and an f32
-sum in another order can round either way. A two-set scored evaluation
+sum in another order can round either way. NHWC GroupNorm (K6) against
+its plain version: f32 within 1e-5 of max|y|, bf16 within one bf16 ulp of
+each value (two with a residual: the normalised value's and the sum's)
+plus that floor, since only the order of the f32 statistic sums differs
+(``_gn_check``); against nn.GroupNorm on the NCHW copy the same, and in
+bf16 the reference's own error besides, since it applies its mean and
+rstd rounded to bf16 (``_gn_library_slack``); two calls bit-identical. A two-set scored evaluation
 (``engine/evaluate.evaluate`` over checkpoint files that
 ``utils/checkpoint.save_component`` wrote) on the card agrees with the
 same run on the CPU on >= 99% of caption words, with finite scores (f32
@@ -36,12 +42,13 @@ encoders: cuDNN and the CPU sum the convs in other orders).
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from depth_image_captioning_pub_torch.models.decoder import AttentionDecoder
 from depth_image_captioning_pub_torch.ops.attention import project_features
 from depth_image_captioning_pub_torch.models.nic import NICDecoder
 from depth_image_captioning_pub_torch.ops.kernels import (
-    beam_seq, decode_seq, decode_step, nic_seq, vit_attention)
+    beam_seq, decode_seq, decode_step, group_norm, nic_seq, vit_attention)
 
 pytestmark = pytest.mark.cuda
 
@@ -473,6 +480,178 @@ def test_vit_attention_rejects_outside_envelope(cuda):
     q = q[4:].view(2, 8, 64)       # contiguous, 8 bytes off a boundary
     with pytest.raises(ValueError, match="16-byte"):
         vit_attention.fused_attention(q, q, q, scale=1.0, n_valid=8)
+
+
+# ---- NHWC GroupNorm (K6) ---------------------------------------------------
+
+# every distinct (H, W, C) of a GroupNorm in the DPT's ResNetV2 backbone at
+# 384x384 and at 224x224 (``--dpt-size 224``): the stem's, then stages 0-2
+GN_SHAPES = [(s // d, s // d, c) for s in (384, 224)
+             for d, c in ((2, 64), (4, 64), (4, 128), (4, 256), (8, 128),
+                          (8, 256), (8, 512), (16, 256), (16, 1024))]
+GN_EPILOGUES = ("none", "relu", "residual")
+
+
+def _gn_inputs(seed, shape, dev, dtype):
+    """x ~ N(0.5, 2^2) (a group mean away from 0), weight ~ U(0.5, 1.5),
+    bias ~ N(0, 0.1), a residual ~ N(0, 1)."""
+    rng = np.random.default_rng(seed)
+    c = shape[-1]
+
+    def t(a):
+        return torch.from_numpy(a.astype(np.float32)).to(dev, dtype)
+    return (t(0.5 + 2.0 * rng.standard_normal(shape)),
+            t(rng.uniform(0.5, 1.5, c)), t(0.1 * rng.standard_normal(c)),
+            t(rng.standard_normal(shape)))
+
+
+def _gn_library(x, w, b, relu, residual):
+    """nn.GroupNorm's function on the NCHW-contiguous tensor, then the
+    bottleneck's ``relu(y + shortcut)`` or the ReLU, back to NHWC."""
+    y = F.group_norm(x.permute(0, 3, 1, 2).contiguous(), 32, w, b, 1e-5)
+    y = y.permute(0, 2, 3, 1)
+    if residual is not None:
+        y = y + residual
+    return torch.relu(y) if relu else y
+
+
+def _gn_library_slack(x, w):
+    """How far nn.GroupNorm's bf16 route lies from f32 statistics: it
+    returns its mean and rstd in x's dtype (``native_group_norm``) and
+    applies the rounded ones, so a = rstd * w and the mean each carry a
+    relative error of up to 2^-9, and y = (x - mean) a + bias moves by up to
+    2^-9 |a| (|x - mean| + |mean|); 2^-8 of that leaves room for the
+    products' own rounding. 0 in f32, where the statistics stay f32."""
+    if x.dtype != torch.bfloat16:
+        return 0.0
+    bsz, h, wd, c = x.shape
+    xf = x.float().reshape(bsz, h * wd, 32, c // 32)
+    var, mean = torch.var_mean(xf, dim=(1, 3), correction=0, keepdim=True)
+    a = torch.rsqrt(var + 1e-5) * w.float().reshape(1, 1, 32, c // 32)
+    slack = 2 ** -8 * a.abs() * ((xf - mean).abs() + mean.abs())
+    return slack.reshape(x.shape)
+
+
+def _gn_check(got, want, normed=None, slack=0.0):
+    """|got - want| <= tol elementwise. The kernel and ``want`` sum the f32
+    statistics in other orders: in f32 that is within 1e-5 max|want|; in
+    bf16 a value whose f32 form lies within that difference of a rounding
+    boundary rounds the other way, by one bf16 ulp (<= 2^-7 of its size),
+    and with a residual the normalised value's flip (one ulp of
+    ``normed``, the value before the add) carries into the rounded sum:
+    tol = 2^-7 (|want| + |normed|) + 1e-5 max|want|. ``slack``: what the
+    reference's own rounding adds (``_gn_library_slack``)."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    bf16 = got.dtype == torch.bfloat16
+    got, want = got.float(), want.float()
+    tol = 1e-5 * want.abs().max().item() + slack
+    if bf16:
+        tol = tol + 2 ** -7 * want.abs()
+        if normed is not None:
+            tol = tol + 2 ** -7 * normed.float().abs()
+    err = (got - want).abs()
+    bad = err > tol
+    assert not bad.any(), (
+        f"{int(bad.sum())} of {bad.numel()} values off; the worst, "
+        f"{err[bad].max().item():.3g}, got {got[bad][0].item():.6g} want "
+        f"{want[bad][0].item():.6g} (first off)")
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("bsz", [1, 64])
+@pytest.mark.parametrize("shape", GN_SHAPES)
+def test_group_norm_matches_plain_and_library(cuda, shape, bsz, dtype):
+    """K6 at each backbone shape, without an epilogue, with the ReLU and
+    with the residual add + ReLU, against its plain version and against
+    nn.GroupNorm on the NCHW copy followed by the same ReLU or add; two
+    launches a call."""
+    x, w, b, r = _gn_inputs(GN_SHAPES.index(shape) + bsz,
+                            (bsz,) + shape, cuda, getattr(torch, dtype))
+    with torch.inference_mode():
+        normed = group_norm.group_norm_nhwc_plain(x, w, b)
+        slack = _gn_library_slack(x, w)
+        for epilogue in GN_EPILOGUES:
+            relu = epilogue != "none"
+            res = r if epilogue == "residual" else None
+            before = group_norm.LAUNCHES
+            got = group_norm.group_norm_nhwc(x, w, b, relu=relu,
+                                             residual=res)
+            torch.cuda.synchronize()
+            assert group_norm.LAUNCHES == before + 2
+            assert got.is_contiguous()
+            pre = normed if res is not None else None
+            plain = group_norm.group_norm_nhwc_plain(x, w, b, relu=relu,
+                                                     residual=res)
+            _gn_check(got, plain, pre)
+            _gn_check(got, _gn_library(x, w, b, relu, res), pre, slack)
+
+
+def test_group_norm_repeats_bit_identical(cuda):
+    x, w, b, r = _gn_inputs(7, (64, 96, 96, 256), cuda, torch.bfloat16)
+    with torch.inference_mode():
+        one = group_norm.group_norm_nhwc(x, w, b, relu=True, residual=r)
+        two = group_norm.group_norm_nhwc(x, w, b, relu=True, residual=r)
+    assert torch.equal(one, two)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("shape", [(96, 96, 256), (48, 48, 512),
+                                   (24, 24, 256)])
+def test_group_norm_is_batch_invariant(cuda, shape, dtype):
+    """An image normalises to the same bits alone, in a batch of 15 or 30
+    (a two-rank and a one-rank training batch) or of 64: the tiling, and
+    so the order of the statistic sums, depends on H*W and C alone."""
+    x, w, b, r = _gn_inputs(8, (64,) + shape, cuda, getattr(torch, dtype))
+    with torch.inference_mode():
+        full = group_norm.group_norm_nhwc(x, w, b, relu=True, residual=r)
+        for lo, hi in ((0, 1), (0, 15), (15, 30), (3, 33), (63, 64)):
+            part = group_norm.group_norm_nhwc(
+                x[lo:hi].contiguous(), w, b, relu=True,
+                residual=r[lo:hi].contiguous())
+            assert torch.equal(part, full[lo:hi]), (lo, hi)
+
+
+def test_group_norm_rejects_outside_envelope(cuda):
+    x, w, b, r = _gn_inputs(8, (2, 4, 4, 64), cuda, torch.bfloat16)
+    gn = group_norm.group_norm_nhwc
+    with torch.inference_mode():
+        with pytest.raises(ValueError, match="32 groups"):
+            gn(x, w, b, groups=16)
+        x2, w2, b2, _ = _gn_inputs(9, (2, 4, 4, 384), cuda, torch.bfloat16)
+        with pytest.raises(ValueError, match="16-byte vectors"):
+            gn(x2, w2, b2)          # 12 channels a group straddle vectors
+        x2, w2, b2, _ = _gn_inputs(9, (2, 4, 4, 1056), cuda, torch.bfloat16)
+        with pytest.raises(ValueError, match="at most 1024"):
+            gn(x2, w2, b2)
+        with pytest.raises(ValueError, match="contiguous"):
+            gn(x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1), w, b)
+        flat = torch.zeros(x.numel() + 1, device=cuda, dtype=x.dtype)
+        with pytest.raises(ValueError, match="16-byte"):
+            gn(flat[1:].view(x.shape), w, b)
+        with pytest.raises(ValueError, match="residual has shape"):
+            gn(x, w, b, residual=r[:1])
+        with pytest.raises(TypeError, match="weight"):
+            gn(x, w.float(), b)
+    with pytest.raises(ValueError, match="no backward"):
+        gn(x, w.clone().requires_grad_(), b)
+
+
+def test_dpt_group_norms_launch_the_kernel(cuda):
+    """Every GroupNorm of the DPT at full width (stem, 16 bottlenecks x 3,
+    3 downsample norms: 52 a forward) launches K6 twice on the card."""
+    from depth_image_captioning_pub_torch.models.dpt import (
+        DPTDepthEstimator, GroupNormAct)
+    est = DPTDepthEstimator(device=cuda)
+    est.init(torch.Generator().manual_seed(0))
+    norms = [m for m in est.model.modules() if isinstance(m, GroupNormAct)]
+    assert len(norms) == 52
+    images = torch.randint(0, 256, (2, 224, 224, 3), dtype=torch.uint8,
+                           device=cuda)
+    before = group_norm.LAUNCHES
+    depth = est.depth_fn()(images)
+    torch.cuda.synchronize()
+    assert group_norm.LAUNCHES == before + 2 * 52
+    assert bool(torch.isfinite(depth).all())
 
 
 # ---- NIC greedy decode (K3) -------------------------------------------------
@@ -1011,6 +1190,7 @@ def _operator_cases(dev):
     nic, x0 = _nic(NIC_SHAPES["B16"], dev, seed=32)
     nw = nic.seq_weights()
     q, k, v = _qkv(33, (12, 577, 64), dev, "bfloat16")
+    x, gw, gb, r = _gn_inputs(34, (4, 96, 96, 256), dev, torch.bfloat16)
     proj = step[1]
     return {
         "decode_step": (decode_step, decode_step._decode_step_cuda,
@@ -1035,6 +1215,10 @@ def _operator_cases(dev):
                           lambda: vit_attention.fused_attention(
                               q, k, v, scale=0.125, n_valid=577),
                           (q, k, v, 0.125, 577)),
+        "group_norm_nhwc": (group_norm, group_norm._gn_cuda,
+                            lambda: group_norm.group_norm_nhwc(
+                                x, gw, gb, relu=True, residual=r),
+                            (x, gw, gb, r, 32, 1e-5, True)),
     }
 
 
@@ -1044,23 +1228,24 @@ def _flat(out):
 
 @pytest.mark.parametrize("name", ["decode_step", "greedy_decode",
                                   "nic_greedy_decode", "beam_decode",
-                                  "vit_attention"])
+                                  "vit_attention", "group_norm_nhwc"])
 def test_operator_equals_direct_kernel(cuda, name):
     """The public wrapper on CUDA tensors goes through ``dcap::<name>``,
-    whose CUDA implementation launches the kernel (one launch), and the
-    operator's outputs equal a direct call of that implementation bit for
-    bit (the kernels' sums run in a fixed order)."""
+    whose CUDA implementation launches the kernel (one launch; K6 two),
+    and the operator's outputs equal a direct call of that implementation
+    bit for bit (the kernels' sums run in a fixed order)."""
     mod, direct, wrapper, args = _operator_cases(cuda)[name]
+    per_call = 2 if name == "group_norm_nhwc" else 1
     seen = _SeenOps()
     with torch.inference_mode():
         before = mod.LAUNCHES
         with seen.mode:
             via_wrapper = wrapper()
         assert f"dcap.{name}.default" in seen.seen
-        assert mod.LAUNCHES == before + 1
+        assert mod.LAUNCHES == before + per_call
         via_op = getattr(torch.ops.dcap, name)(*args)
         want = direct(*args)
-        assert mod.LAUNCHES == before + 3
+        assert mod.LAUNCHES == before + 3 * per_call
     for got in (via_op, via_wrapper):
         for a, b in zip(_flat(got), _flat(want)):
             assert a.device.type == "cuda" and torch.equal(a, b)
