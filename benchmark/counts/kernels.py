@@ -52,3 +52,18 @@ def vit_attention_seconds(z: int, n: int, d: int, elem_bytes: int = 2
                           ) -> float:
     ops, nbytes = vit_attention(z, n, d, elem_bytes)
     return least_seconds(nbytes, ops, BF16_FLOPS)
+
+
+def group_norm(b: int, hw: int, c: int, residual: bool,
+               elem_bytes: int = 2) -> int:
+    """K6, one launch pair (statistics, apply) over x [b, hw, c]: its
+    bytes, x read once, y written once and the residual read once; the
+    statistics pass's second read of x is not counted, nor the few
+    operations a value."""
+    return (3 if residual else 2) * b * hw * c * elem_bytes
+
+
+def group_norm_seconds(b: int, hw: int, c: int, residual: bool,
+                       elem_bytes: int = 2) -> float:
+    return least_seconds(group_norm(b, hw, c, residual, elem_bytes), 0,
+                         BF16_FLOPS)

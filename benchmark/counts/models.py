@@ -3,7 +3,7 @@ from a configuration's sizes (``configs/*.json``)."""
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 
 def conv(cin: int, cout: int, k: int, hout: int, wout: int = None) -> int:
@@ -15,21 +15,22 @@ def linear(rows: int, fin: int, fout: int) -> int:
     return 2 * rows * fin * fout
 
 
-def _out(size: int, k: int, s: int, p: int) -> int:
+def out_side(size: int, k: int, s: int, p: int) -> int:
+    """The output side of a k x k convolution of stride s, padding p."""
     return (size + 2 * p - k) // s + 1
 
 
 def resnet(layers: Sequence[int], image_size: int = 224) -> int:
     """ResNet (v1.5 bottleneck, stride on the 3x3 conv), one image."""
-    h = _out(image_size, 7, 2, 3)
+    h = out_side(image_size, 7, 2, 3)
     ops = conv(3, 64, 7, h)
-    h = _out(h, 3, 2, 1)
+    h = out_side(h, 3, 2, 1)
     cin = 64
     for stage, blocks in enumerate(layers):
         p = 64 * 2 ** stage
         for b in range(blocks):
             s = 2 if stage > 0 and b == 0 else 1
-            ho = _out(h, 3, s, 1)
+            ho = out_side(h, 3, s, 1)
             ops += conv(cin, p, 1, h) + conv(p, p, 3, ho) + conv(p, 4 * p, 1,
                                                                  ho)
             if b == 0:
@@ -38,59 +39,37 @@ def resnet(layers: Sequence[int], image_size: int = 224) -> int:
     return ops
 
 
-def _ceil(a: int, b: int) -> int:
-    return -(-a // b)
-
-
-def dpt(cfg: Dict) -> int:
-    """DPT-hybrid at ``cfg["image_size"]``, one image: the ResNetV2 stages,
-    the ViT blocks (attention's two products included), the readouts,
-    the reassembly, the fusion blocks and the head."""
-    size, patch, f = cfg["image_size"], cfg["patch"], cfg["features"]
-    dim, blocks = cfg["vit_dim"], cfg["vit_blocks"]
-    h = _ceil(size, 2)
-    ops = conv(3, 64, 7, h)
-    h = _ceil(h, 2)
-    cin, taps = 64, []
-    for si, n in enumerate(cfg["resnet_layers"]):
-        mid = 64 * 2 ** si
-        for bi in range(n):
-            s = 2 if si > 0 and bi == 0 else 1
-            ho = _ceil(h, s)
-            ops += conv(cin, mid, 1, h) + conv(mid, mid, 3, ho)
-            ops += conv(mid, 4 * mid, 1, ho)
-            if bi == 0:
-                ops += conv(cin, 4 * mid, 1, ho)
-            cin, h = 4 * mid, ho
-        taps.append((cin, h))
-    g = size // patch
-    n = 1 + g * g
-    ops += conv(cin, dim, 1, g)                       # patch projection
-    mlp = dim * cfg.get("mlp_ratio", 4)
-    ops += blocks * (linear(n, dim, 3 * dim) + 2 * 2 * n * n * dim
+def vit_blocks(n: int, dim: int, mlp: int, blocks: int) -> int:
+    """``blocks`` ViT blocks over ``n`` tokens of width ``dim`` (MLP width
+    ``mlp``): qkv, attention's two products, the projection and the MLP."""
+    return blocks * (linear(n, dim, 3 * dim) + 2 * 2 * n * n * dim
                      + linear(n, dim, dim) + linear(n, dim, mlp)
                      + linear(n, mlp, dim))
-    ops += 2 * linear(g * g, 2 * dim, dim)            # two readouts
-    ops += 2 * conv(dim, dim, 1, g)                   # pp3_conv, pp4_conv
-    g4 = _out(g, 3, 2, 1)
-    ops += conv(dim, dim, 3, g4)                      # pp4_down
-    rn = [taps[0], taps[1], (dim, g), (dim, g4)]
-    ops += sum(conv(c, f, 3, s) for c, s in rn)       # layer*_rn
-    for i, (_, s) in zip((4, 3, 2, 1), reversed(rn)):
+
+
+def readout(g: int, dim: int) -> int:
+    """One 'project' readout over a g x g grid of tokens."""
+    return linear(g * g, 2 * dim, dim)
+
+
+def fuse_and_head(levels: Sequence[Tuple[int, int]], f: int) -> int:
+    """The four reassembled maps, (channels, side) finest first: their 3x3
+    convs to ``f`` features, the four fusion blocks and the head."""
+    ops = sum(conv(c, f, 3, s) for c, s in levels)    # layer*_rn
+    for i, (_, s) in zip((4, 3, 2, 1), reversed(levels)):
         units = 1 if i == 4 else 2                    # res2, and res1
         ops += units * 2 * conv(f, f, 3, s) + conv(f, f, 1, s)
-    s = 2 * rn[0][1]
+    s = 2 * levels[0][1]
     ops += conv(f, f // 2, 3, s)
-    ops += conv(f // 2, 32, 3, 2 * s) + conv(32, 1, 1, 2 * s)
-    return ops
+    return ops + conv(f // 2, 32, 3, 2 * s) + conv(32, 1, 1, 2 * s)
 
 
 def depth_cnn(channels: Sequence[int], image_size: int = 224) -> int:
     """The depth CNN on one [224, 224, 1] map."""
     c1, c2, c3 = channels
-    h = _out(image_size, 7, 3, 0)
+    h = out_side(image_size, 7, 3, 0)
     ops = conv(1, c1, 7, h)
-    h = _out(h // 3, 3, 1, 0)
+    h = out_side(h // 3, 3, 1, 0)
     ops += conv(c1, c2, 3, h)
     return ops + conv(c2, c3, 1, h // 3)
 
@@ -112,21 +91,26 @@ def sizes(cfg: Dict) -> Dict[str, int]:
             "h": cfg["dim_hidden"], "v": cfg["vocab_size"]}
 
 
-def frozen_per_image(cfg: Dict) -> int:
+DptOps = Optional[Callable[[Dict], int]]
+
+
+def frozen_per_image(cfg: Dict, dpt_ops: DptOps = None) -> int:
     """The frozen stages of one image: the RGB encoder and, with depth,
-    the DPT."""
+    the DPT, counted by ``dpt_ops`` (the ``ops`` of the depth model's
+    count file, given the ``dpt`` block)."""
     ops = resnet(cfg["resnet_layers"], cfg["image_size"])
     if "dpt" in cfg:
-        ops += dpt(cfg["dpt"])
+        ops += dpt_ops(cfg["dpt"])
     return ops
 
 
-def caption(cfg: Dict, steps: int) -> int:
-    """One caption whose decode ran ``steps`` steps: the frozen stages,
-    the depth CNN, the decoder's set-up and its steps."""
+def caption(cfg: Dict, steps: int, dpt_ops: DptOps = None) -> int:
+    """One caption whose decode ran ``steps`` steps: the frozen stages
+    (the DPT's counted by ``dpt_ops``), the depth CNN, the decoder's
+    set-up and its steps."""
     z = sizes(cfg)
-    ops = frozen_per_image(cfg) + decoder_setup(z["k"], z["d"], z["a"],
-                                                z["h"])
+    ops = frozen_per_image(cfg, dpt_ops) + decoder_setup(
+        z["k"], z["d"], z["a"], z["h"])
     if "depth_cnn" in cfg:
         ops += depth_cnn(cfg["depth_cnn"]["channels"], cfg["image_size"])
     return ops + steps * decoder_step(**z)

@@ -31,7 +31,6 @@ if __name__ == "__main__":      # the harness and the program importable
 from dcbench import judge, program, spec
 from reference import decoder as ref_decoder
 from reference.depth_cnn import depth_features
-from reference.dpt import depth_maps
 from reference.ops import Rounding, tf32
 from reference.resnet import grid_features
 
@@ -42,19 +41,21 @@ def offline(cell: spec.Cell, seed: int, device) -> Dict[str, float]:
     """The control over the requests a run compares (the seeded one and
     the next), as the program would caption them."""
     cfg, tr = cell.config, cell.traffic
-    served = program.build(cfg, seed, device).served
+    served = program.build(cfg, seed, device, cell.dpt).served
     n, p = tr["images_per_request"], tr["distinct_requests"]
     pool = program.images(seed, n * p, cfg["image_size"], device).numpy(
     ).reshape(p, n, cfg["image_size"], cfg["image_size"], 3)
     first = int(np.random.default_rng(seed).integers(0, p))
-    records = [dict(_captions(cfg, served, pool[req], device), request=req)
+    records = [dict(_captions(cfg, served, pool[req], device, cell.dpt),
+                    request=req)
                for req in sorted({first, (first + 1) % p})]
-    return judge.captions(cfg, served, records, pool, device)
+    return judge.captions(cfg, served, records, pool, device, cell.dpt)
 
 
-def _captions(cfg, served, images, device) -> Dict:
+def _captions(cfg, served, images, device, dpt) -> Dict:
     """The control's record of captioning ``images`` (host uint8), in
-    blocks: each stage's output and the tokens."""
+    blocks: each stage's output and the tokens (``dpt``: the depth
+    model, whose reference makes the maps)."""
     ids = program.special_ids(cfg["vocab_size"])
     dec = ref_decoder.weights(served)
     feats, maps, dep, toks = [], [], [], []
@@ -65,8 +66,8 @@ def _captions(cfg, served, images, device) -> Dict:
                                   cfg["enc_img_size"], r=LOW))
             fused = f
             if "dpt" in cfg:
-                m = LOW(depth_maps(judge.dpt_weights(served), x, cfg["dpt"],
-                                   r=LOW))
+                m = LOW(dpt.reference.depth_maps(
+                    judge.dpt_weights(served), x, cfg["dpt"], r=LOW))
                 g = LOW(depth_features(served, m, cfg["enc_img_size"],
                                        r=LOW))
                 maps.append(m)

@@ -7,7 +7,8 @@ Captioning (``captions``) compares four numbers, each a stage by itself:
 * ``rgb_feat``: the RGB encoder's features against the reference
   encoder's, the largest difference over the largest reference value;
 * ``depth_map``: the depth maps the depth CNN read against the reference
-  DPT's maps of the same images (maps lie in [0, 1]);
+  DPT's maps of the same images (maps lie in [0, 1]), the reference of
+  the model the configuration names (``reference/<model>.py``);
 * ``depth_feat``: the depth CNN's features against the reference CNN's on
   the program's maps;
 * ``logit_gap``: the widest gap by which a served token's logit lies
@@ -28,9 +29,9 @@ import numpy as np
 import torch
 
 from dcbench.program import special_ids
+from dcbench.spec import DepthModel
 from reference import decoder as ref_decoder
 from reference.depth_cnn import depth_features
-from reference.dpt import depth_maps
 from reference.ops import tf32
 from reference.resnet import grid_features
 
@@ -65,10 +66,12 @@ def dpt_weights(served: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
 
 
 def readings(cfg: Dict, served: Dict[str, torch.Tensor], images_u8,
-             feats, maps, dep, tokens, device) -> Dict[str, float]:
+             feats, maps, dep, tokens, device,
+             dpt: Optional[DepthModel]) -> Dict[str, float]:
     """The numbers of one request: ``images_u8`` [n, H, W, 3] (host),
     the program's ``feats``, ``maps``, ``dep`` [n, ...] (``maps`` and
-    ``dep`` None without depth) and ``tokens``."""
+    ``dep`` None without depth) and ``tokens``; ``dpt``: the depth model
+    whose reference makes the maps."""
     dec = ref_decoder.weights(served)
     ids = special_ids(cfg["vocab_size"])
     # largest difference over largest reference value, over the blocks
@@ -91,7 +94,8 @@ def readings(cfg: Dict, served: Dict[str, torch.Tensor], images_u8,
                 served, x, cfg["resnet_layers"], cfg["enc_img_size"]))
             fused = feats[lo:hi].float()
             if maps is not None:
-                m_ref = depth_maps(dpt_weights(served), x, cfg["dpt"])
+                m_ref = dpt.reference.depth_maps(dpt_weights(served), x,
+                                                 cfg["dpt"])
                 out["depth_map"] = max(out["depth_map"], float(
                     (maps[lo:hi].float() - m_ref).abs().max()))
                 gap("depth_feat", dep[lo:hi], depth_features(
@@ -107,7 +111,7 @@ def readings(cfg: Dict, served: Dict[str, torch.Tensor], images_u8,
 
 
 def captions(cfg: Dict, served, records: List[Dict], pool: np.ndarray,
-             device) -> Dict[str, float]:
+             device, dpt: Optional[DepthModel]) -> Dict[str, float]:
     """The worst readings over the requests kept (each with the chunks'
     captured tensors, its tokens and its index in ``pool``)."""
     worst: Dict[str, float] = {}
@@ -117,7 +121,7 @@ def captions(cfg: Dict, served, records: List[Dict], pool: np.ndarray,
                        _rows(rec["feats"], n),
                        _rows(rec["maps"], n) if rec["maps"] else None,
                        _rows(rec["dep"], n) if rec["dep"] else None,
-                       rec["tokens"], device)
+                       rec["tokens"], device, dpt)
         for k, v in got.items():
             worst[k] = max(worst.get(k, 0.0), v) if k != "tokens_compared" \
                 else worst.get(k, 0) + v

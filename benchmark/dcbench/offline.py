@@ -78,8 +78,8 @@ class ClosedLoop:
         from depth_image_captioning_pub_torch.pipeline import CaptionPipeline
         cfg, tr = cell.config, cell.traffic
         self.cfg, self.tr, self.seed, self.device = cfg, tr, seed, device
-        self.trace = trace
-        self.prog = program.build(cfg, seed, device)
+        self.cell, self.trace = cell, trace
+        self.prog = program.build(cfg, seed, device, cell.dpt)
         laps("weights")
         cap = self.prog.cap
         trace.hook(cap.encoder, "rgb_encoder")
@@ -143,7 +143,8 @@ class ClosedLoop:
         done = reqs
         captions = sum(len(r["steps"]) for r in done)
         span = (done[-1]["t1"] - done[0]["t0"]) if done else float("nan")
-        flops = sum(counts.caption(self.cfg, int(s))
+        dpt_ops = self.cell.dpt.counts.ops if self.cell.dpt else None
+        flops = sum(counts.caption(self.cfg, int(s), dpt_ops)
                     for r in done for s in r["steps"])
         chunks = [r["steps"][rows] for r in done
                   for rows in chunk_rows(len(r["steps"]),
@@ -172,4 +173,4 @@ class ClosedLoop:
         if torch.device(self.device).type == "cuda":
             torch.cuda.empty_cache()
         return judge.captions(self.cfg, served, records, self.pool,
-                              self.device)
+                              self.device, self.cell.dpt)

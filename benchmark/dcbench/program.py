@@ -10,6 +10,7 @@ from typing import Dict, Optional
 import torch
 
 from dcbench import weights as W
+from dcbench.spec import DepthModel
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 SPECIALS = ("<start>", "<end>", "<unk>", "<null>")
@@ -48,9 +49,34 @@ class Program:
     served: Dict[str, torch.Tensor]  # every drawn tensor, float32
 
 
-def build(cfg: Dict, seed: int, device) -> Program:
+# keys of a ``dpt`` block that the harness reads itself and does not pass
+# on as they are: the model's name (its files) and the dtype (passed as a
+# torch dtype)
+HARNESS_KEYS = ("model", "dtype")
+# keys the port's ``DPTDepthModel`` takes no argument for, whatever the
+# model, and the value it holds: its ViT blocks' MLP ratio is fixed at 4
+PORT_FIXED = {"mlp_ratio": 4}
+
+
+def dpt_kwargs(d: Dict) -> Dict:
+    """``DPTDepthEstimator``'s keyword arguments (less ``device``) of a
+    configuration's ``dpt`` block, for every model alike: every key but
+    ``HARNESS_KEYS`` and ``PORT_FIXED`` (whose values the block has to
+    hold), lists as tuples, and ``dtype`` as a torch dtype."""
+    kw = {k: tuple(v) if isinstance(v, list) else v for k, v in d.items()
+          if k not in HARNESS_KEYS}
+    for k, v in PORT_FIXED.items():
+        if kw.pop(k, v) != v:
+            raise ValueError(f"the port's DPT holds {k} at {v}, not {d[k]}")
+    kw["dtype"] = DTYPES[d["dtype"]]
+    return kw
+
+
+def build(cfg: Dict, seed: int, device,
+          dpt_model: Optional[DepthModel]) -> Program:
     """The captioner (and DPT) of ``cfg`` on ``device`` with weights drawn
-    from ``seed``."""
+    from ``seed``; the DPT's draw by the rule of ``dpt_model``, the depth
+    model ``cfg`` names (``spec.depth_model``; None without a DPT)."""
     from depth_image_captioning_pub_torch.models.captioner import (
         build_captioner)
     from depth_image_captioning_pub_torch.models.dpt import DPTDepthEstimator
@@ -83,16 +109,10 @@ def build(cfg: Dict, seed: int, device) -> Program:
     del values
     dpt = None
     if "dpt" in cfg:
-        d = cfg["dpt"]
-        dpt = DPTDepthEstimator(
-            dtype=DTYPES[d["dtype"]], image_size=d["image_size"],
-            device=device, features=d["features"], vit_dim=d["vit_dim"],
-            vit_heads=d["vit_heads"], vit_blocks=d["vit_blocks"],
-            hooks=tuple(d["hooks"]), resnet_layers=tuple(d["resnet_layers"]),
-            patch=d["patch"], pretrain_grid=d.get("pretrain_grid", 24),
-            gelu=d["gelu"], head=d["head"])
+        dpt_rule = dpt_model.rule
+        dpt = DPTDepthEstimator(device=device, **dpt_kwargs(cfg["dpt"]))
         values = W.draw(W.named(dpt.model, "dpt."),
-                        lambda n, s: W.dpt_rule(n[4:], s, res),
+                        lambda n, s: dpt_rule(n[4:], s, res),
                         W.seed_generator(seed, STREAM_DPT, device), device)
         served.update(W.load_into(dpt.model, values, "dpt."))
         del values

@@ -14,6 +14,8 @@ embedding at +-``embed_scale`` (so that the token fed back moves the
 state), and one LSTM unit made a clock that ends the captions
 (``length_clock``). Values are rounded to the dtype each tensor is
 stored in by the program, so the reference reads what the program reads.
+A depth model's rule is a file of its own, ``weight_rules/<model>.py``,
+found by the model's name (``spec.DepthModel``).
 """
 
 from __future__ import annotations
@@ -33,7 +35,9 @@ DECODER_FAN_IN = {"att_w_enc": 0, "att_b_enc": "d", "att_w_dec": 0,
                   "f_beta_w": 0, "f_beta_b": "h"}
 
 
-def _fan_in(shape) -> int:
+def fan_in(shape) -> int:
+    """The fan-in of a [out, in, ...] kernel (a transposed convolution's
+    [in, out, k, k] needs its own)."""
     return int(math.prod(shape[1:])) if len(shape) > 1 else int(shape[0])
 
 
@@ -44,7 +48,7 @@ def resnet_rule(name: str, shape, res: float, last: str = "",
     by ``out_scale``; every later block is positively homogeneous, so the
     features scale by it."""
     if name.endswith(".weight") and len(shape) == 4:
-        return "normal", math.sqrt(2.0 / _fan_in(shape))
+        return "normal", math.sqrt(2.0 / fan_in(shape))
     if name.endswith("running_var"):
         return "const", 1.0
     if name.endswith(".weight"):                  # a BatchNorm's scale
@@ -54,35 +58,10 @@ def resnet_rule(name: str, shape, res: float, last: str = "",
     return "const", 0.0                           # biases, running means
 
 
-RELU_AFTER = ("fc1", "project", "conv1", "head_conv1", "head_conv2",
-              "stem_conv")
-
-
-def dpt_rule(name: str, shape, res: float) -> Rule:
-    """The DPT-hybrid (``DPTDepthModel``'s names)."""
-    parts = name.split(".")
-    if name in ("cls_token", "pos_embed"):
-        return "normal", 0.02
-    if name.endswith(".bias"):
-        return "const", 0.0
-    if ".gn." in name or parts[-2].startswith("norm"):   # GN, LayerNorm
-        return "const", res if ".norm3." in name else 1.0
-    if name.startswith("resnet."):                # weight-standardized
-        return "normal", 1.0
-    if name == "head_conv3.weight":               # the map stays positive
-        return "abs_normal", math.sqrt(2.0 / _fan_in(shape))
-    layer = parts[-2]
-    gain = 2.0 if layer in RELU_AFTER else 1.0
-    std = math.sqrt(gain / _fan_in(shape))
-    residual_last = layer in ("proj", "fc2") or (
-        layer == "conv2" and ".res" in name)
-    return "normal", std * (res if residual_last else 1.0)
-
-
 def depth_cnn_rule(name: str, shape, res: float) -> Rule:
     """The depth CNN (``depth_module.``)."""
     if name.endswith(".weight") and len(shape) == 4:
-        return "normal", math.sqrt(2.0 / _fan_in(shape))
+        return "normal", math.sqrt(2.0 / fan_in(shape))
     if name.endswith(("running_var", "bn1.weight", "bn2.weight",
                       "bn3.weight")):
         return "const", 1.0

@@ -1,16 +1,17 @@
 """The harness on the CPU at tiny sizes: names resolve through files (a
-traffic mix and a per-layer metric added from a temporary directory run
-with no change to the harness), a sound run comes out correct, and the
-control and each planted fault of a cell come out not correct under the
-cell's limits."""
+traffic mix, a per-layer metric and a depth model added from a temporary
+directory run with no change to the harness), a sound run comes out
+correct, and the control and each planted fault of a cell come out not
+correct under the cell's limits."""
 
 import json
 import shutil
+import types
 
 import pytest
 import torch
 
-from dcbench import control, faults, spec
+from dcbench import bench, control, faults, program, spec
 from dcbench.bench import run_cell
 from tiny import BENCH, make_root
 
@@ -68,6 +69,112 @@ def test_added_mix_and_metric_resolve_by_name(root):
     assert plain["metrics"]["captions_per_s.base"]["value"] == plain[
         "info"]["captions"]
     assert list(out)[-1] == "checks"
+
+
+def add_depth_model(root, model, offset=None):
+    """A configuration ``depth-twin`` whose ``dpt`` block names ``model``,
+    a copy of the DPT-hybrid's files under that name (its reference's
+    maps moved by ``offset``), and its cell ``depth-twin.offline``: new
+    files and entries only: the configuration is the DPT-hybrid's, with
+    ``model`` added."""
+    b = root / "benchmark"
+    for kind in spec.DPT_FILES:
+        text = (BENCH / kind / "dpt_hybrid.py").read_text()
+        if kind == "reference" and offset is not None:
+            text += ("\n_maps = depth_maps\n\n\ndef depth_maps(*a, **k):\n"
+                     f"    return _maps(*a, **k) + {offset}\n")
+        (b / kind / f"{model}.py").write_text(text)
+    cfg = json.loads((b / "configs" / "depth-soft.json").read_text())
+    cfg["dpt"] = dict(cfg["dpt"], model=model)
+    (b / "configs" / "depth-twin.json").write_text(json.dumps(cfg))
+    (b / "cells" / "depth-twin.offline.json").write_text(
+        (BENCH / "cells" / "depth-soft.offline.json").read_text())
+    s = json.loads((root / "BENCHMARK.json").read_text())
+    s["configs"].append({"name": "depth-twin", "source": "test",
+                         "file": "benchmark/configs/depth-twin.json",
+                         "reduced": [], "why": "test"})
+    s["workloads"].append({"name": "depth-twin.offline", "config":
+                           "depth-twin", "traffic": "offline", "chips": 1,
+                           "why": "test"})
+    for m in s["end_to_end"] + s["per_layer"]:
+        if "depth-soft.offline" in m.get("workloads", []):
+            m["workloads"].append("depth-twin.offline")
+    (root / "BENCHMARK.json").write_text(json.dumps(s))
+    return cfg
+
+
+def test_added_depth_model_resolves_by_name(root):
+    """A depth model named by a configuration: its reference, count and
+    weight rule are the files of its name in the cell's own directory."""
+    cfg = add_depth_model(root, "dpt_twin")
+    cell = spec.resolve(root, "depth-twin.offline")
+    assert cell.dpt.name == "dpt_twin"
+    b = root / "benchmark"
+    assert cell.dpt.path("reference") == b / "reference" / "dpt_twin.py"
+    hybrid_cfg = dict(cfg, dpt={k: v for k, v in cfg["dpt"].items()
+                                if k != "model"})
+    hybrid = spec.depth_model(hybrid_cfg)
+    assert hybrid.name == "dpt_hybrid"
+    assert cell.dpt.counts.ops(cfg["dpt"]) == hybrid.counts.ops(cfg["dpt"])
+    out = run(root, "depth-twin.offline", trace=True)
+    assert out["correct"], out["checks"]
+    assert "depth_map" in out["checks"]
+    assert out["metrics"]["mfu.offline"]["value"] > 0
+    assert all(cell.dpt.path(k) in spec._LOADED for k in spec.DPT_FILES)
+    twin = program.build(cfg, 5, "cpu", cell.dpt).served
+    same = program.build(hybrid_cfg, 5, "cpu", hybrid).served
+    assert twin.keys() == same.keys()
+    assert all(torch.equal(twin[k], same[k]) for k in twin)
+
+
+def test_named_reference_is_the_one_read(root):
+    """The copy's reference, its maps moved by 0.5, fails ``depth_map``."""
+    add_depth_model(root, "dpt_offset", offset=0.5)
+    out = run(root, "depth-twin.offline")
+    assert not out["correct"]
+    assert out["checks"]["depth_map"]["value"] > 0.5 - 1e-3 > out[
+        "checks"]["depth_map"]["limit"]
+    assert all(v["value"] <= v["limit"] for k, v in out["checks"].items()
+               if k != "depth_map")
+
+
+def test_missing_depth_model_fails_at_resolve(root, monkeypatch, capsys):
+    add_depth_model(root, "dpt_gone")
+    (root / "benchmark" / "counts" / "dpt_gone.py").unlink()
+    with pytest.raises(FileNotFoundError, match="counts/dpt_gone.py"):
+        spec.resolve(root, "depth-twin.offline")
+    monkeypatch.chdir(root)
+    assert bench.main(["--workload", "depth-twin.offline", "--seed", "1",
+                       "--seconds", "1"]) == 2
+    got = capsys.readouterr()
+    assert "dpt_gone" in got.err and got.out == ""
+
+
+def test_roofline_k6_reads_the_group_norm_launches(root):
+    """``roofline_k6``: the bound of each chunk's 52 GroupNorms over the
+    two kernels' device time; nothing where the launches do not match."""
+    cell = spec.resolve(root, "depth-soft.offline")
+    norms = cell.dpt.counts.group_norms(cell.config["dpt"])
+    chunks = [[12] * 4, [9] * 1]
+    ops = [(f"void dcap::gn::{k}_kernel<float, 4>(...)", 0, 1000, 0)
+           for _ in range(len(chunks) * len(norms))
+           for k in ("stats", "apply")]
+    ops += [("attention_bf16_kernel", 0, 10 ** 9, 0)]
+    trace = types.SimpleNamespace(
+        ops_named=lambda w: [o for o in ops if w in o[0]])
+    ctx = types.SimpleNamespace(cell=cell, trace=trace,
+                                counts={"chunk_steps": chunks})
+    read = spec.reader(cell.bench_dir, "roofline_k6.offline")
+    from counts import kernels
+    least = sum(kernels.group_norm_seconds(len(rows), s * s, c, res, 4)
+                for rows in chunks for s, c, res in norms)
+    want = 100.0 * least / (2 * len(chunks) * len(norms) * 1e-6)
+    assert read(ctx) == pytest.approx(want, rel=1e-12)
+    ctx.counts = {"chunk_steps": chunks + [[9]]}
+    assert read(ctx) is None
+    base = spec.resolve(root, "base-soft.offline")
+    assert read(types.SimpleNamespace(cell=base, trace=trace,
+                                      counts={"chunk_steps": chunks})) is None
 
 
 @pytest.mark.parametrize("cell", CELLS)

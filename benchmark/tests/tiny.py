@@ -1,6 +1,7 @@
 """A benchmark root at a size a CPU test holds: the real cells' traffic
-kinds and readers over tiny configurations (ResNet blocks 1,1,1,1, a
-3-block DPT at 64x64, a 60-word vocabulary)."""
+kinds, readers and depth models' files over tiny configurations (ResNet
+blocks 1,1,1,1, a DPT of one block more than it has taps at 64x64, a
+60-word vocabulary)."""
 
 from __future__ import annotations
 
@@ -9,13 +10,22 @@ import json
 import shutil
 from pathlib import Path
 
+from dcbench.spec import DPT_FILES
+
 BENCH = Path(__file__).resolve().parents[1]
 ROOT = BENCH.parent
 
-TINY_DPT = {"image_size": 64, "patch": 16, "pretrain_grid": 4, "vit_dim": 128,
-            "vit_heads": 4, "vit_blocks": 3, "mlp_ratio": 4, "hooks": [1, 2],
-            "resnet_layers": [1, 1, 1], "features": 32, "dtype": "float32",
-            "gelu": "erf", "head": "full"}
+
+def tiny_dpt(d: dict) -> dict:
+    """A ``dpt`` block at 64x64 in float32: width 128 of 4 heads,
+    features 32, the taps after blocks 1.. and one block more, one
+    ResNetV2 block a stage (where the model has them)."""
+    d = dict(d, image_size=64, pretrain_grid=4, vit_dim=128, vit_heads=4,
+             features=32, dtype="float32", vit_blocks=len(d["hooks"]) + 1,
+             hooks=list(range(1, len(d["hooks"]) + 1)))
+    if "resnet_layers" in d:
+        d["resnet_layers"] = [1] * len(d["resnet_layers"])
+    return d
 
 
 def tiny_config(name: str) -> dict:
@@ -23,7 +33,7 @@ def tiny_config(name: str) -> dict:
     cfg.update(resnet_layers=[1, 1, 1, 1], vocab_size=60,
                encoder_dtype="float32")
     if "dpt" in cfg:
-        cfg["dpt"] = dict(TINY_DPT)
+        cfg["dpt"] = tiny_dpt(cfg["dpt"])
         cfg["depth_cnn"] = dict(cfg["depth_cnn"], dtype="float32")
     return cfg
 
@@ -38,14 +48,16 @@ def tiny_traffic(name: str) -> dict:
 def make_root(tmp: Path, cells: dict = None) -> Path:
     """``tmp`` laid out as a checkout's benchmark: ``BENCHMARK.json`` (the
     real one's cells and metrics), tiny configurations and traffic, the
-    real readers, and the ``cells`` files (default: the real ones'
-    reports and no limits, so every check passes)."""
+    real readers and depth models' files, and the ``cells`` files
+    (default: the real ones' reports and no limits, so every check
+    passes)."""
     spec = json.loads((ROOT / "BENCHMARK.json").read_text())
     b = tmp / "benchmark"
     for sub in ("configs", "traffic", "cells"):
         (b / sub).mkdir(parents=True, exist_ok=True)
-    shutil.copytree(BENCH / "layer_metrics", b / "layer_metrics",
-                    dirs_exist_ok=True)
+    for sub in ("layer_metrics",) + DPT_FILES:
+        shutil.copytree(BENCH / sub, b / sub, dirs_exist_ok=True,
+                        ignore=shutil.ignore_patterns("__pycache__"))
     for c in spec["configs"]:
         (b / "configs" / f"{c['name']}.json").write_text(json.dumps(
             tiny_config(c["name"])))
